@@ -1,0 +1,353 @@
+#!/usr/bin/env python3
+"""Bring-up check of the PyTorch port (mapping_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from a checkout of the repository on a machine with an NVIDIA Hopper
+card, the CUDA toolkit (nvcc) and PyTorch built for CUDA; neither JAX nor
+the JAX package is imported. Phases, each printing what it found:
+
+  1. the card: refuses to run without CUDA; prints the card's name and
+     power limit as nvidia-smi gives them;
+  2. build: compiles mapping_tpu_torch/csrc/ccl.cu for sm_90a into build/;
+  3. kernels: the CUDA CCL kernels against their plain PyTorch versions
+     and scipy.ndimage.label, exact, on test cases and serving shapes, then
+     kernel and plain times at (20, 300, 300);
+  4. slice: a ResNet101 UNetPipeline (32 filters, deconv, BN folded,
+     bfloat16, random weights from a seeded torch.Generator) serves 3
+     batches of 20 uint8 300^2 tiles through `transform`; the CCL launch
+     counts of that run must be above 0, the kernel path must equal the
+     plain path on the same probabilities, a float32 pipeline on the card
+     must agree with a float32 forward on the CPU, and one batch of dense
+     probabilities must go through the overflow escalation.
+
+Prints one JSON line on the kernels, then as its last line
+{"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
+and no result is printed.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+N_BATCHES, BATCH, TILE = 3, 20, 300
+DEVICE = "cuda"
+SOURCE = "mapping_tpu_torch/csrc/ccl.cu"
+REPLACES = {"ccl_label_raw": "mapping_tpu/ops/ccl_pallas.py:127",
+            "ccl_renumber": "mapping_tpu/ops/ccl_pallas.py:141"}
+
+
+def card():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this check runs only on a CUDA card")
+    if not (ROOT / "mapping_tpu_torch").is_dir():
+        raise SystemExit(f"chip_smoke: no mapping_tpu_torch package beside "
+                         f"{Path(__file__).name}; run it from a checkout")
+    sys.path.insert(0, str(ROOT))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    line = smi.stdout.strip().splitlines()[0]
+    print(line)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    return line
+
+
+def ccl_cases(gen):
+    """name -> (N, H, W) bool mask on the card."""
+    def noise(n, h, w, density):
+        return torch.rand((n, h, w), generator=gen) < density
+
+    rects = torch.zeros((2, 48, 48), dtype=torch.bool)
+    for b in range(2):
+        for _ in range(6):
+            y, x = torch.randint(0, 38, (2,), generator=gen).tolist()
+            h, w = torch.randint(3, 12, (2,), generator=gen).tolist()
+            rects[b, y:y + h, x:x + w] = True
+    spiral = torch.zeros((1, 32, 32), dtype=torch.bool)
+    spiral[0, 2, 2:30] = True
+    spiral[0, 2:30, 29] = True
+    spiral[0, 29, 4:30] = True
+    spiral[0, 6:30, 4] = True
+    spiral[0, 6, 4:26] = True
+    dots = torch.zeros((2, TILE, TILE), dtype=torch.bool)
+    dots[:, ::2, ::2] = True  # 22,500 single-pixel components per image
+    snake = torch.zeros((1, TILE, TILE), dtype=torch.bool)
+    snake[0, ::2] = True  # one 45,150-pixel path: rows joined at alternate ends
+    snake[0, 1::4, -1] = True
+    snake[0, 3::4, 0] = True
+    cases = {
+        "rects": rects, "noise48": noise(1, 48, 48, 0.45), "spiral": spiral,
+        "empty16": torch.zeros((1, 16, 16), dtype=torch.bool),
+        "full16": torch.ones((1, 16, 16), dtype=torch.bool),
+        **{f"batch20_d{d}": noise(BATCH, TILE, TILE, d)
+           for d in (0.3, 0.5, 0.7)},
+        "noise304": noise(2, 304, 304, 0.5),
+        "nonsquare": noise(3, 40, 57, 0.55),
+        "wide": noise(2, 120, 333, 0.6),
+        "empty20": torch.zeros((BATCH, TILE, TILE), dtype=torch.bool),
+        "full20": torch.ones((BATCH, TILE, TILE), dtype=torch.bool),
+        "dots": dots, "snake": snake,
+    }
+    return {k: v.to(DEVICE) for k, v in cases.items()}
+
+
+def cuda_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_phase(gen):
+    from scipy import ndimage
+
+    from mapping_tpu_torch.kernels import ccl as K
+    from mapping_tpu_torch.ops.ccl import _label_raw, _renumber
+
+    err = {"ccl_label_raw": 0, "ccl_renumber": 0}
+    for name, m in ccl_cases(gen).items():
+        h, w = m.shape[-2:]
+        raw_k = K.label_raw(m)
+        ren_k = K.renumber(raw_k)
+        raw_p = _label_raw(m, h + w)
+        ren_p = _renumber(raw_p)
+        ren_from_plain = K.renumber(raw_p)
+        torch.cuda.synchronize()
+        e_raw = int((raw_k.long() - raw_p.long()).abs().max())
+        e_ren = max(int((ren_k.long() - ren_p.long()).abs().max()),
+                    int((ren_from_plain.long() - ren_p.long()).abs().max()))
+        ren_np, m_np = ren_k.cpu().numpy(), m.cpu().numpy()
+        n_comp = [ndimage.label(m_np[b])[1] for b in range(m_np.shape[0])]
+        scipy_ok = all(np.array_equal(ren_np[b], ndimage.label(m_np[b])[0])
+                       for b in range(m_np.shape[0]))
+        print(f"kernel case {name} {tuple(m.shape)}: components max "
+              f"{max(n_comp)}, |raw kernel - plain| {e_raw}, "
+              f"|renumber kernel - plain| {e_ren}, scipy equal {scipy_ok} "
+              f"(tolerance: exact)")
+        if e_raw or e_ren or not scipy_ok:
+            raise AssertionError(f"CCL kernel disagrees on case {name}")
+        err["ccl_label_raw"] = max(err["ccl_label_raw"], e_raw)
+        err["ccl_renumber"] = max(err["ccl_renumber"], e_ren)
+
+    # times at the serving shape, in turns: plain, kernel, kernel, plain
+    m = (torch.rand((BATCH, TILE, TILE), generator=gen) < 0.5).to(DEVICE)
+    raw = K.label_raw(m)
+    pairs = {
+        "ccl_label_raw": (lambda: _label_raw(m, 2 * TILE),
+                          lambda: K.label_raw(m)),
+        "ccl_renumber": (lambda: _renumber(raw), lambda: K.renumber(raw)),
+    }
+    times = {}
+    for name, (plain, kernel) in pairs.items():
+        p1, k1, k2, p2 = (cuda_ms(plain, 5), cuda_ms(kernel, 50),
+                          cuda_ms(kernel, 50), cuda_ms(plain, 5))
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"time {name} (20, 300, 300) density 0.5: kernel {k1:.4f} / "
+              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+    return err, times
+
+
+def random_model(depth, gen):
+    """UNetResNet weights from `gen`: He-normal convs (the last conv of
+    each residual branch scaled by 0.2, so that the residual stream does
+    not double per block), small biases, BN affine parameters and running
+    statistics randomised. Each transposed conv is a random channel mix
+    times the bilinear 4x4 kernel: random 4x4 taps would print a
+    checkerboard on the output, and thresholding that gives thousands of
+    one-pixel instances per tile instead of blobs."""
+    from mapping_tpu_torch.models.unet_resnet import UNetResNet
+
+    model = UNetResNet(depth)
+    tap = torch.tensor([1.0, 3.0, 3.0, 1.0]) / 4
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            mod = model.get_submodule(name.rsplit(".", 1)[0])
+            if isinstance(mod, torch.nn.ConvTranspose2d) and p.dim() == 4:
+                mix = torch.randn(p.shape[:2], generator=gen)
+                p.copy_(mix[..., None, None] * torch.outer(tap, tap)
+                        * math.sqrt(2.0 / p.shape[0]))
+            elif p.dim() == 4:
+                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                gain = 0.2 if name.endswith("conv3.weight") else 1.0
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        * gain * math.sqrt(2.0 / fan_in))
+            elif ".bn" in name or ".downsample.1." in name:
+                base = 1.0 if name.endswith("weight") else 0.0
+                p.copy_(base + 0.1 * torch.randn(p.shape, generator=gen))
+            else:
+                p.copy_(0.01 * torch.randn(p.shape, generator=gen))
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                c = mod.num_features
+                mod.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                mod.running_var.copy_(0.75 + 0.5 * torch.rand(c, generator=gen))
+    return model
+
+
+def centre_logits(model, images):
+    """Rescale the final conv so that the class logit difference over
+    `images` has mean 0 and standard deviation 4: about half the pixels
+    are foreground and probabilities do not saturate."""
+    model = model.to(DEVICE).eval()
+    with torch.no_grad():
+        logits = model(images.permute(0, 3, 1, 2))
+        diff = logits[:, 1] - logits[:, 0]
+        centre, scale = diff.mean(), 4.0 / diff.std()
+        w, b = model.final.weight, model.final.bias
+        w[1] = w[0] + scale * (w[1] - w[0])
+        b[1] = b[0] + scale * (b[1] - b[0] - centre)
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def make_tiles(gen, n):
+    """n blobby uint8 (TILE, TILE, 3) tiles: upsampled low-res noise."""
+    low = torch.rand((n, 3, 19, 19), generator=gen)
+    return (torch.nn.functional.interpolate(
+        low, size=(TILE, TILE), mode="bilinear", align_corners=False)
+        * 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous().numpy()
+
+
+def serving_pipeline(gen, probe_tiles):
+    """The slice's UNetPipeline: ResNet101, 32 filters, deconv, bf16, batch
+    BATCH, random weights from `gen` with logits centred on `probe_tiles`.
+    Returns (pipeline, params, state_dict)."""
+    from mapping_tpu_torch.data.loader import infer_batch_resize
+    from mapping_tpu_torch.pipelines import UNetPipeline
+
+    params = {"encoder": "ResNet101", "model_dtype": "bfloat16",
+              "batch_size_inference": BATCH}
+    probe = infer_batch_resize(torch.from_numpy(probe_tiles).to(DEVICE),
+                               (256, 256))
+    state = centre_logits(random_model(101, gen), probe)
+    return UNetPipeline(params, state, device=DEVICE), params, state
+
+
+def slice_phase(gen, smi):
+    from mapping_tpu_torch.data.augment import resize_bilinear
+    from mapping_tpu_torch.infer.postprocess import fused_postprocess
+    from mapping_tpu_torch.infer.serving import FusedServe
+    from mapping_tpu_torch.kernels import ccl as K
+    from mapping_tpu_torch.ops.ccl import _label_raw, _renumber
+    from mapping_tpu_torch.ops.instance import instance_areas_and_prob_sums
+    from mapping_tpu_torch.pipelines import UNetPipeline
+
+    tiles = make_tiles(gen, N_BATCHES * BATCH)
+    pipe, params, state = serving_pipeline(gen, tiles[:BATCH])
+
+    list(pipe.transform(tiles[:BATCH]))  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    K.reset_launches()
+    start = time.perf_counter()
+    rows = list(pipe.transform(tiles))
+    seconds = time.perf_counter() - start
+    launches = dict(K.LAUNCHES)
+    print(f"slice: ResNet101 bf16, {N_BATCHES} batches of {BATCH} tiles "
+          f"{TILE}^2 in {seconds:.4f} s: {seconds / N_BATCHES:.4f} s/batch, "
+          f"{len(rows) / seconds:.2f} images/s on {smi}")
+    print(f"slice: CCL launches in that run {launches}")
+    if len(rows) != N_BATCHES * BATCH:
+        raise AssertionError(f"transform yielded {len(rows)} images")
+    if min(launches.values()) < 1:
+        raise AssertionError("the slice did not go through the CCL kernels")
+    n_inst = [len(trimmed[1]) for _, trimmed in rows]
+    for lab, trimmed in rows:
+        if lab.shape != (2, TILE, TILE) or lab[0].any():
+            raise AssertionError(f"bad labels {lab.shape}")
+        if not np.isfinite(trimmed[1]).all() or min(trimmed[1], default=1) <= 0:
+            raise AssertionError("scores must be finite and positive")
+    print(f"slice: instances per image min {min(n_inst)} max {max(n_inst)}")
+    if max(n_inst) == 0:
+        raise AssertionError("no instances at all")
+
+    # kernel path vs plain path on the same probabilities
+    post = dict(target_size=(TILE, TILE), category_layers=(1, 1),
+                active_layers=(1,))
+    probs = pipe.probs(pipe.preprocess(tiles[:BATCH]))
+    labels, scores, areas = fused_postprocess(probs, **post)
+    layer = resize_bilinear(probs, (TILE, TILE))[..., 1]
+    plain = _renumber(_label_raw(layer > 0.5, 2 * TILE))
+    p_areas, p_sums = instance_areas_and_prob_sums(plain, layer, 256)
+    p_areas, p_sums = p_areas[:, 1:], p_sums[:, 1:]
+    p_scores = torch.where(
+        p_areas > 0,
+        p_sums / p_areas.clamp(min=1).float() * p_areas.float().sqrt(), 0.0)
+    if not (torch.equal(labels[:, 1], plain)
+            and torch.equal(areas[:, 1], p_areas)
+            and torch.allclose(scores[:, 1], p_scores, rtol=1e-6, atol=0)):
+        raise AssertionError("kernel path differs from the plain path")
+    print(f"slice: kernel path = plain path on batch 0 "
+          f"({int(plain.amax())} instances max)")
+
+    # float32 on the card vs float32 on the CPU, 2 images
+    pipe32 = UNetPipeline({**params, "model_dtype": "float32"}, state,
+                         device=DEVICE)
+    cpu32 = UNetPipeline({**params, "model_dtype": "float32"}, state,
+                         device="cpu")
+    p_card = pipe32.probs(pipe32.preprocess(tiles[:2])).cpu()
+    p_cpu = cpu32.probs(cpu32.preprocess(tiles[:2]))
+    p_bf16 = probs[:2].cpu()
+    err32 = float((p_card - p_cpu).abs().max())
+    print(f"slice: float32 probabilities card vs CPU max |diff| {err32:.3e}; "
+          f"bf16 vs float32 CPU max |diff| "
+          f"{float((p_bf16 - p_cpu).abs().max()):.3e}")
+    if not err32 < 1e-3:
+        raise AssertionError("float32 forward on the card disagrees with CPU")
+
+    # overflow escalation through FusedServe.collect
+    p1 = torch.zeros((2, TILE, TILE))
+    p1[0, ::6, ::6] = 1.0  # 2,500 components: pad 256 -> 4096
+    p1[1, ::3, ::3] = 1.0  # 10,000 components: past the 4096 ceiling
+    dense = torch.stack([1 - p1, p1], dim=-1).to(DEVICE)
+    serve = FusedServe(lambda x: x, **post)
+    labels_o, scores_o, areas_o = serve(dense)
+    counts = labels_o[:, 1].max(axis=(1, 2))
+    print(f"overflow: components {counts.tolist()}, instance pad "
+          f"{scores_o.shape[-1]}, first image's instances all scored "
+          f"{bool((areas_o[0, 1, :2500] == 1).all())}")
+    if scores_o.shape[-1] != 4096 or counts.tolist() != [2500, 10000] \
+            or not (areas_o[0, 1, :2500] == 1).all() \
+            or (areas_o[0, 1, 2500:] != 0).any():
+        raise AssertionError("overflow escalation did not run as expected")
+    return launches
+
+
+def main():
+    smi = card()
+    from mapping_tpu_torch.kernels import ccl as K
+
+    built = K.library()[1]
+    print(f"build: {built.path.name} in {built.seconds:.2f} s")
+    for line in built.log.splitlines():
+        print(f"build: {line}")
+    gen = torch.Generator().manual_seed(0)
+    err, times = kernel_phase(gen)
+    launches = slice_phase(gen, smi)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name], "launches": launches[name],
+         "max_abs_err": err[name], "ms": times[name][0],
+         "plain_ms": times[name][1]} for name in REPLACES]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
