@@ -9,7 +9,8 @@ the JAX package is imported. Phases, each printing what it found:
 
   1. the card: refuses to run without CUDA; prints the card's name and
      power limit as nvidia-smi gives them;
-  2. build: compiles mapping_tpu_torch/csrc/ccl.cu for sm_90a into build/;
+  2. build: compiles mapping_tpu_torch/csrc/ccl.cu and conv_dw.cu for
+     sm_90a into build/, one nvcc per source, started together;
   3. kernels: the CUDA CCL kernels against their plain PyTorch versions
      and scipy.ndimage.label, exact, on test cases and serving shapes, then
      kernel and plain times at (20, 300, 300);
@@ -19,7 +20,22 @@ the JAX package is imported. Phases, each printing what it found:
      counts of that run must be above 0, the kernel path must equal the
      plain path on the same probabilities, a float32 pipeline on the card
      must agree with a float32 forward on the CPU, and one batch of dense
-     probabilities must go through the overflow escalation.
+     probabilities must go through the overflow escalation;
+  5. conv_dw: the CUDA filter-gradient kernel against its plain PyTorch
+     version (max |kernel - plain| <= 1e-4 max |plain|) on k = 3 with
+     C = 32, 64, 128, k = 5, a batch of 1, H != W and an all-zero dy, and
+     bit-identical on a rerun; then kernel, plain and cuDNN times at the
+     dW probe's first shape, (64, 32, 256, 256);
+  6. train: a ResNet101 UNetTrainer at the JAX config's defaults (bf16,
+     batch 20, 256^2, weighted loss, Adam with L2 on conv kernels) with
+     seeded random weights fits one epoch of augmented 300^2 tiles; the
+     losses must be finite, and must fall over 5 steps on one batch
+     repeated; one float32 step on the card must match one on the CPU;
+     the dW kernel, run by the dW probe on the input and output gradient
+     of dec0.conv and dec1.block.0.conv captured in a bf16 step, must
+     match the plain version and autograd's weight gradient; the trained
+     weights serve one batch through UNetPipeline. The kernels' launch
+     counts are read from that run.
 
 Prints one JSON line on the kernels, then as its last line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
@@ -39,9 +55,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 N_BATCHES, BATCH, TILE = 3, 20, 300
 DEVICE = "cuda"
-SOURCE = "mapping_tpu_torch/csrc/ccl.cu"
+SOURCES = {"ccl_label_raw": "mapping_tpu_torch/csrc/ccl.cu",
+           "ccl_renumber": "mapping_tpu_torch/csrc/ccl.cu",
+           "conv_dw": "mapping_tpu_torch/csrc/conv_dw.cu"}
 REPLACES = {"ccl_label_raw": "mapping_tpu/ops/ccl_pallas.py:127",
-            "ccl_renumber": "mapping_tpu/ops/ccl_pallas.py:141"}
+            "ccl_renumber": "mapping_tpu/ops/ccl_pallas.py:141",
+            "conv_dw": "tools/dw_probe.py:70"}
+TRAIN_SIZE, TRAIN_STEPS = (256, 256), 5
+DW_PROBE_SHAPE = (64, 32, 256, 256)  # tools/dw_probe.py's first shape, NCHW
+DW_TOL, DW_AUTOGRAD_TOL = 1e-4, 2e-2
 
 
 def card():
@@ -328,19 +350,216 @@ def slice_phase(gen, smi):
     return launches
 
 
+def build_phase():
+    from mapping_tpu_torch.kernels import build, ccl, conv_dw
+
+    for built in build.build_shared_libraries(
+            {k.LIBRARY: k.SOURCES for k in (ccl, conv_dw)}).values():
+        print(f"build: {built.path.name} in {built.seconds:.2f} s")
+        for line in built.log.splitlines():
+            print(f"build: {line}")
+
+
+def conv_dw_phase():
+    from mapping_tpu_torch.kernels import conv_dw as K
+    from mapping_tpu_torch.ops.conv_dw import conv_dw_plain
+    from mapping_tpu_torch.tools.dw_probe import dw_cudnn
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+
+    def randn(shape, channels_last=True):
+        t = torch.randn(shape, generator=gen, device=DEVICE,
+                        dtype=torch.bfloat16)
+        return t.contiguous(memory_format=torch.channels_last) \
+            if channels_last else t
+
+    cases = {  # name -> (x shape, k)
+        "k3_c32": ((8, 32, 64, 64), 3), "k3_c64": ((8, 64, 64, 64), 3),
+        "k3_c128": ((4, 128, 32, 32), 3), "k5_c32": ((4, 32, 40, 40), 5),
+        "batch1": ((1, 32, 256, 256), 3), "h_ne_w_nchw": ((3, 32, 37, 300), 3),
+        "zero_dy": ((2, 32, 64, 64), 3)}
+    max_err = 0.0
+    for name, (shape, k) in cases.items():
+        x = randn(shape, channels_last=name != "h_ne_w_nchw")
+        dy = torch.zeros_like(x) if name == "zero_dy" else randn(
+            shape, channels_last=name != "h_ne_w_nchw")
+        got, again = K.conv_dw(x, dy, k), K.conv_dw(x, dy, k)
+        want = conv_dw_plain(x, dy, k)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"conv_dw case {name} x {tuple(shape)} k {k}: max |kernel - "
+              f"plain| {err:.3e}, max |plain| {scale:.3e}, rerun "
+              f"bit-identical {torch.equal(got, again)} (tolerance "
+              f"{DW_TOL} max |plain|)")
+        if not err <= DW_TOL * scale or not torch.equal(got, again):
+            raise AssertionError(f"conv_dw disagrees on case {name}")
+        max_err = max(max_err, err)
+
+    # times at the probe's first shape, in turns
+    x, dy = randn(DW_PROBE_SHAPE), randn(DW_PROBE_SHAPE)
+    plain, cudnn = (lambda: conv_dw_plain(x, dy, 3)), (lambda: dw_cudnn(x, dy, 3))
+    kernel = lambda: K.conv_dw(x, dy, 3)  # noqa: E731
+    want = plain()
+    err = float((kernel() - want).abs().max())
+    if not err <= DW_TOL * float(want.abs().max()):
+        raise AssertionError("conv_dw disagrees at the probe's shape")
+    p1, c1, k1, k2, c2, p2 = (cuda_ms(plain, 3), cuda_ms(cudnn, 20),
+                              cuda_ms(kernel, 20), cuda_ms(kernel, 20),
+                              cuda_ms(cudnn, 20), cuda_ms(plain, 3))
+    print(f"time conv_dw {DW_PROBE_SHAPE} k 3 bf16: kernel {k1:.4f} / "
+          f"{k2:.4f} ms, cuDNN {c1:.4f} / {c2:.4f} ms, plain {p1:.4f} / "
+          f"{p2:.4f} ms; max |kernel - plain| {err:.3e}")
+    return max(max_err, err), ((k1 + k2) / 2, (p1 + p2) / 2)
+
+
+def stand_in_targets(tiles):
+    """[mask, distance, sqrt(size)] uint16 targets of the tiles' bright
+    blobs, made on the host with scipy (component sizes from
+    ndimage.label, distance to the nearest blob from
+    distance_transform_edt), in the JAX loader's uint16 format. A stand-in
+    until prepare_masks is ported (ROADMAP Slice C)."""
+    from scipy import ndimage
+
+    out = np.zeros(tiles.shape[:3] + (3,), np.uint16)
+    for i, tile in enumerate(tiles):
+        mask = tile.mean(-1) > 140
+        labels, _ = ndimage.label(mask)
+        sizes = np.bincount(labels.ravel())[labels] * mask
+        out[i, ..., 0] = mask
+        out[i, ..., 1] = ndimage.distance_transform_edt(~mask).astype(np.uint16)
+        out[i, ..., 2] = np.sqrt(sizes).astype(np.uint16)
+    return out
+
+
+def trainer(model_dtype, state, device=None):
+    """A UNetTrainer at the JAX config's defaults (mapping_tpu/config.py:
+    ResNet101, 32 filters, deconv, 2 classes, weighted loss w0 50, sigma
+    10, dice 0.2 softmax with smooth 1, CE 1.0, Adam lr 5e-4 with L2 1e-4
+    on conv kernels, flat rate) holding the weights `state`."""
+    from mapping_tpu_torch.train.trainer import UNetTrainer
+
+    t = UNetTrainer(
+        model_params={"encoder": "ResNet101", "dtype": model_dtype},
+        optimizer_params={"lr": 5e-4, "gamma": 1.0, "weight_decay": 1e-4},
+        loss_params={"w0": 50, "sigma": 10, "imsize": TRAIN_SIZE,
+                     "dice_weight": 0.2, "bce_weight": 1.0, "smooth": 1,
+                     "dice_activation": "softmax"},
+        training_config={"epochs": 1, "steps_per_call": 1},
+        input_size=TRAIN_SIZE, device=device or DEVICE)
+    t.model.load_state_dict(state)
+    return t
+
+
+def train_phase(gen, smi):
+    from mapping_tpu_torch.data.loader import (in_memory_train_flow,
+                                               train_batch_resize)
+    from mapping_tpu_torch.kernels import ccl, conv_dw
+    from mapping_tpu_torch.ops.conv_dw import conv_dw_plain
+    from mapping_tpu_torch.pipelines import UNetPipeline
+    from mapping_tpu_torch.tools.dw_probe import train_step_dw
+
+    tiles = make_tiles(gen, (TRAIN_STEPS + 1) * BATCH)
+    targets = stand_in_targets(tiles)
+    print(f"train: targets are a host stand-in (scipy ndimage.label sizes, "
+          f"distance_transform_edt distances) until prepare_masks is ported; "
+          f"foreground share {targets[..., 0].mean():.3f}")
+    state = random_model(101, gen).state_dict()
+    tr = trainer("bfloat16", state)
+
+    def batch(lo, hi):
+        return train_batch_resize(
+            None, torch.from_numpy(tiles[lo:hi]).to(DEVICE),
+            torch.from_numpy(targets[lo:hi]).to(DEVICE), TRAIN_SIZE,
+            augment=False)
+
+    one = batch(0, BATCH)
+    tr.fit(([one], 1))  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    ccl.reset_launches()
+    conv_dw.reset_launches()
+    # the slice: one epoch of augmented batches, the dW probe on one bf16
+    # step's tensors, and serving with the trained weights
+    flow = in_memory_train_flow(tiles[BATCH:], targets[BATCH:], BATCH,
+                                TRAIN_SIZE, torch.Generator().manual_seed(1),
+                                device=DEVICE)
+    start = time.perf_counter()
+    tr.fit(flow)
+    seconds = time.perf_counter() - start
+    losses = tr.train_losses
+    captured = train_step_dw(tr, one, ["dec0.conv", "dec1.block.0.conv"])
+    pipe = UNetPipeline({"encoder": "ResNet101", "model_dtype": "bfloat16",
+                         "batch_size_inference": BATCH}, tr.state_dict(),
+                        device=DEVICE)
+    rows = list(pipe.transform(tiles[:BATCH]))
+    torch.cuda.synchronize()
+    launches = {**ccl.LAUNCHES, **conv_dw.LAUNCHES}
+    print(f"train: ResNet101 bf16, {len(losses)} steps of {BATCH} tiles "
+          f"300^2 -> {TRAIN_SIZE[0]}^2 with augmentation in {seconds:.4f} s: "
+          f"{1e3 * seconds / len(losses):.2f} ms/step, "
+          f"{BATCH * len(losses) / seconds:.2f} images/s (the loss is read "
+          f"back to the host after every step, included) on {smi}")
+    print(f"train: losses {[round(l, 5) for l in losses]}")
+    print(f"train: launches in that run {launches}")
+    if len(losses) < TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"bad losses {losses}")
+    if min(launches.values()) < 1:
+        raise AssertionError("the slice did not go through every kernel")
+    if len(rows) != BATCH or any(lab.shape != (2, TILE, TILE)
+                                 for lab, _ in rows):
+        raise AssertionError("the trained weights did not serve the batch")
+    print(f"train: served {len(rows)} tiles with the trained weights, "
+          f"instances per image max {max(len(t[1]) for _, t in rows)}")
+
+    # the dW kernel on the step's own tensors
+    for name, got in captured.items():
+        plain = conv_dw_plain(got["x"], got["dy"], 3)
+        scale = float(plain.abs().max())
+        e_plain = float((got["kernel"] - plain).abs().max())
+        e_auto = float((got["kernel"] - got["autograd"]).abs().max())
+        print(f"train: conv_dw on {name} x {tuple(got['x'].shape)}: max "
+              f"|kernel - plain| {e_plain:.3e}, max |kernel - autograd "
+              f"(cuDNN bf16)| {e_auto:.3e}, max |plain| {scale:.3e} "
+              f"(tolerances {DW_TOL} and {DW_AUTOGRAD_TOL} max |plain|)")
+        if not (e_plain <= DW_TOL * scale and e_auto <= DW_AUTOGRAD_TOL * scale):
+            raise AssertionError(f"conv_dw disagrees on {name}'s tensors")
+
+    # the loss falls over 5 steps on one un-augmented batch repeated
+    tr.fit(([one] * 5, 5))
+    print(f"train: 5 steps on one batch, losses "
+          f"{[round(l, 5) for l in tr.train_losses]}")
+    if not tr.train_losses[-1] < tr.train_losses[0]:
+        raise AssertionError("the loss did not fall on a repeated batch")
+
+    # one float32 step on the card against one on the CPU, 2 tiles
+    two = {k: v[:2] for k, v in batch(0, 2).items()}
+    steps = {}
+    for device in (DEVICE, "cpu"):
+        t32 = trainer("float32", state, device)
+        t32.fit(([{k: v.to(device) for k, v in two.items()}], 1))
+        steps[device] = (t32.train_losses[0], t32.state_dict())
+    (l_card, s_card), (l_cpu, s_cpu) = steps[DEVICE], steps["cpu"]
+    e_stat = max(float((s_card[k] - s_cpu[k]).abs().max())
+                 / float(s_cpu[k].abs().max()) for k in s_cpu if "running" in k)
+    print(f"train: float32 step card vs CPU: loss {l_card:.6f} vs "
+          f"{l_cpu:.6f} (relative {abs(l_card - l_cpu) / abs(l_cpu):.3e}, "
+          f"tolerance 1e-4), BatchNorm running statistics max |diff| "
+          f"{e_stat:.3e} of each tensor's max (tolerance 1e-3)")
+    if not (abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu) and e_stat <= 1e-3):
+        raise AssertionError("float32 train step on the card disagrees")
+    return launches
+
+
 def main():
     smi = card()
-    from mapping_tpu_torch.kernels import ccl as K
-
-    built = K.library()[1]
-    print(f"build: {built.path.name} in {built.seconds:.2f} s")
-    for line in built.log.splitlines():
-        print(f"build: {line}")
+    build_phase()
     gen = torch.Generator().manual_seed(0)
     err, times = kernel_phase(gen)
     launches = slice_phase(gen, smi)
+    err["conv_dw"], times["conv_dw"] = conv_dw_phase()
+    launches["conv_dw"] = train_phase(gen, smi)["conv_dw"]
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": err[name], "ms": times[name][0],
          "plain_ms": times[name][1]} for name in REPLACES]}))

@@ -14,7 +14,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Sequence
+from typing import Dict, Mapping, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -45,22 +45,49 @@ def nvcc() -> str:
                        "CUDA_HOME")
 
 
-def build_shared_library(name: str, sources: Sequence[Path]) -> Built:
-    """Compile `sources` into `build/lib<name>-<hash>.so`, or reuse it."""
+def _target(name: str, sources: Sequence[Path]) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(Path(src).read_bytes())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return Built(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return Built(out, seconds, proc.stdout + proc.stderr)
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_shared_libraries(specs: Mapping[str, Sequence[Path]]
+                           ) -> Dict[str, Built]:
+    """Compile each library `name -> sources` into
+    `build/lib<name>-<hash>.so`, or reuse it. The nvcc processes start
+    together and run in parallel; `seconds` is each one's wall time until
+    it was collected. A failed build raises, after stopping the others."""
+    results: Dict[str, Built] = {}
+    running = {}
+    try:
+        for name, sources in specs.items():
+            out = _target(name, sources)
+            if out.exists():
+                results[name] = Built(out, 0.0, "")
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            running[name] = (out, tmp, cmd, time.perf_counter(), proc)
+        for name, (out, tmp, cmd, start, proc) in running.items():
+            log = proc.communicate()[0]
+            seconds = time.perf_counter() - start
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with code {proc.returncode}:"
+                                   f"\n{' '.join(cmd)}\n{log}")
+            os.replace(tmp, out)
+            results[name] = Built(out, seconds, log)
+    finally:
+        for *_, proc in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+def build_shared_library(name: str, sources: Sequence[Path]) -> Built:
+    """Compile `sources` into `build/lib<name>-<hash>.so`, or reuse it."""
+    return build_shared_libraries({name: sources})[name]

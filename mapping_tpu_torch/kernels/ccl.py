@@ -24,6 +24,8 @@ import torch
 
 from mapping_tpu_torch.kernels.build import CSRC, build_shared_library
 
+LIBRARY = "mapping_ccl"
+SOURCES = [CSRC / "ccl.cu"]
 LAUNCHES = {"ccl_label_raw": 0, "ccl_renumber": 0}
 
 _library = None
@@ -38,7 +40,7 @@ def library():
     """(ctypes library, Built): compiles csrc/ccl.cu on first use."""
     global _library
     if _library is None:
-        built = build_shared_library("mapping_ccl", [CSRC / "ccl.cu"])
+        built = build_shared_library(LIBRARY, SOURCES)
         lib = ctypes.CDLL(str(built.path))
         for fn in (lib.ccl_label_raw, lib.ccl_renumber):
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [

@@ -6,14 +6,41 @@ torchvision's (`conv1`, `bn1`, `layer1.0.conv1`, `layer1.0.downsample.0`,
 pool is a plain 2x2/2 max pool, as in the reference UNet's conv1.
 """
 
+import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training-mode running variance follows Flax.
+
+    Flax's BatchNorm (momentum 0.9, the same as torch's 0.1) updates the
+    running variance with the biased batch variance; torch uses the
+    unbiased one, n / (n - 1) times larger. The batch norm here updates a
+    copy of the running variance (autograd keeps the buffer it was given),
+    and the increment momentum * unbiased is scaled back by (n - 1) / n
+    into the buffer. State-dict keys, eval mode and the normalisation
+    itself are nn.BatchNorm2d's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        var = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                           True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            keep = (1.0 - self.momentum) * self.running_var
+            self.running_var.copy_((var - keep) * ((n - 1) / n) + keep)
+        return out
 
 
 def conv_bn(cin, cout, kernel, stride=1):
     """Bias-free conv and its BatchNorm (eps 1e-5), as a (conv, bn) pair."""
     return (nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
                       bias=False),
-            nn.BatchNorm2d(cout, eps=1e-5))
+            BatchNorm2d(cout, eps=1e-5))
 
 
 def _downsample(cin, cout, stride):
