@@ -1,8 +1,15 @@
-"""Constants of the serving path, equal to mapping_tpu/constants.py.
+"""Constants equal to mapping_tpu/constants.py.
 
 A copy, not an import: the port runs where the JAX package is not
 installed, and tests/test_torch_serving.py checks that the values agree.
 """
+
+SIZE_COLUMNS = ["height", "width"]
+X_COLUMNS = ["file_path_image"]
+Y_COLUMNS = ["file_path_mask_eroded_0_dilated_0"]
+Y_COLUMNS_SCORING = ["ImageId"]
+
+SEED = 1234
 
 # CATEGORY_IDS[i] is the COCO category id emitted for class-channel i;
 # None means "do not emit annotations for this channel" (background).

@@ -1,7 +1,8 @@
 """Image normalisation, resizing and training augmentation on the device.
 
 Counterpart of mapping_tpu/data/augment.py `_MEAN`/`_STD`,
-`normalize_image`, `resize_bilinear`, `resize_nearest`, and `fast_augment`
+`normalize_image`, `resize_bilinear`, `resize_nearest`, the fixed pads of
+the `crop_and_pad` loader mode (`pad_fixed`), and `fast_augment`
 (the reference's fast_seq: 1-2 of {fliplr(0.5), flipud(0.5), affine
 rotate +-10 deg, translate +-10 %}, applied jointly to images and targets).
 Images keep the JAX package's NHWC layout.
@@ -62,6 +63,39 @@ def resize_nearest(x, size: Tuple[int, int]):
         return torch.floor((i + 0.5) * (1.0 / n_out) * n_in).long()
 
     return x[:, index(x.shape[1], size[0])][:, :, index(x.shape[2], size[1])]
+
+
+def _pad_nhwc(x, pad: Tuple[int, int], mode: str):
+    hp, wp = pad
+    y = F.pad(x.permute(0, 3, 1, 2), (wp, wp, hp, hp), mode=mode)
+    return y.permute(0, 2, 3, 1)
+
+
+def pad_replicate(x, pad: Tuple[int, int]):
+    """Edge-replicate pad of (B, H, W, C) by (h_pad, w_pad) per side
+    (cv2.BORDER_REPLICATE)."""
+    return _pad_nhwc(x, pad, "replicate")
+
+
+def pad_reflect(x, pad: Tuple[int, int]):
+    """Reflect pad of (B, H, W, C) by (h_pad, w_pad) per side without
+    repeating the border pixel (gfedcb|abcdefgh|gfedcb):
+    cv2.BORDER_REFLECT_101, which is torch's "reflect"."""
+    return _pad_nhwc(x, pad, "reflect")
+
+
+#: the reference's PadFixed.PAD_FUNCTION dispatch
+PAD_FUNCTION = {"replicate": pad_replicate, "reflect": pad_reflect}
+
+
+def pad_fixed(x, pad: Tuple[int, int], method: str = "replicate"):
+    """Pad by the configured method name; an unknown one raises."""
+    try:
+        return PAD_FUNCTION[method](x, pad)
+    except KeyError:
+        raise ValueError(
+            f"unknown pad_method {method!r}; expected one of "
+            f"{sorted(PAD_FUNCTION)}") from None
 
 
 def _affine_grid(h, w, angle_deg, tx_frac, ty_frac):

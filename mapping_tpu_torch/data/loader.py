@@ -1,24 +1,45 @@
-"""Batch preprocessing on the device, and an in-memory training flow.
+"""Host decode, batch preprocessing on the device, and the batch flows.
 
-Counterpart of mapping_tpu/data/loader.py for the `resize` loader mode:
-`infer_batch_resize` (`_infer_batch_resize`), `eval_batch_resize`,
-`train_batch_resize` and `_resize_target`, and `in_memory_train_flow`,
-which keeps the `(flow, steps)` contract of `SegmentationLoader._train_gen`
-for tiles already in host memory. Targets are (B, H, W, 3) [mask, distance,
-size] and may arrive as uint16 (the JAX loader's host format); they are
-cast to float32 on the device. Host decode of image files and the
-crop/pad loader modes are not ported yet (ROADMAP items 3 and 12).
+Counterpart of mapping_tpu/data/loader.py:
+- host decode (`load_image`), on a thread pool where the native decoder
+  serves, with the next batches decoded on a worker thread while the
+  device runs (`_Prefetcher`);
+- the device preprocess of both loader modes: `infer_batch_resize`
+  (`_infer_batch_resize`) and `infer_batch_pad` (`_infer_batch_pad`,
+  the `crop_and_pad` mode), `eval_batch_resize`, `train_batch_resize` and
+  `_resize_target`;
+- `SegmentationLoader`, inference half: `infer_preprocess` and the
+  inference flow over image files, whose ragged tail batch is padded with
+  duplicates of the last image and whose `n_images` is the real count;
+- `in_memory_train_flow`, the `(flow, steps)` contract of `_train_gen`
+  for tiles already in host memory.
+Targets are (B, H, W, 3) [mask, distance, size] and may arrive as uint16
+(the JAX loader's host format); they are cast to float32 on the device.
+The file-backed training flow, validation batches with targets from files,
+and tiles of mixed sizes (resized with PIL in the JAX package) are not
+ported yet and raise (ROADMAP item 12).
 """
 
+import os
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from mapping_tpu_torch.data.augment import (apply_fast_augment,
-                                            normalize_image, resize_bilinear,
-                                            resize_nearest,
+from mapping_tpu_torch.data.augment import (PAD_FUNCTION, apply_fast_augment,
+                                            normalize_image, pad_fixed,
+                                            resize_bilinear, resize_nearest,
                                             sample_fast_augment)
+from mapping_tpu_torch.utils import native_decode
+
+
+def load_image(path) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a JPEG or PNG file (utils/native_decode)."""
+    return native_decode.decode_rgb(path)
 
 
 def infer_batch_resize(image_u8: torch.Tensor, size: Tuple[int, int]):
@@ -26,6 +47,14 @@ def infer_batch_resize(image_u8: torch.Tensor, size: Tuple[int, int]):
     resize to `size`, ImageNet normalisation; on the input's device."""
     img = resize_bilinear(image_u8.to(torch.float32) / 255.0, size)
     return normalize_image(img)
+
+
+def infer_batch_pad(image_u8: torch.Tensor, pad: Tuple[int, int],
+                    method: str = "replicate"):
+    """(B, H, W, 3) uint8 -> (B, H + 2 h_pad, W + 2 w_pad, 3) float32:
+    /255, `pad_fixed` by `method`, ImageNet normalisation."""
+    return normalize_image(pad_fixed(image_u8.to(torch.float32) / 255.0,
+                                     pad, method))
 
 
 def _resize_target(target, size: Tuple[int, int]):
@@ -104,3 +133,172 @@ def in_memory_train_flow(images_u8: np.ndarray, targets: np.ndarray,
     flow = _TrainFlow(images_u8, targets, batch_size, size, generator, device,
                       augment)
     return flow, flow.steps
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP item 12)")
+
+
+class _Prefetcher:
+    """Makes the host batches on a worker thread, `depth` ahead of the
+    consumer; an exception in the worker is raised to the consumer."""
+
+    def __init__(self, make_batch, n_batches, depth=2):
+        self.q = queue.Queue(maxsize=depth)
+        self.n = n_batches
+        self._cancelled = False
+
+        def run():
+            try:
+                for i in range(n_batches):
+                    if self._cancelled:
+                        return
+                    self.q.put(("ok", make_batch(i)))
+            except Exception as e:  # surfaced to the consumer in __iter__
+                self.q.put(("err", e))
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def __iter__(self):
+        for _ in range(self.n):
+            kind, item = self.q.get()
+            if kind == "err":
+                raise item
+            yield item
+
+    def cancel(self):
+        """Retire the worker and drop the batches it made."""
+        self._cancelled = True
+        while self.thread.is_alive():
+            try:
+                self.q.get_nowait()
+            except queue.Empty:
+                self.thread.join(timeout=0.05)
+
+
+class _InferFlow:
+    """One pass over the host batches of `make_batch`, each preprocessed
+    on the loader's device: {"image": normalised float32 batch}."""
+
+    def __init__(self, loader, make_batch, steps, n_images):
+        self.loader, self.make_batch = loader, make_batch
+        self.steps, self.n_images = steps, n_images
+
+    def __iter__(self):
+        prefetcher = _Prefetcher(self.make_batch, self.steps)
+        try:
+            for image_b in prefetcher:
+                yield {"image": self.loader.infer_preprocess(image_b)}
+        finally:
+            prefetcher.cancel()
+
+    def __len__(self):
+        return self.steps
+
+
+class SegmentationLoader:
+    """Inference batches of image files or host arrays, preprocessed on
+    `device` by the loader mode: `resize` to `size`, or `crop_and_pad`,
+    which pads each side by `pad` with `pad_method` (replicate or
+    reflect). `decode_seconds` adds up the host time spent decoding and
+    stacking, on the worker threads."""
+
+    def __init__(self, mode: str = "resize",
+                 size: Tuple[int, int] = (256, 256),
+                 pad: Tuple[int, int] = (10, 10),
+                 pad_method: str = "replicate",
+                 batch_size_inference: int = 20,
+                 load_in_memory: bool = False,
+                 device="cuda"):
+        if mode not in ("resize", "crop_and_pad"):
+            raise ValueError(f"unknown loader mode {mode!r}")
+        if pad_method not in PAD_FUNCTION:
+            raise ValueError(f"unknown pad_method {pad_method!r}; expected "
+                             f"one of {sorted(PAD_FUNCTION)}")
+        self.mode = mode
+        self.size = tuple(size)
+        self.pad = tuple(pad)
+        self.pad_method = pad_method
+        self.batch_size_inference = batch_size_inference
+        self.device = torch.device(device)
+        self._cache = {} if load_in_memory else None
+        self._lock = threading.Lock()
+        self.decode_seconds = 0.0
+
+    def _cached(self, path):
+        if self._cache is None:
+            return load_image(path)
+        hit = self._cache.get(path)
+        if hit is None:
+            hit = self._cache[path] = load_image(path)
+        return hit
+
+    def _decode_many(self, paths):
+        """Decode files on up to 8 threads when the native decoder serves
+        them: it releases the GIL for the whole call. The stdlib PNG reader
+        holds the GIL between its numpy calls, and threads contending for
+        it decode slower than one thread, so without the native decoder
+        the files are decoded in turn."""
+        paths = list(paths)
+        workers = min(8, os.cpu_count() or 1)
+        if len(paths) <= 1 or workers <= 1 or not native_decode.available():
+            return [self._cached(p) for p in paths]
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            return list(ex.map(self._cached, paths))
+
+    def _assemble(self, image_paths, idxs):
+        start = time.perf_counter()
+        images = self._decode_many(np.asarray(image_paths)[idxs])
+        if len({im.shape for im in images}) > 1:
+            raise _not_ported("a batch of tiles of mixed sizes")
+        batch = np.stack(images)
+        with self._lock:
+            self.decode_seconds += time.perf_counter() - start
+        return batch
+
+    def infer_preprocess(self, image_u8_batch):
+        """(B, H, W, 3) uint8 (numpy or tensor) -> normalised float32
+        images on the loader's device, by the loader mode."""
+        image = torch.as_tensor(image_u8_batch).to(self.device)
+        if self.mode == "resize":
+            return infer_batch_resize(image, self.size)
+        return infer_batch_pad(image, self.pad, self.pad_method)
+
+    def _infer_flow(self, n, host_batch):
+        """(flow, steps): batches of `batch_size_inference` images
+        host_batch(indices) -> (B, H, W, 3) uint8; the ragged tail is
+        padded with duplicates of the last image, so every batch has one
+        shape, and `flow.n_images` is the real count."""
+        bs = self.batch_size_inference
+        steps = -(-n // bs)
+
+        def make_batch(i):
+            idxs = np.arange(i * bs, min((i + 1) * bs, n))
+            if len(idxs) < bs:
+                idxs = np.concatenate([idxs, np.full(bs - len(idxs),
+                                                     idxs[-1])])
+            return host_batch(idxs)
+
+        return _InferFlow(self, make_batch, steps, n), steps
+
+    def array_flow(self, images_u8):
+        """(flow, steps) over (N, H, W, 3) uint8 tiles in host memory."""
+        images_u8 = np.asarray(images_u8)
+        return self._infer_flow(len(images_u8), lambda idxs: images_u8[idxs])
+
+    def transform(self, X, y=None, X_valid=None, y_valid=None,
+                  train_mode=True, **kwargs):
+        """{"datagen": (flow, steps), "validation_datagen": (None, None)}
+        for the image paths X. Only inference flows are ported: training
+        flows, targets and validation flows raise."""
+        if (train_mode and y is not None) or X_valid is not None:
+            raise _not_ported("the file-backed training flow")
+        if y is not None:
+            raise _not_ported("validation batches with targets from files")
+        X = list(X)
+        flow, steps = self._infer_flow(len(X),
+                                       lambda idxs: self._assemble(X, idxs))
+        return {"datagen": (flow, steps),
+                "validation_datagen": (None, None)}

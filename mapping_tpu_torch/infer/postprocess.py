@@ -2,10 +2,11 @@
 
 Counterpart of mapping_tpu/infer/postprocess.py: resize the (B, H, W, C)
 probabilities to the target size, threshold each category channel per
-layer, label the connected components (the CUDA CCL kernels for a CUDA
-tensor), and score every instance as mean probability x sqrt(area).
-Erosion/dilation (ROADMAP item 4) and the scoring feature tensor (item 15)
-are not ported yet and raise.
+layer, optionally erode and bring back the components erosion erased,
+label the connected components (the CUDA CCL kernels for a CUDA tensor),
+optionally dilate the labels, and score every instance as mean probability
+x sqrt(area). The scoring feature tensor (ROADMAP item 15) is not ported
+yet and raises.
 """
 
 import logging
@@ -16,7 +17,9 @@ import torch
 
 from mapping_tpu_torch.data.augment import resize_bilinear
 from mapping_tpu_torch.ops.ccl import connected_components
-from mapping_tpu_torch.ops.instance import instance_areas_and_prob_sums
+from mapping_tpu_torch.ops.instance import (instance_areas_and_prob_sums,
+                                            instance_prob_sums)
+from mapping_tpu_torch.ops.morphology import dilate, erode
 
 MAX_INSTANCES = 256
 #: escalation ceiling for images denser than the default instance pad
@@ -49,6 +52,22 @@ def active_layers_for(category_ids, category_layers) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def _restore_erased(binary, eroded, n=MAX_INSTANCES):
+    """Components of `binary` (..., H, W) with no pixel left in `eroded`
+    come back un-eroded (the reference's add_dropped_objects).
+
+    As in the JAX version, labels above the pad `n` read slot n's flag:
+    the sums drop them, so every component numbered n or more survives
+    exactly when component n does."""
+    labels = connected_components(binary)
+    survived = instance_prob_sums(labels, eroded.to(torch.float32), n)
+    idx = torch.clamp(labels, max=n).to(torch.int64)
+    flat = (-1, labels.shape[-2] * labels.shape[-1])
+    alive = torch.gather(survived.reshape(-1, n + 1), 1,
+                         idx.reshape(flat)).reshape(labels.shape) > 0
+    return torch.where(binary & ~alive, True, eroded)
+
+
 def fused_postprocess(probs, target_size: Tuple[int, int] = (300, 300),
                       category_layers: Tuple[int, ...] = (1, 1),
                       erode_size: int = 0, dilate_size: int = 0,
@@ -65,9 +84,6 @@ def fused_postprocess(probs, target_size: Tuple[int, int] = (300, 300),
         raise NotImplementedError(
             "compute_features: the scoring feature tensor is not ported yet "
             "(ROADMAP item 15)")
-    if erode_size > 0 or dilate_size > 0:
-        raise NotImplementedError(
-            "erode/dilate postprocessing is not ported yet (ROADMAP item 4)")
     b = probs.shape[0]
     th, tw = target_size
     probs = probs.to(torch.float32)
@@ -81,7 +97,13 @@ def fused_postprocess(probs, target_size: Tuple[int, int] = (300, 300),
     thresholds = torch.tensor([specs[l][0] for l in active],
                               dtype=torch.float32, device=probs.device)
     binary = layer_probs > thresholds.reshape(1, -1, 1, 1)
+    if erode_size > 0:
+        binary = _restore_erased(binary, erode(binary, erode_size),
+                                 n=max_instances)
     labels_a = connected_components(binary)  # (B, LA, th, tw)
+    if dilate_size > 0:
+        # the reference dilates the labelled image (a grey max)
+        labels_a = dilate(labels_a, dilate_size)
 
     areas, sums = instance_areas_and_prob_sums(
         labels_a.reshape(-1, th, tw), layer_probs.reshape(-1, th, tw),

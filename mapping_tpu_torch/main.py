@@ -1,0 +1,107 @@
+"""CLI of the port: the JAX package's command surface for inference.
+
+    python3 -m mapping_tpu_torch.main [--config FILE] COMMAND [options]
+
+Counterpart of mapping_tpu/main.py with argparse in place of click: the
+same command names, flags and --config (default $CONFIG_PATH). Commands:
+prepare_metadata, evaluate, predict_on_dir and import_checkpoint. The
+parameter `device` (default cuda) says where the model runs; a CUDA device
+needs a card. The other commands of the JAX CLI exit non-zero, naming the
+ROADMAP item that ports them.
+
+    python3 -m mapping_tpu_torch.main --config config.yaml evaluate -p unet_weighted
+"""
+
+import argparse
+import logging
+import sys
+
+from mapping_tpu_torch.manager import PipelineManager
+
+#: commands of the JAX CLI not ported yet -> ROADMAP item
+NOT_PORTED = {"prepare_masks": "13 (Slice C)", "train": "12 and Slice C",
+              "train_evaluate": "12 and Slice C", "serve": "17",
+              "export": "18", "visualize": "23", "parity_drill": "23"}
+
+
+def _parser():
+    ap = argparse.ArgumentParser(prog="python3 -m mapping_tpu_torch.main",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", dest="config_path", default=None,
+                    help="yaml parameter file (defaults to $CONFIG_PATH)")
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("prepare_metadata")
+    p.add_argument("-tr", "--train_data", action="store_true")
+    p.add_argument("-val", "--valid_data", action="store_true")
+
+    p = sub.add_parser("evaluate")
+    p.add_argument("-p", "--pipeline_name", default="unet")
+    p.add_argument("-d", "--dev_mode", action="store_true")
+    p.add_argument("-c", "--chunk_size", type=int, default=None)
+    p.add_argument("--artifact", dest="artifact_dir", default=None,
+                   help="score an exported artifact (not ported)")
+
+    p = sub.add_parser("predict_on_dir")
+    p.add_argument("-p", "--pipeline_name", default="unet")
+    p.add_argument("--dir_path", required=True)
+    p.add_argument("--prediction_path", required=True)
+    p.add_argument("-c", "--chunk_size", type=int, default=None)
+    p.add_argument("--artifact", dest="artifact_dir", default=None,
+                   help="predict with an exported artifact (not ported)")
+
+    p = sub.add_parser("import_checkpoint")
+    p.add_argument("-p", "--pipeline_name", default="unet")
+    p.add_argument("--path", dest="checkpoint_path", required=True,
+                   help="complete torch UNet state_dict (plain, "
+                        "{'state_dict': ...}-wrapped or 'module.'-prefixed)")
+
+    for name in NOT_PORTED:
+        p = sub.add_parser(name, help="not ported")
+        p.add_argument("rest", nargs=argparse.REMAINDER)
+    return ap
+
+
+def _init_logger():
+    logger = logging.getLogger("mapping_tpu_torch")
+    if not logger.handlers:
+        handler = logging.StreamHandler(sys.stdout)
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(name)s >>> %(message)s",
+            datefmt="%Y-%m-%d %H:%M:%S"))
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+        logger.propagate = False
+
+
+def main(argv=None) -> PipelineManager:
+    """Run one command; returns the PipelineManager that ran it."""
+    args = _parser().parse_args(argv)
+    if args.command in NOT_PORTED:
+        raise SystemExit(f"{args.command} is not ported to PyTorch yet "
+                         f"(ROADMAP item {NOT_PORTED[args.command]})")
+    if getattr(args, "artifact_dir", None):
+        raise SystemExit("--artifact is not ported to PyTorch yet (ROADMAP "
+                         "item 18)")
+    _init_logger()
+    manager = PipelineManager(args.config_path)
+    if args.command == "prepare_metadata":
+        train_data, valid_data = args.train_data, args.valid_data
+        if not (train_data or valid_data):
+            train_data = valid_data = True
+        manager.prepare_metadata(train_data, valid_data)
+        return manager
+    manager.start_experiment()
+    if args.command == "evaluate":
+        manager.evaluate(args.pipeline_name, args.dev_mode, args.chunk_size)
+    elif args.command == "predict_on_dir":
+        manager.predict_on_dir(args.pipeline_name, args.dir_path,
+                               args.prediction_path, args.chunk_size)
+    else:
+        manager.import_checkpoint(args.checkpoint_path, args.pipeline_name)
+    manager.finish_experiment()
+    return manager
+
+
+if __name__ == "__main__":
+    main()

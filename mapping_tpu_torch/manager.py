@@ -1,0 +1,266 @@
+"""PipelineManager: the experiment lifecycle behind the CLI.
+
+Counterpart of mapping_tpu/manager.py for the inference commands:
+prepare_metadata, evaluate (validation sample, chunked or streamed
+prediction, prediction.json, COCO AP/AR at IoU 0.5), predict_on_dir and
+import_checkpoint, with the CATEGORY_LAYERS guards and the MetricSink
+(stdout + metrics.jsonl under the experiment dir). Metadata are lists of
+row dicts (data/metadata.py) instead of DataFrames.
+
+Each evaluate and predict_on_dir leaves the host seconds of its stages in
+`manager.timings`: decode (on the loader's threads), device (in
+FusedServe.dispatch and .collect), annotation + RLE, COCOeval, and the
+whole call. Not ported yet, and raising with their ROADMAP item:
+prepare_masks (Slice C), train (Slice C and item 12), artifacts (item 18)
+and the parity drill (item 23).
+"""
+
+import json
+import logging
+import math
+import os
+import random
+import time
+from typing import Optional
+
+import numpy as np
+
+from mapping_tpu_torch.config import build_config
+from mapping_tpu_torch.constants import (CATEGORY_IDS, CATEGORY_LAYERS, SEED,
+                                         Y_COLUMNS_SCORING)
+from mapping_tpu_torch.data.metadata import (generate_inference_metadata,
+                                             generate_metadata, read_metadata,
+                                             write_metadata)
+from mapping_tpu_torch.eval.cocoeval import coco_evaluation
+from mapping_tpu_torch.infer.annotations import labeled_to_annotations
+from mapping_tpu_torch.pipelines import PIPELINES
+from mapping_tpu_torch.train.callbacks import MetricSink
+
+logger = logging.getLogger(__name__)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
+
+
+def _seed_everything(seed):
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+class PipelineManager:
+    def __init__(self, config_path: Optional[str] = None, overrides=None):
+        self.config = build_config(config_path, overrides)
+        self.params = self.config.params
+        _seed_everything(SEED)
+        self.sink = MetricSink(os.path.join(self.params.experiment_dir,
+                                            "metrics.jsonl"))
+        self.timings = {}
+
+    def _category_layers(self):
+        return list(self.params.get("category_layers", CATEGORY_LAYERS))
+
+    def prepare_masks(self, dev_mode):
+        raise _not_ported("prepare_masks", "13 (Slice C)")
+
+    def prepare_metadata(self, train_data, valid_data):
+        prepare_metadata(train_data, valid_data, self.params)
+
+    def start_experiment(self):
+        os.makedirs(self.params.experiment_dir, exist_ok=True)
+
+    def finish_experiment(self):
+        pass
+
+    def train(self, pipeline_name, dev_mode, warm_start=False):
+        raise _not_ported("train", "12 and Slice C")
+
+    def evaluate(self, pipeline_name, dev_mode, chunk_size):
+        cl = self._category_layers()
+        if "scoring_model" in pipeline_name:
+            assert cl[1] > 1, (
+                "Evaluating a scoring-model pipeline requires multiple "
+                "thresholds: set category_layers to [1, 19]")
+        else:
+            assert cl[1] == 1, (
+                "Evaluating without a second-layer model requires "
+                "category_layers [1, 1]")
+        self.timings = {}
+        ap, ar = evaluate(pipeline_name, dev_mode, chunk_size, self.config,
+                          self.timings)
+        self.sink.send_metric("Precision", ap)
+        self.sink.send_metric("Recall", ar)
+        return ap, ar
+
+    def evaluate_artifact(self, artifact_dir, dev_mode=False,
+                          chunk_size=None):
+        raise _not_ported("evaluate --artifact", "18")
+
+    def import_checkpoint(self, path, pipeline_name="unet"):
+        """A complete reference torch checkpoint into the experiment's
+        transformer cache; evaluate then scores those weights."""
+        cl = self._category_layers()
+        if "scoring_model" in pipeline_name:
+            assert cl[1] > 1, (
+                "Importing under a scoring-model pipeline requires multiple "
+                "thresholds: set category_layers to [1, 19]")
+        else:
+            assert cl[1] == 1, (
+                "Importing a base unet checkpoint requires category_layers "
+                "[1, 1] (this yaml sets {})".format(cl))
+        PIPELINES[pipeline_name]["inference"](self.config).import_checkpoint(
+            path)
+
+    def predict_on_dir(self, pipeline_name, dir_path, prediction_path,
+                       chunk_size):
+        cl = self._category_layers()
+        if "scoring_model" in pipeline_name:
+            assert cl[1] > 1, "set category_layers to [1, 19]"
+        else:
+            assert cl[1] == 1, "set category_layers to [1, 1]"
+        self.timings = {}
+        predict_on_dir(pipeline_name, dir_path, prediction_path, chunk_size,
+                       self.config, self.timings)
+
+
+def parity_drill(*args, **kwargs):
+    raise _not_ported("parity_drill", "23")
+
+
+# ---------------------------------------------------------------------------
+# module-level drivers
+# ---------------------------------------------------------------------------
+
+def prepare_metadata(train_data, valid_data, params):
+    logger.info("creating metadata")
+    rows = generate_metadata(
+        data_dir=params.data_dir,
+        meta_dir=params.meta_dir,
+        masks_overlayed_prefix=params.masks_overlayed_prefix,
+        process_train_data=train_data,
+        process_validation_data=valid_data,
+    )
+    path = os.path.join(params.meta_dir, "metadata.csv")
+    os.makedirs(params.meta_dir, exist_ok=True)
+    write_metadata(rows, path)
+    logger.info("metadata saved to %s", path)
+
+
+def _sample(rows, n, seed):
+    """pandas' rows.sample(n, random_state=seed): the rows at
+    RandomState(seed).choice(len, n, replace=False), in that order; all
+    rows when n covers them."""
+    n = min(int(n), len(rows))
+    if n >= len(rows):
+        return rows
+    idx = np.random.RandomState(seed).choice(len(rows), size=n, replace=False)
+    return [rows[i] for i in idx]
+
+
+def _validation_rows(params, dev_mode):
+    meta = read_metadata(os.path.join(params.meta_dir, "metadata.csv"))
+    rows = _sample([r for r in meta if r["is_valid"] == 1],
+                   params.evaluation_data_sample, SEED)
+    return _sample(rows, 30, SEED) if dev_mode else rows
+
+
+def evaluate(pipeline_name, dev_mode, chunk_size, config, timings=None):
+    params = config.params
+    timings = {} if timings is None else timings
+    start = time.perf_counter()
+    logger.info("evaluating %s", pipeline_name)
+    meta_valid = _validation_rows(params, dev_mode)
+    pipeline = PIPELINES[pipeline_name]["inference"](config)
+    prediction = generate_prediction(meta_valid, pipeline, config, chunk_size,
+                                     timings)
+
+    prediction_filepath = os.path.join(params.experiment_dir,
+                                       "prediction.json")
+    os.makedirs(params.experiment_dir, exist_ok=True)
+    with open(prediction_filepath, "w") as f:
+        json.dump(prediction, f)
+
+    eval_start = time.perf_counter()
+    ap, ar = coco_evaluation(
+        gt_filepath=os.path.join(params.data_dir, "val", "annotation.json"),
+        prediction_filepath=prediction_filepath,
+        image_ids=[row[Y_COLUMNS_SCORING[0]] for row in meta_valid],
+        category_ids=[c for c in CATEGORY_IDS if c is not None],
+        small_annotations_size=params.small_annotations_size,
+    )
+    timings["cocoeval_s"] = time.perf_counter() - eval_start
+    timings["total_s"] = time.perf_counter() - start
+    logger.info("validation precision (AP@0.5) = %.4f", ap)
+    logger.info("validation recall    (AR@0.5) = %.4f", ar)
+    logger.info("host seconds: %s", json.dumps(timings))
+    return ap, ar
+
+
+def predict_on_dir(pipeline_name, dir_path, prediction_path, chunk_size,
+                   config, timings=None):
+    timings = {} if timings is None else timings
+    start = time.perf_counter()
+    meta = generate_inference_metadata(images_dir=dir_path)
+    pipeline = PIPELINES[pipeline_name]["inference"](config)
+    prediction = generate_prediction(meta, pipeline, config, chunk_size,
+                                     timings)
+    with open(prediction_path, "w") as f:
+        json.dump(prediction, f)
+    timings["total_s"] = time.perf_counter() - start
+    logger.info("submission saved to %s", prediction_path)
+    logger.info("host seconds: %s", json.dumps(timings))
+
+
+def generate_prediction(meta_data, pipeline, config, chunk_size=None,
+                        timings=None):
+    """COCO result dicts for the metadata rows: per chunk of rows (all of
+    them when chunk_size is None), or per image through the pipeline's
+    stream when `stream_mode` is set and no chunk size is. Fills
+    `timings` with the host seconds of decode, device and annotation +
+    RLE, and the image count."""
+    timings = {} if timings is None else timings
+    category_layers = tuple(config.params.get("category_layers",
+                                              CATEGORY_LAYERS))
+    stream = bool(config.params.get("stream_mode", 0))
+    annotation_s = 0.0
+    prediction = []
+
+    def annotate(image_id, labels, scores):
+        nonlocal annotation_s
+        start = time.perf_counter()
+        # the unet pipelines never zero a score (only the scoring
+        # pipelines' NMS does, ROADMAP item 15), so every instance is kept
+        prediction.extend(labeled_to_annotations(
+            image_id, np.asarray(labels), scores, CATEGORY_IDS,
+            category_layers, emit_suppressed=True))
+        annotation_s += time.perf_counter() - start
+
+    def data_of(rows):
+        return {"input": {"meta": rows,
+                          "target_sizes": [(300, 300)] * len(rows)},
+                "specs": {"train_mode": False},
+                "callback_input": {"meta_valid": None}}
+
+    if chunk_size is None and stream:
+        results = pipeline.transform_stream(data_of(meta_data))["y_pred"]
+        for row, (labels, scores) in zip(meta_data, results, strict=True):
+            annotate(row["ImageId"], labels, scores)
+    else:
+        if chunk_size is None:
+            chunks = [meta_data]
+        else:
+            n = math.ceil(len(meta_data) / chunk_size)
+            chunks = [meta_data[i * chunk_size:(i + 1) * chunk_size]
+                      for i in range(n)]
+        for chunk in chunks:
+            pipeline.clean_cache()
+            y_pred = pipeline.transform(data_of(chunk))["y_pred"]
+            pipeline.clean_cache()
+            for row, (labels, scores) in zip(chunk, y_pred, strict=True):
+                annotate(row["ImageId"], labels, scores)
+    timings.update(images=len(meta_data),
+                   decode_s=pipeline.loader.decode_seconds,
+                   device_s=pipeline.device_seconds,
+                   annotation_s=annotation_s)
+    return prediction

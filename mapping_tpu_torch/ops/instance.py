@@ -1,6 +1,7 @@
 """Per-instance reductions over labelled masks.
 
-Counterpart of mapping_tpu/ops/instance.py `instance_areas_and_prob_sums`.
+Counterpart of mapping_tpu/ops/instance.py `instance_prob_sums` and
+`instance_areas_and_prob_sums`.
 The JAX version reduces with a one-hot matmul and a bf16 hi/lo split of the
 probabilities, a TPU workaround for serialized scatters; the contract it
 meets is exact int32 areas and float32 probability sums, and scatter_add_
@@ -8,7 +9,24 @@ meets it here. It accumulates in float64: a float32 running sum over an
 instance of tens of thousands of pixels drifts by ~1e-5 relative.
 """
 
+import math
+
 import torch
+
+
+def instance_prob_sums(labels, probabilities, max_instances):
+    """labels (..., H, W) int in 0..N, probabilities (..., H, W) float ->
+    (..., max_instances + 1) float32 sums of the probability over each
+    label, index 0 the background. Labels above `max_instances` count
+    nowhere, as jax.ops.segment_sum drops out-of-range segments."""
+    lead = tuple(labels.shape[:-2])
+    m = math.prod(lead)
+    n = max_instances + 1
+    idx = labels.reshape(m, -1).to(torch.int64)
+    idx = torch.where(idx > max_instances, n, idx)  # one dropped slot
+    sums = torch.zeros((m, n + 1), dtype=torch.float64, device=labels.device)
+    sums.scatter_add_(1, idx, probabilities.reshape(m, -1).to(torch.float64))
+    return sums[:, :n].to(torch.float32).reshape(lead + (n,))
 
 
 def instance_areas_and_prob_sums(labels, probabilities, max_instances):

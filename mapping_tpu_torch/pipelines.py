@@ -1,148 +1,222 @@
-"""The serving pipeline: uint8 tiles -> labelled instances and scores.
+"""The named pipelines: the `unet`/`unet_weighted` inference path.
 
-Counterpart of the inference half of mapping_tpu/pipelines.py
-`UNetPipeline` (`serve_program`, `_postprocessed_images`) together with
-mapping_tpu/train/trainer.py `probs_apply_fn`: the BN-folded UNetResNet
-forward, a float32 softmax, and `FusedServe`, one batch in flight.
+Counterpart of mapping_tpu/pipelines.py `UNetPipeline` and `PIPELINES`: a
+pipeline composes the loader's device preprocess, the trainer's BN-folded
+forward with a float32 softmax (`UNetTrainer.probs_apply_fn`) and the
+fused postprocess (`FusedServe`), with one batch in flight. Its weights
+live in the experiment's transformer cache: the port writes `unet.pt`
+(torch.save of the reference-named state_dict) beside where the JAX
+package writes `unet.msgpack`, and reads either, its own first; weights
+read from a cache are folded once and the float32 model is freed
+(`UNetTrainer.serve_only`).
 
-Configuration is a plain dict whose keys are those of the JAX package's
-parameter file (mapping_tpu/config.py DEFAULT_PARAMS); only the keys below
-are read. Values this port does not run yet raise.
+`transform(data)` takes the manager's data dict, whose metadata rows name
+the image files; `transform_arrays(images_u8)` serves uint8 tiles already
+in host memory through the same program. Not ported yet, and raising with
+their ROADMAP item: training (Slice C and item 12), TTA and the padded
+centre crop (item 14), the scoring pipelines (item 15), int8 serving (item
+21) and a device mesh (item 16).
 """
 
-import contextlib
-from typing import Any, Dict, Iterator, Mapping
+import os
+import time
+from functools import partial
 
-import numpy as np
-import torch
-
-from mapping_tpu_torch.constants import CATEGORY_IDS, CATEGORY_LAYERS
-from mapping_tpu_torch.data.loader import infer_batch_resize
+from mapping_tpu_torch.constants import (CATEGORY_IDS, CATEGORY_LAYERS, SEED,
+                                         X_COLUMNS)
+from mapping_tpu_torch.data.loader import SegmentationLoader
 from mapping_tpu_torch.infer.postprocess import active_layers_for
 from mapping_tpu_torch.infer.serving import FusedServe
-from mapping_tpu_torch.models.fold_bn import fold_batch_stats
-from mapping_tpu_torch.models.registry import build_network
-
-#: the JAX config's defaults for the keys this pipeline reads
-SERVE_DEFAULTS: Dict[str, Any] = {
-    "encoder": "ResNet101",
-    "model_dtype": "bfloat16",
-    "loader_mode": "resize",
-    "image_h": 256,
-    "image_w": 256,
-    "batch_size_inference": 20,
-    "crop_image_h": 300,
-    "crop_image_w": 300,
-    "erode_selem_size": 0,
-    "dilate_selem_size": 0,
-    "category_layers": CATEGORY_LAYERS,
-    "quantized_serving": 0,
-    "data_parallel": 0,
-    "spatial_serving": 0,
-}
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+from mapping_tpu_torch.train.trainer import UNetTrainer
 
 # settings of the JAX package this port does not run yet -> ROADMAP item
 _NOT_PORTED = {"quantized_serving": 21, "data_parallel": 16,
                "spatial_serving": 16}
 
 
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
+
+
+def _category_layers(config):
+    return tuple(config.params.get("category_layers", CATEGORY_LAYERS))
+
+
 class UNetPipeline:
-    """Serving UNetPipeline (`unet`/`unet_weighted` evaluate path, no TTA).
+    """unet / unet_weighted inference on `config.params.device`."""
 
-    params: the JAX parameter dict (keys of SERVE_DEFAULTS).
-    state_dict: reference-named UNetResNet weights with BatchNorm
-        statistics (e.g. from models.convert.state_dict_from_flax).
-    device: where the model runs; a CUDA device needs a card and never
-        falls back to the CPU.
-    """
-
-    def __init__(self, params: Mapping[str, Any],
-                 state_dict: Mapping[str, Any], device="cuda"):
-        p = {**SERVE_DEFAULTS, **params}
+    def __init__(self, config, train_mode: bool, loss_name: str = "ce"):
+        if train_mode:
+            raise _not_ported("training a pipeline", "12 and Slice C")
         for key, item in _NOT_PORTED.items():
-            if p[key]:
-                raise NotImplementedError(
-                    f"{key}: {p[key]!r} is not ported yet (ROADMAP item "
-                    f"{item})")
-        if p["loader_mode"] != "resize":
-            raise NotImplementedError(
-                f"loader_mode {p['loader_mode']!r} is not ported yet "
-                "(ROADMAP item 3)")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("UNetPipeline: CUDA device requested but "
-                               "torch.cuda.is_available() is False")
-        self.dtype = _DTYPES[p["model_dtype"]]
-        model = build_network({"encoder": p["encoder"]})
-        model.load_state_dict({k: torch.as_tensor(np.asarray(v))
-                               for k, v in state_dict.items()})
-        self.model = fold_batch_stats(model.eval()).to(
-            device=self.device, dtype=self.dtype,
-            memory_format=torch.channels_last)
-        self.size = (int(p["image_h"]), int(p["image_w"]))
-        self.batch_size = int(p["batch_size_inference"])
-        category_layers = tuple(p["category_layers"])
-        self.serve = FusedServe(
-            self.probs, target_size=(int(p["crop_image_h"]),
-                                     int(p["crop_image_w"])),
-            category_layers=category_layers,
-            active_layers=active_layers_for(CATEGORY_IDS, category_layers),
-            erode_size=int(p["erode_selem_size"]),
-            dilate_size=int(p["dilate_selem_size"]))
+            if config.params.get(key, 0):
+                raise _not_ported(f"{key}: {config.params[key]!r}", item)
+        self.config = config
+        self.cache_dir = config.env.cache_dirpath
+        device = config.params.get("device", "cuda")
+        loader = config.loader
+        self.loader = SegmentationLoader(
+            mode=loader.mode, size=loader.size, pad=loader.pad,
+            pad_method=loader.pad_method,
+            batch_size_inference=loader.batch_size_inference,
+            load_in_memory=loader.load_in_memory, device=device)
+        self.trainer = UNetTrainer(
+            model_params=config.unet.model_params,
+            optimizer_params=config.unet.optimizer_params,
+            loss_params=config.unet.loss,
+            training_config=config.unet.training,
+            loss_name=loss_name,
+            input_size=config.loader.size,
+            seed=SEED,
+            remat=bool(config.params.get("remat", 0)),
+            pretrained_weights=config.unet.get("pretrained_weights", ""),
+            device=device)
+        self.category_layers = _category_layers(config)
+        self._serve = None
+        self._weights_loaded = False
+        #: host seconds spent in FusedServe.dispatch and .collect
+        self.device_seconds = 0.0
 
-    @torch.inference_mode()
-    def probs(self, images):
-        """(B, H, W, 3) normalised images -> (B, H, W, C) float32 softmax
-        probabilities; the convs run in the pipeline's dtype, and float32
-        means full float32 (no TF32) for this call only."""
-        x = images.permute(0, 3, 1, 2).to(self.dtype)
-        with _no_tf32(self.dtype == torch.float32):
-            logits = self.model(x)
-        return torch.softmax(logits.to(torch.float32), dim=1).permute(
-            0, 2, 3, 1)
+    # ------------------------------------------------------------ cache
+    @property
+    def trainer_cache_path(self):
+        return os.path.join(self.cache_dir, "transformers", "unet.pt")
 
-    def preprocess(self, images_u8):
-        """(B, H, W, 3) uint8 (numpy or tensor) -> normalised float32
-        (B, image_h, image_w, 3) on the pipeline's device."""
-        return infer_batch_resize(torch.as_tensor(images_u8).to(self.device),
-                                  self.size)
+    @property
+    def jax_cache_path(self):
+        """Where the JAX package keeps the same experiment's weights."""
+        return os.path.join(self.cache_dir, "transformers", "unet.msgpack")
 
-    def transform(self, images_u8) -> Iterator:
-        """Yield (labels (L, th, tw) int16, trimmed scores: one list per
-        layer) for each image of the (N, H, W, 3) uint8 tiles, in batches
-        of `batch_size_inference` with one batch in flight: batch k+1 is
-        dispatched before batch k is collected."""
+    def clean_cache(self):
+        pass  # no in-RAM step outputs to drop; kept for the JAX surface
+
+    def import_checkpoint(self, path):
+        """A reference torch checkpoint (plain / {'state_dict': ...} /
+        'module.'-prefixed) into the trainer and the transformer cache."""
+        self.trainer.import_torch_checkpoint(path)
+        self.trainer.save(self.trainer_cache_path)
+        self._weights_loaded = True
+        return self
+
+    def set_weights(self, state_dict):
+        """Serve the reference-named `state_dict` (no cache is read); the
+        trainer keeps its float32 model, to be saved or set again."""
+        self.trainer.load_state_dict(state_dict)
+        self._weights_loaded = True
+        return self
+
+    def _ensure_weights(self):
+        if self._weights_loaded:
+            return
+        for path in (self.trainer_cache_path, self.jax_cache_path):
+            if os.path.exists(path):
+                self.trainer.load(path).serve_only()
+                self._weights_loaded = True
+                return
+        raise RuntimeError(
+            f"no trained unet found at {self.trainer_cache_path} or "
+            f"{self.jax_cache_path}; import a checkpoint first")
+
+    # -------------------------------------------------------- inference
+    def serve_program(self):
+        """The FusedServe this pipeline runs: forward + softmax + fused
+        postprocess per batch; only labels, scores and areas leave the
+        device."""
+        if self._serve is None:
+            post = self.config.postprocessor
+            self._serve = FusedServe(
+                self.trainer.probs_apply_fn(),
+                target_size=tuple(post.target_size),
+                category_layers=self.category_layers,
+                active_layers=active_layers_for(CATEGORY_IDS,
+                                                self.category_layers),
+                erode_size=int(post.erode_selem_size),
+                dilate_size=int(post.dilate_selem_size))
+        return self._serve
+
+    def _serve_flow(self, flow, steps):
+        """((labels, trimmed scores) per image) over the flow's batches,
+        one batch in flight: batch k+1 is dispatched before batch k is
+        collected. The padded tail's duplicates are not emitted."""
+        n_images = getattr(flow, "n_images", None)
+        serve = self.serve_program()
+        emitted = 0
+
+        def rows(outs):
+            nonlocal emitted
+            for lab, sc in zip(outs[0], outs[1]):
+                if n_images is not None and emitted >= n_images:
+                    return
+                emitted += 1
+                yield lab, [list(sc[l][:int(lab[l].max())])
+                            for l in range(lab.shape[0])]
+
+        def collect(handle):
+            start = time.perf_counter()
+            outs = serve.collect(handle)
+            self.device_seconds += time.perf_counter() - start
+            return outs
+
         pending = None
-        for start in range(0, len(images_u8), self.batch_size):
-            batch = images_u8[start:start + self.batch_size]
-            handle = self.serve.dispatch(self.preprocess(batch))
+        for batch_id, batch in enumerate(flow):
+            start = time.perf_counter()
+            handle = serve.dispatch(batch["image"])
+            self.device_seconds += time.perf_counter() - start
             if pending is not None:
-                yield from _rows(self.serve.collect(pending))
+                yield from rows(collect(pending))
             pending = handle
+            if batch_id + 1 >= steps:
+                break
         if pending is not None:
-            yield from _rows(self.serve.collect(pending))
+            yield from rows(collect(pending))
+
+    def _postprocessed_images(self, data):
+        self._ensure_weights()
+        x = [row[X_COLUMNS[0]] for row in data["input"]["meta"]]
+        flow, steps = self.loader.transform(x, None,
+                                            train_mode=False)["datagen"]
+        yield from self._serve_flow(flow, steps)
+
+    def transform(self, data):
+        """{"y_pred": [(labels (L, th, tw) int16, one trimmed score list
+        per layer) per image]} for the metadata rows of `data`."""
+        return {"y_pred": list(self._postprocessed_images(data))}
+
+    def transform_stream(self, data):
+        """{"y_pred": a generator of the same per-image results}: at most
+        one postprocessed batch is held at a time."""
+        return {"y_pred": self._postprocessed_images(data)}
+
+    def transform_arrays(self, images_u8):
+        """The same per-image results for (N, H, W, 3) uint8 tiles in host
+        memory."""
+        self._ensure_weights()
+        yield from self._serve_flow(*self.loader.array_flow(images_u8))
 
 
-@contextlib.contextmanager
-def _no_tf32(active):
-    """Turn TF32 off for matmuls and cuDNN convs while the block enqueues
-    its kernels, and restore the process's settings after it."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    if active:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
+def _unported_factory(what, item):
+    def factory(config):
+        raise _not_ported(what, item)
+    return factory
 
 
-def _rows(outs):
-    labels_b, scores_b = outs[0], outs[1]
-    for lab, sc in zip(labels_b, scores_b):
-        yield lab, [list(sc[l][:int(lab[l].max())])
-                    for l in range(lab.shape[0])]
+PIPELINES = {
+    "unet": {
+        "train": _unported_factory("the unet train pipeline",
+                                   "12 and Slice C"),
+        "inference": partial(UNetPipeline, train_mode=False, loss_name="ce"),
+    },
+    "unet_weighted": {
+        "train": _unported_factory("the unet_weighted train pipeline",
+                                   "12 and Slice C"),
+        "inference": partial(UNetPipeline, train_mode=False,
+                             loss_name="weighted"),
+    },
+    "unet_tta": {"inference": _unported_factory("unet_tta", "14")},
+    "unet_padded": {"inference": _unported_factory("unet_padded", "14")},
+    "scoring_model": {"train": _unported_factory("scoring_model", "15")},
+    **{name: {"inference": _unported_factory(name, "15")}
+       for name in ("unet_scoring_model", "unet_padded_scoring_model",
+                    "unet_tta_scoring_model")},
+}

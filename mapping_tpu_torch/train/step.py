@@ -22,7 +22,21 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mapping_tpu_torch.pipelines import _no_tf32
+
+@contextlib.contextmanager
+def _no_tf32(active):
+    """Turn TF32 off for matmuls and cuDNN convs while the block enqueues
+    its kernels, and restore the process's settings after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    if active:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def _autocast(device: torch.device, dtype: torch.dtype):

@@ -10,22 +10,35 @@ channels_last memory with float32 parameters; `model_params["dtype"]`
 `fit` reads the loss back to the host after every optimizer step call (one
 step unless `training.steps_per_call` groups several), as the JAX loop
 does; the per-step losses of the last `fit` are kept in `train_losses`.
-`state_dict()` is what the serving `pipelines.UNetPipeline` takes.
+`probs_apply_fn()` is what the serving pipeline runs: the softmax of a
+BN-folded copy of the model in the compute dtype. `serve_only()` folds that
+copy once and frees the float32 model, for a trainer that only serves.
 
-Not ported yet, and raising with their ROADMAP item: callbacks and
-checkpoints (11), a device mesh (16), pretrained or imported weights (6),
-warm start (11).
+Weights come and go as the reference-named state_dict: `save` writes the
+port's transformer cache (torch.save, `unet.pt`), `load` reads it or a JAX
+experiment's flax `unet.msgpack`, and `import_torch_checkpoint` takes a
+reference torch checkpoint; each checks every key and shape.
+
+Not ported yet, and raising with their ROADMAP item: callbacks (11), a
+device mesh (16), pretrained encoder weights (6), warm start (11).
 """
 
+import copy
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from mapping_tpu_torch.models.convert import state_dict_from_flax
+from mapping_tpu_torch.models.fold_bn import fold_batch_stats
 from mapping_tpu_torch.models.registry import build_network
+from mapping_tpu_torch.train.checkpoint import (load_flax_weights,
+                                                load_torch_state_dict,
+                                                save_state_dict)
 from mapping_tpu_torch.train.losses import make_loss_fn
 from mapping_tpu_torch.train.state import make_optimizer
-from mapping_tpu_torch.train.step import make_eval_step, make_train_step_multi
+from mapping_tpu_torch.train.step import (_no_tf32, make_eval_step,
+                                          make_train_step_multi)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -77,9 +90,21 @@ class UNetTrainer:
         self.optimizer = None
         self.scheduler = None
         self.train_losses: List[float] = []
+        # the folded serving copy and the weights' version it was made from
+        self._state_version = 0
+        self._folded = None
+        self._folded_version = None
 
     # ------------------------------------------------------------- state
+    def _master(self):
+        """The float32 model; raises after `serve_only()` freed it."""
+        if self.model is None:
+            raise RuntimeError("this trainer only serves: serve_only() freed "
+                               "its float32 model")
+        return self.model
+
     def _ensure_state(self, steps_per_epoch: int = 1):
+        master = self._master()
         if self.optimizer is not None:
             return
         op = self.optimizer_params
@@ -87,24 +112,110 @@ class UNetTrainer:
         if gamma in (1.0, None):
             gamma = None  # flat rate: no schedule
         self.optimizer, self.scheduler = make_optimizer(
-            self.model, lr=op.get("lr", 5e-4), gamma=gamma,
+            master, lr=op.get("lr", 5e-4), gamma=gamma,
             decay_every_steps=max(steps_per_epoch, 1),
             weight_decay=op.get("weight_decay", 0.0))
         self._train_steps = make_train_step_multi(
-            self._loss_fn, self.model, self.optimizer, self.scheduler,
+            self._loss_fn, master, self.optimizer, self.scheduler,
             self.dtype, self.remat)
-        self._eval_step = make_eval_step(self._loss_fn, self.model, self.dtype)
+        self._eval_step = make_eval_step(self._loss_fn, master, self.dtype)
 
     def warm_start(self, path):
         raise _not_ported("warm start", 11)
 
-    def import_torch_checkpoint(self, path):
-        raise _not_ported("import_torch_checkpoint", 6)
-
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The model's reference-named weights and BatchNorm statistics, on
         the CPU."""
-        return {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+        return {k: v.detach().cpu()
+                for k, v in self._master().state_dict().items()}
+
+    def load_state_dict(self, state: Dict[str, Any]):
+        """Weights and BatchNorm statistics of the model from a
+        reference-named state_dict (tensors or numpy arrays); a missing or
+        extra key or another shape raises."""
+        own = self._master().state_dict()
+        missing, extra = sorted(set(own) - set(state)), sorted(set(state)
+                                                              - set(own))
+        if missing or extra:
+            raise ValueError(f"checkpoint keys do not match the "
+                             f"{self.model_params.get('encoder')} model: "
+                             f"missing {missing[:5]}, unexpected {extra[:5]}")
+        for k, v in state.items():
+            if tuple(np.shape(v)) != tuple(own[k].shape):
+                raise ValueError(f"checkpoint shape mismatch at {k}: "
+                                 f"{tuple(np.shape(v))} vs "
+                                 f"{tuple(own[k].shape)}")
+        self.model.load_state_dict(
+            {k: (v if isinstance(v, torch.Tensor)
+                 else torch.from_numpy(np.array(v))).to(own[k].dtype)
+             for k, v in state.items()})
+        self._state_version += 1
+        return self
+
+    def import_torch_checkpoint(self, path):
+        """A reference torch checkpoint (plain state_dict,
+        {"state_dict": ...}-wrapped or "module."-prefixed) into the model."""
+        return self.load_state_dict(load_torch_state_dict(path))
+
+    def save(self, filepath):
+        """The port's transformer cache: torch.save of state_dict()."""
+        save_state_dict(self._master().state_dict(), filepath)
+
+    def load(self, filepath):
+        """Weights from the port's cache (torch.save of a state_dict) or,
+        for a path ending in .msgpack, from the JAX package's flax
+        checkpoint (params and batch_stats; the optimizer state is not
+        read)."""
+        if str(filepath).endswith(".msgpack"):
+            encoder = self.model_params.get("encoder", "ResNet101")
+            if not encoder.startswith("ResNet"):
+                raise NotImplementedError(
+                    f"reading a flax checkpoint of {encoder!r} is not "
+                    f"ported yet (ROADMAP item 20)")
+            params, batch_stats = load_flax_weights(filepath)
+            state = state_dict_from_flax(
+                params, batch_stats, int(encoder[len("ResNet"):]),
+                bool(self.model_params.get("is_deconv", True)))
+        else:
+            state = torch.load(filepath, map_location="cpu",
+                               weights_only=True)
+        return self.load_state_dict(state)
+
+    # ------------------------------------------------------------ serve
+    def serving_model(self):
+        """The BN-folded copy of the model in the compute dtype that
+        `probs_apply_fn` runs, re-made when the weights changed."""
+        if self._folded_version != self._state_version:
+            model = copy.deepcopy(self.model).eval()
+            self._folded = fold_batch_stats(model).to(
+                dtype=self.dtype, memory_format=torch.channels_last)
+            self._folded_version = self._state_version
+        return self._folded
+
+    def serve_only(self):
+        """Fold the serving copy now and free the float32 model, so that a
+        trainer that only serves holds one copy of the weights on its
+        device. Training, saving or loading weights afterwards raises."""
+        self.serving_model()
+        self.model = None
+        return self
+
+    def probs_apply_fn(self):
+        """images (B, H, W, 3) normalised float -> (B, H, W, C) float32
+        softmax probabilities, from a BN-folded copy of the model in the
+        compute dtype (float32 runs with TF32 off for the call only). The
+        copy is re-folded when the weights change."""
+
+        @torch.inference_mode()
+        def probs(images):
+            model = self.serving_model()
+            x = images.permute(0, 3, 1, 2).to(self.dtype)
+            with _no_tf32(self.dtype == torch.float32):
+                logits = model(x)
+            return torch.softmax(logits.to(torch.float32), dim=1).permute(
+                0, 2, 3, 1)
+
+        return probs
 
     # --------------------------------------------------------------- fit
     def fit(self, datagen, validation_datagen=None, meta_valid=None):
@@ -135,6 +246,7 @@ class UNetTrainer:
             run_pending()
         if hasattr(flow, "close"):
             flow.close()
+        self._state_version += 1
         return self
 
     # -------------------------------------------------------------- eval

@@ -3,21 +3,23 @@
 
     python3 profile_slice.py [--out DIR] [--repeats 5] [--batches 10]
 
-Builds the slice of chip_smoke.py (a ResNet101 UNetPipeline, 32 filters,
-deconv, BN folded, bfloat16, batch 20, random weights from a seeded
-torch.Generator) and measures, in this order:
+Builds the slice of chip_smoke.py (a ResNet101 unet_weighted pipeline, 32
+filters, deconv, BN folded, bfloat16, batch 20, random weights from a
+seeded torch.Generator) and measures, in this order:
 
-  1. throughput with no profiler attached: `repeats` runs of `transform`
-     over `batches` batches of 20 uint8 300^2 tiles, images/s per run on
-     the host clock (a run ends when its last labels are on the host);
+  1. throughput with no profiler attached: `repeats` runs of
+     `transform_arrays` over `batches` batches of 20 uint8 300^2 tiles,
+     images/s per run on the host clock (a run ends when its last labels
+     are on the host);
   2. the stages of one batch, synchronised between stages, in CUDA events
      (host clock for the whole batch), median, min and max of 10;
   3. the CCL kernels on the slice's own masks against their plain versions;
-  4. a torch.profiler trace of 5 pipelined batches through `transform`:
-     device busy time (the union of kernel, memcpy and memset intervals),
-     the span from the first to the last of them, the idle share
-     1 - busy / span, busy time by category, and kernels per batch. The
-     profiler slows the host, so this run's span is not a throughput.
+  4. a torch.profiler trace of 5 pipelined batches through
+     `transform_arrays`: device busy time (the union of kernel, memcpy and
+     memset intervals), the span from the first to the last of them, the
+     idle share 1 - busy / span, busy time by category, and kernels per
+     batch. The profiler slows the host, so this run's span is not a
+     throughput.
 
 Prints every result and the card's name and power limit, and writes them
 to DIR/profile_slice.json with the gzipped chrome trace beside it.
@@ -57,7 +59,7 @@ def throughput(pipe, tiles, repeats):
     rates = []
     for _ in range(repeats):
         start = time.perf_counter()
-        n = sum(1 for _ in pipe.transform(tiles))
+        n = sum(1 for _ in pipe.transform_arrays(tiles))
         rates.append(n / (time.perf_counter() - start))
     return rates
 
@@ -90,8 +92,9 @@ def stage_times(pipe, tiles_u8, reps=10):
         u8, row["H2D of the uint8 tiles (pageable)"] = timed(
             lambda: torch.as_tensor(tiles_u8).to(DEVICE))
         x, row["preprocess (/255, antialiased resize, normalise)"] = timed(
-            infer_batch_resize, u8, pipe.size)
-        probs, row["forward + softmax"] = timed(pipe.probs, x)
+            infer_batch_resize, u8, pipe.loader.size)
+        probs, row["forward + softmax"] = timed(
+            pipe.trainer.probs_apply_fn(), x)
         mask, row["resize to 300^2 + threshold"] = timed(
             lambda: resize_bilinear(probs, (TILE, TILE))[..., 1] > 0.5)
         _, row["CCL kernels (label_raw + renumber)"] = timed(
@@ -111,7 +114,7 @@ def ccl_on_slice_masks(pipe, tiles_u8):
     from mapping_tpu_torch.kernels import ccl as K
     from mapping_tpu_torch.ops.ccl import _label_raw, _renumber
 
-    probs = pipe.probs(pipe.preprocess(tiles_u8))
+    probs = chip_smoke.probs_of(pipe, tiles_u8)
     mask = (resize_bilinear(probs, (TILE, TILE))[..., 1] > 0.5).contiguous()
     kernel = chip_smoke.cuda_ms(lambda: K.renumber(K.label_raw(mask)), 50)
     plain = chip_smoke.cuda_ms(lambda: _renumber(_label_raw(mask, 2 * TILE)),
@@ -126,7 +129,7 @@ def device_trace(pipe, tiles_u8, trace_path):
     n_batches = len(tiles_u8) // BATCH
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        list(pipe.transform(tiles_u8))
+        list(pipe.transform_arrays(tiles_u8))
         torch.cuda.synchronize()
     raw = trace_path.with_suffix("")
     prof.export_chrome_trace(str(raw))
@@ -184,7 +187,7 @@ def main():
     gen = torch.Generator().manual_seed(0)
     tiles = chip_smoke.make_tiles(gen, args.batches * BATCH)
     pipe = chip_smoke.serving_pipeline(gen, tiles[:BATCH])[0]
-    list(pipe.transform(tiles[:2 * BATCH]))  # warm-up: cuDNN plans, allocator
+    list(pipe.transform_arrays(tiles[:2 * BATCH]))  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
 
     result = {"card": smi, "batch": BATCH, "tile": TILE,

@@ -98,7 +98,5 @@ def test_layer_helpers_match_jax():
 
 def test_unported_options_raise():
     probs = torch.from_numpy(_probs(1, 64, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        port_post.fused_postprocess(probs, erode_size=2)
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         port_post.fused_postprocess(probs, compute_features=True)

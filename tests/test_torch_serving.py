@@ -4,7 +4,7 @@ The same random UNetResNet34 weights (BatchNorm statistics randomised)
 serve the same uint8 tiles through the JAX package's FusedServe, with a
 BN-folded Flax probabilities function built the way
 mapping_tpu/train/trainer.py `probs_apply_fn` builds one, and through the
-port's UNetPipeline on the CPU, in float32.
+port's `unet_weighted` UNetPipeline on the CPU, in float32.
 
 Tolerances: probabilities 1e-4 absolute. Labels agree except at pixels
 whose resized probability lies within 1e-4 of the 0.5 threshold, where the
@@ -32,8 +32,9 @@ from mapping_tpu.infer.serving import FusedServe as JaxFusedServe
 from mapping_tpu.models.fold_bn import fold_batch_stats as jax_fold
 from mapping_tpu.models.torch_convert import convert_unet_resnet
 from mapping_tpu.models.unet_resnet import UNetResNet as FlaxUNetResNet
+from mapping_tpu_torch.config import build_config
 from mapping_tpu_torch.models.unet_resnet import UNetResNet
-from mapping_tpu_torch.pipelines import UNetPipeline
+from mapping_tpu_torch.pipelines import PIPELINES
 
 torch.set_num_threads(2)
 
@@ -78,6 +79,14 @@ def _state_dict(images, seed=0):
     return {k: v.numpy().copy() for k, v in model.state_dict().items()}
 
 
+def _pipeline(params, state, device="cpu"):
+    """The port's unet_weighted inference pipeline for the JAX parameter
+    dict `params`, serving the weights `state`."""
+    config = build_config(overrides={**params, "device": device})
+    pipe = PIPELINES["unet_weighted"]["inference"](config)
+    return pipe.set_weights(state) if state else pipe
+
+
 def _jax_serve(state):
     params, stats = convert_unet_resnet(state, 34, True)
     folded = jax_fold(params, stats)
@@ -97,18 +106,19 @@ def slice_outputs():
     images = np.asarray(_infer_batch_resize(jnp.asarray(tiles), size)["image"])
     state = _state_dict(images)
     jax_serve, jax_probs_fn, folded = _jax_serve(state)
-    pipe = UNetPipeline(PARAMS, state, device="cpu")
+    pipe = _pipeline(PARAMS, state)
     bs = PARAMS["batch_size_inference"]
     batches = [tiles[i:i + bs] for i in range(0, len(tiles), bs)]
     jax_outs = [jax_serve(_infer_batch_resize(jnp.asarray(b), size)["image"])
                 for b in batches]
-    port_outs = [pipe.serve(pipe.preprocess(b)) for b in batches]
+    serve, preprocess = pipe.serve_program(), pipe.loader.infer_preprocess
+    port_outs = [serve(preprocess(b)) for b in batches]
     return dict(
         tiles=tiles, pipe=pipe, state=state,
         jax=[np.concatenate(o) for o in zip(*jax_outs)],
         port=[np.concatenate(o) for o in zip(*port_outs)],
         jax_probs=np.asarray(jax_probs_fn(folded, jnp.asarray(images))),
-        port_probs=pipe.probs(pipe.preprocess(tiles)).numpy())
+        port_probs=pipe.trainer.probs_apply_fn()(preprocess(tiles)).numpy())
 
 
 def test_probabilities_match(slice_outputs):
@@ -154,10 +164,11 @@ def test_annotations_match(slice_outputs):
 
 
 def test_transform_yields_trimmed_rows(slice_outputs):
-    """transform(): one batch in flight, per image (labels, one score list
-    per layer trimmed to the layer's instance count)."""
+    """transform_arrays(): one batch in flight, per image (labels, one
+    score list per layer trimmed to the layer's instance count)."""
     labels, scores = slice_outputs["port"][:2]
-    rows = list(slice_outputs["pipe"].transform(slice_outputs["tiles"]))
+    rows = list(slice_outputs["pipe"].transform_arrays(
+        slice_outputs["tiles"]))
     assert len(rows) == len(labels)
     for (lab, trimmed), lab_b, sc_b in zip(rows, labels, scores):
         np.testing.assert_array_equal(lab, lab_b)
@@ -177,11 +188,12 @@ def test_tf32_off_only_inside_float32_forward(slice_outputs, dtype,
     try:
         for f in flags:
             f.allow_tf32 = True
-        pipe = UNetPipeline({**PARAMS, "model_dtype": dtype},
-                            slice_outputs["state"], device="cpu")
-        pipe.model.register_forward_hook(
+        pipe = _pipeline({**PARAMS, "model_dtype": dtype},
+                         slice_outputs["state"])
+        pipe.trainer.serving_model().register_forward_hook(
             lambda *_: seen.append([f.allow_tf32 for f in flags]))
-        pipe.probs(pipe.preprocess(slice_outputs["tiles"][:1]))
+        pipe.trainer.probs_apply_fn()(
+            pipe.loader.infer_preprocess(slice_outputs["tiles"][:1]))
         after = [f.allow_tf32 for f in flags]
     finally:
         for f, v in zip(flags, saved):
@@ -193,28 +205,33 @@ def test_tf32_off_only_inside_float32_forward(slice_outputs, dtype,
 def test_unported_settings_raise():
     state = {}
     with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        UNetPipeline({"quantized_serving": 1}, state, device="cpu")
+        _pipeline({"quantized_serving": 1}, state)
     with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        UNetPipeline({"data_parallel": 1}, state, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        UNetPipeline({"loader_mode": "crop_and_pad"}, state, device="cpu")
+        _pipeline({"data_parallel": 1}, state)
+    for name, item in (("unet_tta", 14), ("unet_padded", 14),
+                       ("unet_scoring_model", 15)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+            PIPELINES[name]["inference"](build_config())
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        PIPELINES["unet_weighted"]["train"](build_config())
 
 
 def test_cuda_pipeline_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
-        UNetPipeline(PARAMS, {}, device="cuda")
+        _pipeline(PARAMS, {}, device="cuda")
 
 
 def test_port_imports_without_jax():
-    """Every module of mapping_tpu_torch imports with jax and flax
-    blocked, and none imports the JAX package: the port must run where
-    neither is installed."""
+    """Every module of mapping_tpu_torch, the CLI included, imports with
+    jax, flax, pandas, yaml, click, PIL and msgpack blocked, and none
+    imports the JAX package: the port must run where none is installed."""
     code = (
         "import sys, importlib, pkgutil\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
+        "for m in ('jax', 'flax', 'pandas', 'yaml', 'click', 'PIL', "
+        "'msgpack'):\n"
+        "    sys.modules[m] = None\n"
         "import mapping_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'mapping_tpu_torch.')]\n"
@@ -227,9 +244,14 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.train.state',\n"
         "        'mapping_tpu_torch.train.step',\n"
         "        'mapping_tpu_torch.train.trainer',\n"
-        "        'mapping_tpu_torch.tools.dw_probe'} <= set(names)\n"
+        "        'mapping_tpu_torch.tools.dw_probe',\n"
+        "        'mapping_tpu_torch.main', 'mapping_tpu_torch.manager',\n"
+        "        'mapping_tpu_torch.config',\n"
+        "        'mapping_tpu_torch.train.checkpoint',\n"
+        "        'mapping_tpu_torch.utils.png'} <= set(names)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'flax', 'mapping_tpu') and sys.modules[k] is not None]\n"
+        "('jax', 'flax', 'mapping_tpu', 'pandas', 'yaml', 'click', 'PIL', "
+        "'msgpack') and sys.modules[k] is not None]\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -242,5 +264,7 @@ def test_constants_equal_jax_package():
     from mapping_tpu import constants as jax_constants
     from mapping_tpu_torch import constants
 
-    for name in ("CATEGORY_IDS", "CATEGORY_LAYERS", "MEAN", "STD"):
+    for name in ("CATEGORY_IDS", "CATEGORY_LAYERS", "MEAN", "STD",
+                 "SIZE_COLUMNS", "X_COLUMNS", "Y_COLUMNS",
+                 "Y_COLUMNS_SCORING", "SEED"):
         assert getattr(constants, name) == getattr(jax_constants, name)

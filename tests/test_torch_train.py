@@ -528,7 +528,8 @@ def test_fit_two_epochs():
     the rate decayed per epoch on the JAX schedule
     (optax.exponential_decay, staircase, every `steps` optimizer steps), the
     flow closed, and weights that UNetPipeline serves."""
-    from mapping_tpu_torch.pipelines import UNetPipeline
+    from mapping_tpu_torch.config import build_config
+    from mapping_tpu_torch.pipelines import PIPELINES
 
     trainer = _trainer()
     flow, steps = _flow()
@@ -541,11 +542,12 @@ def test_fit_two_epochs():
     assert flow.images is None
     val = eval_batch_resize(*map(_t, _u8_batch(n=2, hw=80, seed=9)), (64, 64))
     assert np.isfinite(trainer.score_validation(([val], 1))["sum"])
-    pipe = UNetPipeline({"encoder": "ResNet34", "model_dtype": "float32",
-                         "image_h": 64, "image_w": 64,
-                         "batch_size_inference": 2},
-                        trainer.state_dict(), device="cpu")
-    probs = pipe.probs(pipe.preprocess(_u8_batch(n=2, hw=80)[0]))
+    pipe = PIPELINES["unet_weighted"]["inference"](build_config(overrides={
+        "encoder": "ResNet34", "model_dtype": "float32", "image_h": 64,
+        "image_w": 64, "batch_size_inference": 2, "device": "cpu"}))
+    pipe.set_weights(trainer.state_dict())
+    probs = pipe.trainer.probs_apply_fn()(
+        pipe.loader.infer_preprocess(_u8_batch(n=2, hw=80)[0]))
     assert probs.shape == (2, 64, 64, 2) and torch.isfinite(probs).all()
 
 
@@ -569,8 +571,7 @@ def test_unported_trainer_settings_raise(kw, item):
         _trainer(**kw)
 
 
-@pytest.mark.parametrize("method,item", [("warm_start", 11),
-                                         ("import_torch_checkpoint", 6)])
+@pytest.mark.parametrize("method,item", [("warm_start", 11)])
 def test_unported_trainer_methods_raise(method, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         getattr(_trainer(), method)("model.pth")
