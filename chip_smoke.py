@@ -10,10 +10,14 @@ the JAX package is imported. Phases, each printing what it found:
   1. the card: refuses to run without CUDA; prints the card's name and
      power limit as nvidia-smi gives them;
   2. build: compiles mapping_tpu_torch/csrc/ccl.cu and conv_dw.cu for
-     sm_90a into build/, one nvcc per source, started together;
+     sm_90a into build/, one nvcc per source, started together (and the
+     parent tree's sources when a copy of it lies under build/old/); fails
+     if `-Xptxas -v` reports a spill;
   3. kernels: the CUDA CCL kernels against their plain PyTorch versions
      and scipy.ndimage.label, exact, on test cases and serving shapes, then
-     kernel and plain times at (20, 300, 300);
+     times at (20, 300, 300): kernel, plain, torch.unique's inverse as a
+     yardstick for the renumbering, and the parent tree's kernels where
+     present;
   4. slice: a ResNet101 UNetPipeline (32 filters, deconv, BN folded,
      bfloat16, random weights from a seeded torch.Generator) serves 3
      batches of 20 uint8 300^2 tiles through `transform`; the CCL launch
@@ -24,8 +28,11 @@ the JAX package is imported. Phases, each printing what it found:
   5. conv_dw: the CUDA filter-gradient kernel against its plain PyTorch
      version (max |kernel - plain| <= 1e-4 max |plain|) on k = 3 with
      C = 32, 64, 128, k = 5, a batch of 1, H != W and an all-zero dy, and
-     bit-identical on a rerun; then kernel, plain and cuDNN times at the
-     dW probe's first shape, (64, 32, 256, 256);
+     bit-identical on a rerun; then kernel, cuDNN's weight gradient and
+     plain times at the dW probe's shapes, (64, 32, 256, 256) and
+     (64, 64, 128, 128), and the train step's dec0.conv (20, 32, 256, 256)
+     and dec1.block.0.conv (20, 128, 128, 128), with the parent tree's
+     kernel where present;
   6. train: a ResNet101 UNetTrainer at the JAX config's defaults (bf16,
      batch 20, 256^2, weighted loss, Adam with L2 on conv kernels) with
      seeded random weights fits one epoch of augmented 300^2 tiles; the
@@ -55,13 +62,20 @@ the JAX package is imported. Phases, each printing what it found:
      seconds in decode, on the device, in annotation + RLE and in COCOeval
      (host clock).
 
-Prints one JSON line on the kernels, then as its last line
-{"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
-and no result is printed.
+Kernel and cuDNN times are device times: the call is captured once in a
+CUDA graph and the graph replayed between CUDA events, so the host's launch
+overhead is not in them. Plain versions and torch.unique (which read
+results back to the host) are timed as calls back to back between CUDA
+events. Every comparison runs in turns (a, b, b, a) in this one process.
+
+Prints one JSON line on the kernels (time, plain time, bound and what sets
+it, library time), then as its last line {"ok": true, "device": {...}}.
+Any failure raises: the exit code is not 0 and no result is printed.
 """
 
 import json
 import math
+import re
 import shutil
 import struct
 import subprocess
@@ -83,8 +97,15 @@ REPLACES = {"ccl_label_raw": "mapping_tpu/ops/ccl_pallas.py:127",
             "ccl_renumber": "mapping_tpu/ops/ccl_pallas.py:141",
             "conv_dw": "tools/dw_probe.py:70"}
 TRAIN_SIZE, TRAIN_STEPS = (256, 256), 5
-DW_PROBE_SHAPE = (64, 32, 256, 256)  # tools/dw_probe.py's first shape, NCHW
+#: NCHW shapes K3 is timed at: the JAX dW probe's two (tools/dw_probe.py)
+#: and the default train step's dec0.conv and dec1.block.0.conv
+DW_TIMED = {"probe C=32": (64, 32, 256, 256), "probe C=64": (64, 64, 128, 128),
+            "dec0.conv": (20, 32, 256, 256),
+            "dec1.block.0.conv": (20, 128, 128, 128)}
+DW_MAIN = "dec0.conv"  # the shape of the kernels line
 DW_TOL, DW_AUTOGRAD_TOL = 1e-4, 2e-2
+#: a copy of the parent tree (git archive) to time the kernels against
+OLD_TREE = ROOT / "build" / "old"
 EVAL_TILES = 110  # 5 full batches of 20 and a ragged tail of 10
 EVAL_DIR = ROOT / "build" / "chip_smoke_evaluate"
 #: parameters of phase 7 over the JAX config's defaults (ResNet101, bf16,
@@ -152,6 +173,7 @@ def ccl_cases(gen):
 
 
 def cuda_ms(fn, reps):
+    """ms per call of `reps` calls back to back between CUDA events."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -162,6 +184,78 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Device ms per call: `fn` captured once in a CUDA graph (after one
+    call outside it), the graph replayed `reps` times between events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+def in_turns(fns, timer, reps):
+    """{name: (first, second)}: the timings in the order a, b, ..., b, a."""
+    order = list(fns) + list(fns)[::-1]
+    got = {name: [] for name in fns}
+    for name in order:
+        got[name].append(timer[name](fns[name], reps[name]))
+    return {name: tuple(v) for name, v in got.items()}
+
+
+def old_kernels():
+    """Callables of the parent tree's K2 and K3 from the copy under
+    OLD_TREE, built in build_phase, or {} when there is no copy."""
+    import ctypes
+    import importlib.util
+
+    from mapping_tpu_torch.kernels import build
+
+    if not (OLD_TREE / "mapping_tpu_torch" / "csrc").is_dir():
+        return {}
+    csrc = OLD_TREE / "mapping_tpu_torch" / "csrc"
+    libs = build.build_shared_libraries(
+        {"old_ccl": [csrc / "ccl.cu"], "old_conv_dw": [csrc / "conv_dw.cu"]})
+    ccl = ctypes.CDLL(str(libs["old_ccl"].path))
+    ccl.ccl_renumber.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    dw = ctypes.CDLL(str(libs["old_conv_dw"].path))
+    dw.conv_dw_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    spec = importlib.util.spec_from_file_location(
+        "old_conv_dw", OLD_TREE / "mapping_tpu_torch" / "kernels" /
+        "conv_dw.py")
+    old_plan = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old_plan)
+
+    def renumber(labels):
+        n, h, w = labels.shape
+        rank, out = torch.empty_like(labels), torch.empty_like(labels)
+        err = ccl.ccl_renumber(labels.data_ptr(), rank.data_ptr(),
+                               out.data_ptr(), n, h, w,
+                               torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"old ccl_renumber: error {err}")
+        return out
+
+    def conv_dw(x, dy, k):
+        n, c, h, w = x.shape
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        rows, fpw, _, slices, _ = old_plan.plan(n, h, w, c, k, sms)
+        partial = torch.empty((slices, k * k * c * c), dtype=torch.float32,
+                              device=x.device)
+        out = torch.empty((c, c, k, k), dtype=torch.float32, device=x.device)
+        err = dw.conv_dw_bf16(x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
+                              out.data_ptr(), n, h, w, c, k, rows, fpw, slices,
+                              torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"old conv_dw: error {err}")
+        return out
+
+    return {"ccl_renumber": renumber, "conv_dw": conv_dw}
 
 
 def kernel_phase(gen):
@@ -195,23 +289,37 @@ def kernel_phase(gen):
         err["ccl_label_raw"] = max(err["ccl_label_raw"], e_raw)
         err["ccl_renumber"] = max(err["ccl_renumber"], e_ren)
 
-    # times at the serving shape, in turns: plain, kernel, kernel, plain
+    # times at the serving shape, in turns
     m = (torch.rand((BATCH, TILE, TILE), generator=gen) < 0.5).to(DEVICE)
     raw = K.label_raw(m)
-    pairs = {
-        "ccl_label_raw": (lambda: _label_raw(m, 2 * TILE),
-                          lambda: K.label_raw(m)),
-        "ccl_renumber": (lambda: _renumber(raw), lambda: K.renumber(raw)),
+    offset = (torch.arange(BATCH, device=DEVICE, dtype=torch.int32)
+              * (TILE * TILE + 1)).view(-1, 1, 1)
+    shifted = raw + offset  # labels of all images in one numbering
+    old = old_kernels().get("ccl_renumber")
+    if old is not None and not torch.equal(old(raw), K.renumber(raw)):
+        raise AssertionError("the parent tree's ccl_renumber disagrees")
+    runs = {
+        "ccl_label_raw": {"plain": lambda: _label_raw(m, 2 * TILE),
+                          "kernel": lambda: K.label_raw(m)},
+        "ccl_renumber": {"plain": lambda: _renumber(raw),
+                         "torch.unique": lambda: torch.unique(
+                             shifted, sorted=True, return_inverse=True),
+                         "kernel": lambda: K.renumber(raw),
+                         **({"parent kernel": lambda: old(raw)} if old else {})},
     }
+    timer = {"plain": cuda_ms, "torch.unique": cuda_ms, "kernel": graph_ms,
+             "parent kernel": graph_ms}
+    reps = {"plain": 5, "torch.unique": 20, "kernel": 100, "parent kernel": 100}
     times = {}
-    for name, (plain, kernel) in pairs.items():
-        p1, k1, k2, p2 = (cuda_ms(plain, 5), cuda_ms(kernel, 50),
-                          cuda_ms(kernel, 50), cuda_ms(plain, 5))
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"time {name} (20, 300, 300) density 0.5: kernel {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+    for name, fns in runs.items():
+        got = in_turns(fns, timer, reps)
+        lib = got.get("torch.unique")
+        times[name] = (sum(got["kernel"]) / 2, sum(got["plain"]) / 2,
+                       None if lib is None else sum(lib) / 2)
+        print(f"time {name} (20, 300, 300) density 0.5: " + ", ".join(
+            f"{what} {a:.4f} / {b:.4f} ms" for what, (a, b) in got.items())
+            + ("" if old else "; no parent tree under build/old"))
     return err, times
-
 
 def random_model(depth, gen):
     """UNetResNet weights from `gen`: He-normal convs (the last conv of
@@ -391,11 +499,18 @@ def slice_phase(gen, smi):
 def build_phase():
     from mapping_tpu_torch.kernels import build, ccl, conv_dw
 
-    for built in build.build_shared_libraries(
-            {k.LIBRARY: k.SOURCES for k in (ccl, conv_dw)}).values():
+    specs = {k.LIBRARY: k.SOURCES for k in (ccl, conv_dw)}
+    if (OLD_TREE / "mapping_tpu_torch" / "csrc").is_dir():
+        csrc = OLD_TREE / "mapping_tpu_torch" / "csrc"
+        specs.update(old_ccl=[csrc / "ccl.cu"],
+                     old_conv_dw=[csrc / "conv_dw.cu"])
+    for name, built in build.build_shared_libraries(specs).items():
         print(f"build: {built.path.name} in {built.seconds:.2f} s")
         for line in built.log.splitlines():
             print(f"build: {line}")
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            if spill and int(spill.group(1)) and not name.startswith("old"):
+                raise AssertionError(f"{name}: ptxas reports a spill: {line}")
 
 
 def conv_dw_phase():
@@ -434,21 +549,31 @@ def conv_dw_phase():
             raise AssertionError(f"conv_dw disagrees on case {name}")
         max_err = max(max_err, err)
 
-    # times at the probe's first shape, in turns
-    x, dy = randn(DW_PROBE_SHAPE), randn(DW_PROBE_SHAPE)
-    plain, cudnn = (lambda: conv_dw_plain(x, dy, 3)), (lambda: dw_cudnn(x, dy, 3))
-    kernel = lambda: K.conv_dw(x, dy, 3)  # noqa: E731
-    want = plain()
-    err = float((kernel() - want).abs().max())
-    if not err <= DW_TOL * float(want.abs().max()):
-        raise AssertionError("conv_dw disagrees at the probe's shape")
-    p1, c1, k1, k2, c2, p2 = (cuda_ms(plain, 3), cuda_ms(cudnn, 20),
-                              cuda_ms(kernel, 20), cuda_ms(kernel, 20),
-                              cuda_ms(cudnn, 20), cuda_ms(plain, 3))
-    print(f"time conv_dw {DW_PROBE_SHAPE} k 3 bf16: kernel {k1:.4f} / "
-          f"{k2:.4f} ms, cuDNN {c1:.4f} / {c2:.4f} ms, plain {p1:.4f} / "
-          f"{p2:.4f} ms; max |kernel - plain| {err:.3e}")
-    return max(max_err, err), ((k1 + k2) / 2, (p1 + p2) / 2)
+    # times at the probe's and the train step's shapes, in turns
+    old = old_kernels().get("conv_dw")
+    timer = {"plain": cuda_ms, "cuDNN": graph_ms, "kernel": graph_ms,
+             "parent kernel": graph_ms}
+    reps = {"plain": 3, "cuDNN": 20, "kernel": 20, "parent kernel": 20}
+    times = {}
+    for label, shape in DW_TIMED.items():
+        x, dy = randn(shape), randn(shape)
+        fns = {"plain": lambda: conv_dw_plain(x, dy, 3),
+               "cuDNN": lambda: dw_cudnn(x, dy, 3),
+               "kernel": lambda: K.conv_dw(x, dy, 3),
+               **({"parent kernel": lambda: old(x, dy, 3)} if old else {})}
+        want = fns["plain"]()
+        err = float((fns["kernel"]() - want).abs().max())
+        if not err <= DW_TOL * float(want.abs().max()):
+            raise AssertionError(f"conv_dw disagrees at {shape}")
+        max_err = max(max_err, err)
+        got = in_turns(fns, timer, reps)
+        times[label] = (sum(got["kernel"]) / 2, sum(got["plain"]) / 2,
+                        sum(got["cuDNN"]) / 2)
+        print(f"time conv_dw {label} {shape} k 3 bf16: " + ", ".join(
+            f"{what} {a:.4f} / {b:.4f} ms" for what, (a, b) in got.items())
+            + f"; max |kernel - plain| {err:.3e}"
+            + ("" if old else "; no parent tree under build/old"))
+    return max_err, times[DW_MAIN]
 
 
 def stand_in_targets(tiles):
@@ -817,6 +942,8 @@ def evaluate_phase(gen, smi):
 
 def main():
     smi = card()
+    from mapping_tpu_torch.kernels import bounds
+
     build_phase()
     gen = torch.Generator().manual_seed(0)
     err, times = kernel_phase(gen)
@@ -825,11 +952,17 @@ def main():
     launches["conv_dw"] = train_phase(gen, smi)["conv_dw"]
     for name, n in evaluate_phase(gen, smi).items():
         launches[name] += n
+    n, c, h, w = DW_TIMED[DW_MAIN]
+    bound = {"ccl_label_raw": bounds.ccl_label_raw(BATCH, TILE, TILE),
+             "ccl_renumber": bounds.ccl_renumber(BATCH, TILE, TILE),
+             "conv_dw": bounds.conv_dw(n, c, h, w, 3)}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": err[name], "ms": times[name][0],
-         "plain_ms": times[name][1]} for name in REPLACES]}))
+         "plain_ms": times[name][1], "bound_ms": bound[name][0],
+         "bound_by": bound[name][1], "library_ms": times[name][2]}
+        for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

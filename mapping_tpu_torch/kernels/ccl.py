@@ -11,7 +11,11 @@ and `connected_components` there chooses between the two by device.
 What bounds the kernels on an H100, and what the design does about it, is
 set out at the top of csrc/ccl.cu: they are memory-bound, at roughly 1 B of
 mask in, 4 B of labels out and the union-find's parent traffic per pixel
-(about 1.8 M pixels for a serving batch of 20 tiles at 300^2).
+(about 1.8 M pixels for a serving batch of 20 tiles at 300^2). `renumber`
+runs over a grid of 1024-pixel chunks of every image at once: a count of
+each chunk's roots (ballot + popc, with the prefix inside the chunk), a
+per-image scan of the chunk counts, and a gather that computes each
+pixel's rank from those (`renumber_plan` sizes its scratch).
 
 Each wrapper launches on the current stream, never synchronises, allocates
 its outputs and scratch with torch.empty, and adds one to `LAUNCHES[name]`
@@ -27,6 +31,7 @@ from mapping_tpu_torch.kernels.build import CSRC, build_shared_library
 LIBRARY = "mapping_ccl"
 SOURCES = [CSRC / "ccl.cu"]
 LAUNCHES = {"ccl_label_raw": 0, "ccl_renumber": 0}
+CHUNK = 1024  # pixels of a renumbering chunk (kChunk in csrc/ccl.cu)
 
 _library = None
 
@@ -86,16 +91,26 @@ def label_raw(mask: torch.Tensor) -> torch.Tensor:
     return labels
 
 
+def renumber_plan(n, h, w):
+    """(words, chunks, scratch) of `renumber` on (n, h, w) labels: 32-pixel
+    words and CHUNK-pixel chunks per image, and the int32 scratch: one
+    root-bit word and one in-chunk prefix per word, one count and one
+    prefix per chunk."""
+    words, chunks = -(-h * w // 32), -(-h * w // CHUNK)
+    return words, chunks, 2 * n * (words + chunks)
+
+
 def renumber(labels: torch.Tensor) -> torch.Tensor:
     """`label_raw` output -> consecutive 1..K per image in
     scipy.ndimage.label order (by minimal pixel); background stays 0.
 
     The input must be what `label_raw` (or the plain `_label_raw`) returns:
     every label is 1 + the index of a pixel that carries that same label.
-    The kernel reads the rank at that pixel without a bounds check, so any
-    other int32 map reads outside the tensor or reads unset scratch."""
+    The kernel looks that pixel up without a bounds check, so any other
+    int32 map reads outside the scratch or gives wrong ranks."""
     _check(labels, (torch.int32,), "renumber")
-    rank = torch.empty_like(labels)
+    scratch = torch.empty(renumber_plan(*labels.shape)[2], dtype=torch.int32,
+                          device=labels.device)
     out = torch.empty_like(labels)
-    _launch(library()[0].ccl_renumber, "ccl_renumber", labels, rank, out)
+    _launch(library()[0].ccl_renumber, "ccl_renumber", labels, scratch, out)
     return out

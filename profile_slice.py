@@ -40,8 +40,8 @@ from chip_smoke import BATCH, DEVICE, TILE
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: busy-time categories, matched in order against the event's name
 CATEGORIES = (
-    ("ccl kernels", ("init_runs", "merge_cols", "resolve", "rank_roots",
-                     "gather_ranks")),
+    ("ccl kernels", ("init_runs", "merge_cols", "resolve", "count_roots",
+                     "scan_chunks", "gather_ranks")),
     ("conv/gemm", ("conv", "gemm", "xmma", "nvjet", "cutlass", "cudnn")),
     ("scatter (scores)", ("scatter",)),
     ("resize", ("upsample", "interp")),

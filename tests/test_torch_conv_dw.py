@@ -105,21 +105,83 @@ def test_wrapper_refuses_shapes_outside_the_contract(x_shape, dy_shape, k,
         K.conv_dw(x, dy, k)
 
 
+#: accumulator registers a consumer thread may hold (csrc/conv_dw.cu's note:
+#: 96 at N = 64, beside one A fragment, in a thread's 128 registers)
+ACC_BUDGET = 96
+
+
 @pytest.mark.parametrize("shape,k", [((64, 32, 256, 256), 3),
                                      ((64, 64, 128, 128), 3),
                                      ((20, 128, 128, 128), 3),
                                      ((1, 32, 5, 300), 5),
-                                     ((2, 512, 4, 4), 5)])
+                                     ((2, 512, 4, 4), 5),
+                                     ((8, 16, 64, 64), 3),
+                                     ((2, 128, 128, 128), 3),
+                                     ((8, 64, 64, 64), 5)])
 def test_plan_covers_every_output_tile(shape, k):
-    """Every 16 x 16 output tile belongs to one warp, no warp holds more
-    than the kernel's 8 accumulators, and a block fits in shared memory."""
+    """The launch plan, read the way csrc/conv_dw.cu reads it: every
+    (tap, c_in, c_out) output belongs to exactly one (output group,
+    warpgroup, row tap of its unit); a warpgroup's accumulators stay in the
+    budget; the ring of stages fits in shared memory; TMA boxes are at most
+    256 wide and their inner bytes are the swizzle width (at most 128); the
+    blocks' pixel-tile runs cover every tile exactly once."""
     n, c, h, w = shape
-    rows, fpw, groups, slices, shared = K.plan(n, h, w, c, k, sms=132)
-    n_frags = k * k * (c // 16) ** 2
-    assert 1 <= fpw <= K._MAX_FRAGS
-    assert (groups - 1) * K._WARPS * fpw < n_frags <= groups * K._WARPS * fpw
-    assert 1 <= slices <= n * -(-h // rows) * -(-w // K._TILE_W)
-    assert shared <= K._MAX_SHARED
+    pl = K.plan(n, h, w, c, k, sms=132)
+    cb, n_boxes = pl.cb, c // pl.cb
+    assert cb in (16, 32, 64) and c % cb == 0
+    rows = k * c  # rows (box, dw, c_in in box) of one dh
+    dh_chunks = -(-k // pl.dh_chunk)
+    owned = np.zeros((c, c, k * k), np.int64)  # (c_out, c_in, tap)
+    for group in range(pl.groups):
+        n_block, run = group % n_boxes, group // n_boxes
+        for wg in range(K._CONSUMERS):
+            unit = run * K._CONSUMERS + wg
+            if unit >= pl.units:
+                continue
+            piece = unit // dh_chunks
+            dh0 = (unit % dh_chunks) * pl.dh_chunk
+            for d in range(K._DH):
+                dh = dh0 + d
+                if d >= pl.dh_chunk or dh >= k:
+                    continue
+                for r in range(piece * 64, min(piece * 64 + 64, rows)):
+                    box, dw = r // (k * cb), r % (k * cb) // cb
+                    c_in = box * cb + r % cb
+                    owned[n_block * cb:(n_block + 1) * cb, c_in,
+                          dh * k + dw] += 1
+    assert (owned == 1).all()
+    assert pl.units == -(-rows // 64) * dh_chunks
+    assert K._DH * cb // 2 <= ACC_BUDGET
+    assert 2 <= pl.stages <= 4
+    assert pl.shared == pl.stages * (K.stage_bytes(c, k, pl.bh, pl.bw) + 16) \
+        + 1024 <= K._MAX_SHARED
+    for box in [(cb, pl.bw + k - 1, pl.bh + k - 1, 1), (cb, pl.bw, pl.bh, 1)]:
+        assert max(box) <= 256 and box[0] * 2 <= 128
+    tiles = n * pl.tiles_x * pl.tiles_y
+    assert pl.tiles_x * pl.bw >= w > (pl.tiles_x - 1) * pl.bw
+    assert pl.tiles_y * pl.bh >= h > (pl.tiles_y - 1) * pl.bh
+    assert pl.bh * pl.bw % 16 == 0 and pl.bw in (8, 16, 32)
+    assert pl.groups * pl.slices <= 132 or pl.slices == 1
+    runs = [range(tiles * s // pl.slices, tiles * (s + 1) // pl.slices)
+            for s in range(pl.slices)]
+    assert all(len(r) for r in runs)
+    assert sorted(t for r in runs for t in r) == list(range(tiles))
+
+
+@pytest.mark.parametrize("args,ms,by", [
+    ((64, 32, 256, 256, 3), 0.16027, "bytes"),
+    ((64, 64, 128, 128, 3), 0.080174, "bytes"),
+    ((20, 32, 256, 256, 3), 0.050092, "bytes"),
+    ((20, 128, 128, 128, 3), 0.097712, "operations"),
+])
+def test_conv_dw_bound(args, ms, by):
+    """K3's bound: 2 n h w k^2 c^2 operations at 989 TFLOP/s against x and
+    dy (bf16) read and dW (float32) written at 3.35 TB/s, e.g. (64, 32, 256,
+    256): 0.5369 GB / 3.35 TB/s = 0.160 ms > 77.3 GFLOP / 989 TFLOP/s."""
+    from mapping_tpu_torch.kernels import bounds
+
+    got, what = bounds.conv_dw(*args)
+    assert what == by and abs(got - ms) <= 1e-4 * ms
 
 
 @pytest.mark.parametrize("variant", ["pad_co", "pad_cico"])
