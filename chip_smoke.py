@@ -13,11 +13,18 @@ the JAX package is imported. Phases, each printing what it found:
      sm_90a into build/, one nvcc per source, started together (and the
      parent tree's sources when a copy of it lies under build/old/); fails
      if `-Xptxas -v` reports a spill;
-  3. kernels: the CUDA CCL kernels against their plain PyTorch versions
-     and scipy.ndimage.label, exact, on test cases and serving shapes, then
-     times at (20, 300, 300): kernel, plain, torch.unique's inverse as a
-     yardstick for the renumbering, and the parent tree's kernels where
-     present;
+  3. kernels: the CUDA CCL kernels (K1 `label_raw`, K2 `renumber` and the
+     fused `label`) against their plain PyTorch versions and
+     scipy.ndimage.label, exact, on test cases, serving shapes, lines and
+     shapes on K1's tile borders and corners, and a (1, 3, 70000) row; the
+     CUDA kernels one connected_components call launches, with each one's
+     device time, from a torch.profiler trace; then times at (20, 300,
+     300) noise of density 0.5: kernel, plain, torch.unique's inverse as a
+     yardstick for the renumbering, and the parent tree's kernels (K1, K2
+     and K1 + K2) where present. K1 and `label` are timed the same way on
+     phase 4's serving masks and on phase 7's masks and building
+     footprints; each mask batch is saved under build/ccl_masks/ for
+     `python3 -m mapping_tpu_torch.tools.kernel_variants ccl`;
   4. slice: a ResNet101 UNetPipeline (32 filters, deconv, BN folded,
      bfloat16, random weights from a seeded torch.Generator) serves 3
      batches of 20 uint8 300^2 tiles through `transform`; the CCL launch
@@ -135,6 +142,8 @@ def card():
 
 def ccl_cases(gen):
     """name -> (N, H, W) bool mask on the card."""
+    from mapping_tpu_torch.kernels.ccl import TILE_H, TILE_W
+
     def noise(n, h, w, density):
         return torch.rand((n, h, w), generator=gen) < density
 
@@ -156,6 +165,23 @@ def ccl_cases(gen):
     snake[0, ::2] = True  # one 45,150-pixel path: rows joined at alternate ends
     snake[0, 1::4, -1] = True
     snake[0, 3::4, 0] = True
+    th, tw = TILE_H, TILE_W  # K1's tiles: lines on every border
+    grid = torch.zeros((3, TILE, TILE), dtype=torch.bool)
+    grid[0, ::th] = True  # the tiles' first row and column
+    grid[0, :, ::tw] = True
+    grid[1, th - 1::th] = True  # their last row and column
+    grid[1, :, tw - 1::tw] = True
+    grid[2] = grid[0] | grid[1]  # both sides of every border
+    corners = torch.zeros((3, TILE, TILE), dtype=torch.bool)
+    for y0 in range(th, TILE, th):  # one component on each corner
+        for x0 in range(tw, TILE, tw):
+            corners[0, y0 - 1:y0 + 1, x0 - 1:x0 + 1] = True  # a 2x2 square
+            corners[1, y0 - 3:y0 + 3, x0 - 3:x0 + 3] = True  # a ring
+            corners[1, y0 - 2:y0 + 2, x0 - 2:x0 + 2] = False
+            for i in range(4):  # a staircase across the corner
+                corners[2, y0 - 2 + i, x0 - 2 + i:x0 + i] = True
+    row = noise(1, 3, 70000, 0.6)  # a row 1,094 tiles wide
+    row[0, 1] = True  # one component through all of them
     cases = {
         "rects": rects, "noise48": noise(1, 48, 48, 0.45), "spiral": spiral,
         "empty16": torch.zeros((1, 16, 16), dtype=torch.bool),
@@ -167,7 +193,8 @@ def ccl_cases(gen):
         "wide": noise(2, 120, 333, 0.6),
         "empty20": torch.zeros((BATCH, TILE, TILE), dtype=torch.bool),
         "full20": torch.ones((BATCH, TILE, TILE), dtype=torch.bool),
-        "dots": dots, "snake": snake,
+        "dots": dots, "snake": snake, "tile_grid": grid,
+        "tile_corners": corners, "row70000": row,
     }
     return {k: v.to(DEVICE) for k, v in cases.items()}
 
@@ -207,7 +234,7 @@ def in_turns(fns, timer, reps):
 
 
 def old_kernels():
-    """Callables of the parent tree's K2 and K3 from the copy under
+    """Callables of the parent tree's K1, K2 and K3 from the copy under
     OLD_TREE, built in build_phase, or {} when there is no copy."""
     import ctypes
     import importlib.util
@@ -220,55 +247,108 @@ def old_kernels():
     libs = build.build_shared_libraries(
         {"old_ccl": [csrc / "ccl.cu"], "old_conv_dw": [csrc / "conv_dw.cu"]})
     ccl = ctypes.CDLL(str(libs["old_ccl"].path))
-    ccl.ccl_renumber.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+    for fn in (ccl.ccl_label_raw, ccl.ccl_renumber):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
     dw = ctypes.CDLL(str(libs["old_conv_dw"].path))
-    dw.conv_dw_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
+    dw.conv_dw_bf16.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     spec = importlib.util.spec_from_file_location(
         "old_conv_dw", OLD_TREE / "mapping_tpu_torch" / "kernels" /
         "conv_dw.py")
     old_plan = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(old_plan)
 
-    def renumber(labels):
-        n, h, w = labels.shape
-        rank, out = torch.empty_like(labels), torch.empty_like(labels)
-        err = ccl.ccl_renumber(labels.data_ptr(), rank.data_ptr(),
-                               out.data_ptr(), n, h, w,
-                               torch.cuda.current_stream().cuda_stream)
+    def ccl_call(fn, src):
+        """The parent's ccl entry point on src, with scratch of src's
+        size in int32 (more than either needs)."""
+        n, h, w = src.shape
+        scratch = torch.empty(src.shape, dtype=torch.int32, device=src.device)
+        out = torch.empty_like(scratch)
+        err = fn(src.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, h, w,
+                 torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"old ccl_renumber: error {err}")
+            raise RuntimeError(f"old {fn.__name__}: error {err}")
         return out
 
     def conv_dw(x, dy, k):
         n, c, h, w = x.shape
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        rows, fpw, _, slices, _ = old_plan.plan(n, h, w, c, k, sms)
-        partial = torch.empty((slices, k * k * c * c), dtype=torch.float32,
+        pl = old_plan.plan(n, h, w, c, k, sms)
+        partial = torch.empty((pl.slices, k * k * c * c), dtype=torch.float32,
                               device=x.device)
         out = torch.empty((c, c, k, k), dtype=torch.float32, device=x.device)
+        fields = (ctypes.c_int * old_plan._PLAN_FIELDS)(
+            *pl[:old_plan._PLAN_FIELDS])
         err = dw.conv_dw_bf16(x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-                              out.data_ptr(), n, h, w, c, k, rows, fpw, slices,
+                              out.data_ptr(), fields,
                               torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"old conv_dw: error {err}")
         return out
 
-    return {"ccl_renumber": renumber, "conv_dw": conv_dw}
+    return {"ccl_label_raw": lambda m: ccl_call(ccl.ccl_label_raw, m),
+            "ccl_renumber": lambda raw: ccl_call(ccl.ccl_renumber, raw),
+            "conv_dw": conv_dw}
+
+
+def ccl_times(masks, what, old, plain=True):
+    """K1 and the fused mask -> consecutive labels on `masks`, kernels as
+    CUDA-graph replays, in turns with the parent tree's K1 and K1 + K2
+    (where `old` has them) and the plain versions (`plain`). Returns
+    {run: {version: (first, second)}}; the masks are saved under
+    build/ccl_masks/ for tools/kernel_variants.py."""
+    from mapping_tpu_torch.kernels import ccl as K
+    from mapping_tpu_torch.ops.ccl import _label_raw, _renumber
+
+    h, w = masks.shape[-2:]
+    runs = {
+        "ccl_label_raw": {"kernel": lambda: K.label_raw(masks)},
+        "label (fused)": {"kernel": lambda: K.label(masks),
+                          "K1 + K2": lambda: K.renumber(K.label_raw(masks))},
+    }
+    if old:
+        runs["ccl_label_raw"]["parent kernel"] = lambda: old[
+            "ccl_label_raw"](masks)
+        runs["label (fused)"]["parent K1 + K2"] = lambda: old["ccl_renumber"](
+            old["ccl_label_raw"](masks))
+    if plain:
+        runs["ccl_label_raw"]["plain"] = lambda: _label_raw(masks, h + w)
+        runs["label (fused)"]["plain"] = lambda: _renumber(
+            _label_raw(masks, h + w))
+    timer = {"plain": cuda_ms}
+    reps = {"plain": 5}
+    got = {}
+    for run, fns in runs.items():
+        got[run] = in_turns(fns, {k: timer.get(k, graph_ms) for k in fns},
+                            {k: reps.get(k, 100) for k in fns})
+        print(f"time {run} {tuple(masks.shape)} {what}: " + ", ".join(
+            f"{v} {a:.4f} / {b:.4f} ms" for v, (a, b) in got[run].items())
+            + ("" if old else "; no parent tree under build/old"))
+    out = ROOT / "build" / "ccl_masks"
+    out.mkdir(parents=True, exist_ok=True)
+    torch.save(masks.cpu(), out / f"{what.replace(' ', '_')}.pt")
+    return got
 
 
 def kernel_phase(gen):
     from scipy import ndimage
 
     from mapping_tpu_torch.kernels import ccl as K
-    from mapping_tpu_torch.ops.ccl import _label_raw, _renumber
+    from mapping_tpu_torch.ops.ccl import (_label_raw, _renumber,
+                                           connected_components)
+    from mapping_tpu_torch.tools.kernel_variants import (kernel_events,
+                                                          short_name)
 
+    lib = K.library()[0]
+    print(f"K1 tile_label: {lib.ccl_tile_blocks_per_sm()} blocks of 256 "
+          f"threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     err = {"ccl_label_raw": 0, "ccl_renumber": 0}
     for name, m in ccl_cases(gen).items():
         h, w = m.shape[-2:]
         raw_k = K.label_raw(m)
         ren_k = K.renumber(raw_k)
+        lab_k = K.label(m)
         raw_p = _label_raw(m, h + w)
         ren_p = _renumber(raw_p)
         ren_from_plain = K.renumber(raw_p)
@@ -276,49 +356,62 @@ def kernel_phase(gen):
         e_raw = int((raw_k.long() - raw_p.long()).abs().max())
         e_ren = max(int((ren_k.long() - ren_p.long()).abs().max()),
                     int((ren_from_plain.long() - ren_p.long()).abs().max()))
-        ren_np, m_np = ren_k.cpu().numpy(), m.cpu().numpy()
+        e_lab = int((lab_k.long() - ren_p.long()).abs().max())
+        lab_np, m_np = lab_k.cpu().numpy(), m.cpu().numpy()
         n_comp = [ndimage.label(m_np[b])[1] for b in range(m_np.shape[0])]
-        scipy_ok = all(np.array_equal(ren_np[b], ndimage.label(m_np[b])[0])
+        scipy_ok = all(np.array_equal(lab_np[b], ndimage.label(m_np[b])[0])
                        for b in range(m_np.shape[0]))
         print(f"kernel case {name} {tuple(m.shape)}: components max "
               f"{max(n_comp)}, |raw kernel - plain| {e_raw}, "
-              f"|renumber kernel - plain| {e_ren}, scipy equal {scipy_ok} "
-              f"(tolerance: exact)")
-        if e_raw or e_ren or not scipy_ok:
+              f"|renumber kernel - plain| {e_ren}, |fused label - plain| "
+              f"{e_lab}, fused label = scipy {scipy_ok} (tolerance: exact)")
+        if e_raw or e_ren or e_lab or not scipy_ok:
             raise AssertionError(f"CCL kernel disagrees on case {name}")
-        err["ccl_label_raw"] = max(err["ccl_label_raw"], e_raw)
-        err["ccl_renumber"] = max(err["ccl_renumber"], e_ren)
+        err["ccl_label_raw"] = max(err["ccl_label_raw"], e_raw, e_lab)
+        err["ccl_renumber"] = max(err["ccl_renumber"], e_ren, e_lab)
+
+    # kernels per connected_components call, as the profiler sees them
+    m = (torch.rand((BATCH, TILE, TILE), generator=gen) < 0.5).to(DEVICE)
+    old = old_kernels()
+    counts = {"connected_components": kernel_events(
+        lambda: connected_components(m))}
+    if old:
+        counts["parent K1 + K2"] = kernel_events(
+            lambda: old["ccl_renumber"](old["ccl_label_raw"](m)))
+    for what, events in counts.items():
+        print(f"kernels per call, {what} (20, 300, 300) density 0.5: "
+              f"{len(events)}, device µs under the profiler: " + ", ".join(
+                  f"{short_name(k)} {us:.1f}" for k, us in events))
+    if len(counts["connected_components"]) != 5:
+        raise AssertionError("connected_components should launch 5 kernels")
 
     # times at the serving shape, in turns
-    m = (torch.rand((BATCH, TILE, TILE), generator=gen) < 0.5).to(DEVICE)
     raw = K.label_raw(m)
     offset = (torch.arange(BATCH, device=DEVICE, dtype=torch.int32)
               * (TILE * TILE + 1)).view(-1, 1, 1)
     shifted = raw + offset  # labels of all images in one numbering
-    old = old_kernels().get("ccl_renumber")
-    if old is not None and not torch.equal(old(raw), K.renumber(raw)):
-        raise AssertionError("the parent tree's ccl_renumber disagrees")
-    runs = {
-        "ccl_label_raw": {"plain": lambda: _label_raw(m, 2 * TILE),
-                          "kernel": lambda: K.label_raw(m)},
-        "ccl_renumber": {"plain": lambda: _renumber(raw),
-                         "torch.unique": lambda: torch.unique(
-                             shifted, sorted=True, return_inverse=True),
-                         "kernel": lambda: K.renumber(raw),
-                         **({"parent kernel": lambda: old(raw)} if old else {})},
-    }
+    if old and not (torch.equal(old["ccl_label_raw"](m), K.label_raw(m))
+                    and torch.equal(old["ccl_renumber"](raw),
+                                    K.renumber(raw))):
+        raise AssertionError("the parent tree's CCL kernels disagree")
+    k1 = ccl_times(m, "density 0.5", old)["ccl_label_raw"]
+    fns = {"plain": lambda: _renumber(raw),
+           "torch.unique": lambda: torch.unique(shifted, sorted=True,
+                                                return_inverse=True),
+           "kernel": lambda: K.renumber(raw),
+           **({"parent kernel": lambda: old["ccl_renumber"](raw)} if old
+              else {})}
     timer = {"plain": cuda_ms, "torch.unique": cuda_ms, "kernel": graph_ms,
              "parent kernel": graph_ms}
     reps = {"plain": 5, "torch.unique": 20, "kernel": 100, "parent kernel": 100}
-    times = {}
-    for name, fns in runs.items():
-        got = in_turns(fns, timer, reps)
-        lib = got.get("torch.unique")
-        times[name] = (sum(got["kernel"]) / 2, sum(got["plain"]) / 2,
-                       None if lib is None else sum(lib) / 2)
-        print(f"time {name} (20, 300, 300) density 0.5: " + ", ".join(
-            f"{what} {a:.4f} / {b:.4f} ms" for what, (a, b) in got.items())
-            + ("" if old else "; no parent tree under build/old"))
+    got = in_turns(fns, timer, reps)
+    print(f"time ccl_renumber (20, 300, 300) density 0.5: " + ", ".join(
+        f"{what} {a:.4f} / {b:.4f} ms" for what, (a, b) in got.items())
+        + ("" if old else "; no parent tree under build/old"))
+    times = {"ccl_label_raw": (sum(k1["kernel"]) / 2, sum(k1["plain"]) / 2,
+                               None),
+             "ccl_renumber": (sum(got["kernel"]) / 2, sum(got["plain"]) / 2,
+                              sum(got["torch.unique"]) / 2)}
     return err, times
 
 def random_model(depth, gen):
@@ -465,6 +558,7 @@ def slice_phase(gen, smi):
         raise AssertionError("kernel path differs from the plain path")
     print(f"slice: kernel path = plain path on batch 0 "
           f"({int(plain.amax())} instances max)")
+    ccl_times(layer > 0.5, "serving masks", old_kernels(), plain=False)
 
     # float32 on the card vs float32 on the CPU, 2 images
     params32 = {**params, "model_dtype": "float32"}
@@ -918,6 +1012,11 @@ def evaluate_phase(gen, smi):
     print(f"evaluate: erode 3 + dilate 2 postprocess, kernel path = plain "
           f"path on one batch ({int(kernel[0].amax())} instances max; labels "
           f"and areas exact, scores 1e-5 relative)")
+    old = old_kernels()
+    ccl_times(probs[..., 1] > 0.5, "evaluate masks", old, plain=False)
+    # the buildings themselves: tiles brighter than any background pixel
+    buildings = torch.from_numpy(tiles[:BATCH].min(-1) > 120).to(DEVICE)
+    ccl_times(buildings, "building footprints", old, plain=False)
 
     # the evaluator on the split's ground truth, written as predictions
     coco = COCOIndex(str(gt_path))

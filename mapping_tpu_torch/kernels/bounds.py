@@ -39,3 +39,9 @@ def ccl_label_raw(n, h, w):
 def ccl_renumber(n, h, w):
     """K2: (n, h, w) int32 labels in, int32 labels out."""
     return bound_ms(0, n * h * w * (4 + 4))
+
+
+def ccl_label(n, h, w):
+    """K1 with K2 fused (`kernels.ccl.label`): a (n, h, w) uint8 mask in,
+    consecutive int32 labels out."""
+    return bound_ms(0, n * h * w * (1 + 4))

@@ -2,7 +2,11 @@
 
 Counterpart of mapping_tpu/ops/ccl.py. `connected_components` sends a CUDA
 tensor to the hand-written kernels (mapping_tpu_torch/kernels/ccl.py) and a
-CPU tensor to the plain versions below; any other device raises. The plain
+CPU tensor to the plain versions below; any other device raises. On the
+card a renumbered call is one `kernels.ccl.label` (a union-find in
+shared-memory tiles, the tile borders united in global memory, the root
+count fused into the resolve, then the rank scan and gather: five
+launches), and a raw call is `kernels.ccl.label_raw` (three). The plain
 versions run on any device: the tests hold them against the JAX package,
 and the chip check holds the kernels against them.
 """
@@ -99,18 +103,22 @@ def connected_components(mask, max_iters=None, renumber=True):
     Returns:
         int32 labels of the mask's shape, on the mask's device.
     """
-    mask = mask != 0
     h, w = mask.shape[-2], mask.shape[-1]
     if mask.device.type == "cuda":
         if max_iters is not None:
             raise ValueError("the CUDA union-find converges exactly and "
                              "takes no max_iters")
-        flat = mask.reshape(-1, h, w).contiguous()
-        labels = ccl_kernels.label_raw(flat)
+        flat = mask.reshape(-1, h, w)
+        if flat.dtype not in (torch.bool, torch.uint8):
+            flat = flat != 0  # the kernels read any nonzero byte as foreground
+        flat = flat.contiguous()
         if renumber:
-            labels = ccl_kernels.renumber(labels)
+            labels = ccl_kernels.label(flat)
+        else:
+            labels = ccl_kernels.label_raw(flat)
         return labels.reshape(mask.shape)
     if mask.device.type != "cpu":
         raise ValueError(f"connected_components: no CCL for {mask.device}")
+    mask = mask != 0
     labels = _label_raw(mask, h + w if max_iters is None else max_iters)
     return _renumber(labels) if renumber else labels

@@ -97,7 +97,7 @@ def stage_times(pipe, tiles_u8, reps=10):
             pipe.trainer.probs_apply_fn(), x)
         mask, row["resize to 300^2 + threshold"] = timed(
             lambda: resize_bilinear(probs, (TILE, TILE))[..., 1] > 0.5)
-        _, row["CCL kernels (label_raw + renumber)"] = timed(
+        _, row["CCL kernels (fused label)"] = timed(
             connected_components, mask)
         outs, row["whole fused_postprocess"] = timed(
             lambda: fused_postprocess(probs, **post))
@@ -116,10 +116,10 @@ def ccl_on_slice_masks(pipe, tiles_u8):
 
     probs = chip_smoke.probs_of(pipe, tiles_u8)
     mask = (resize_bilinear(probs, (TILE, TILE))[..., 1] > 0.5).contiguous()
-    kernel = chip_smoke.cuda_ms(lambda: K.renumber(K.label_raw(mask)), 50)
+    kernel = chip_smoke.cuda_ms(lambda: K.label(mask), 50)
     plain = chip_smoke.cuda_ms(lambda: _renumber(_label_raw(mask, 2 * TILE)),
                                5)
-    return {"components_max": int(K.renumber(K.label_raw(mask)).amax()),
+    return {"components_max": int(K.label(mask).amax()),
             "kernel_ms": kernel, "plain_ms": plain}
 
 

@@ -112,6 +112,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ccl_kernels.label_raw(torch.zeros((1, 4, 4), dtype=torch.bool))
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         ccl_kernels.renumber(torch.zeros((1, 4, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        ccl_kernels.label(torch.zeros((1, 4, 4), dtype=torch.bool))
     assert ccl_kernels.LAUNCHES == before
 
 
@@ -140,11 +142,10 @@ def test_renumber_chunk_plan_covers_every_pixel(shape):
     assert scratch == 2 * n * words + 2 * n * chunks
 
 
-def _kernel_rank_formula(raw, chunk):
-    """csrc/ccl.cu's renumbering arithmetic in numpy: root bits per 32-pixel
-    word, roots in earlier words of the chunk, an exclusive scan of the
-    chunk counts per image, and each pixel's rank computed from its root's
-    word."""
+def _chunk_scratch(raw, chunk):
+    """What csrc/ccl.cu's count_roots writes, in numpy: root bits per
+    32-pixel word (n, words, 32), roots in earlier words of the word's
+    chunk (n, words) and roots per chunk (n, chunks)."""
     n, h, w = raw.shape
     hw = h * w
     flat = raw.reshape(n, hw).astype(np.int64)
@@ -157,7 +158,18 @@ def _kernel_rank_formula(raw, chunk):
     padded[:, :words] = per_word
     per_chunk = padded.reshape(n, chunks, chunk // 32)
     word_before = (np.cumsum(per_chunk, -1) - per_chunk).reshape(n, -1)
-    counts = per_chunk.sum(-1)
+    return bits, word_before[:, :words], per_chunk.sum(-1)
+
+
+def _kernel_rank_formula(raw, chunk, scratch=None):
+    """csrc/ccl.cu's renumbering arithmetic in numpy: root bits per 32-pixel
+    word, roots in earlier words of the chunk (`_chunk_scratch`, or the
+    given `scratch` in its layout), an exclusive scan of the chunk counts
+    per image, and each pixel's rank computed from its root's word."""
+    n, h, w = raw.shape
+    flat = raw.reshape(n, h * w).astype(np.int64)
+    bits, word_before, counts = (_chunk_scratch(raw, chunk) if scratch is None
+                                 else scratch)
     chunk_before = np.cumsum(counts, -1) - counts
     out = np.zeros_like(flat)
     for b in range(n):
@@ -185,11 +197,13 @@ def test_kernel_rank_formula_matches_plain_renumber(shape):
 
 
 @pytest.mark.parametrize("kernel,ms", [("ccl_label_raw", 0.0026866),
-                                       ("ccl_renumber", 0.0042985)])
+                                       ("ccl_renumber", 0.0042985),
+                                       ("ccl_label", 0.0026866)])
 def test_ccl_bounds_at_the_serving_batch(kernel, ms):
-    """Bytes bound both CCL kernels at (20, 300, 300): K1 reads 1.8 MB of
+    """Bytes bound the CCL kernels at (20, 300, 300): K1 reads 1.8 MB of
     mask and writes 7.2 MB of labels, K2 reads and writes 7.2 MB of labels,
-    at 3.35 TB/s."""
+    and the fused mask -> consecutive labels moves what K1 moves, at
+    3.35 TB/s."""
     from mapping_tpu_torch.kernels import bounds
 
     got, what = getattr(bounds, kernel)(20, 300, 300)

@@ -16,6 +16,7 @@ from them (mapping_tpu.infer.annotations).
 
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -258,6 +259,29 @@ def test_port_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout) >= 24
+
+
+def test_chip_smoke_imports_without_jax_and_refuses_without_a_card(tmp_path):
+    """chip_smoke.py imports nothing of jax, flax or the JAX package, and
+    run without a CUDA card (as here), or from a directory that holds it
+    alone, exits non-zero before printing any result."""
+    root = Path(__file__).resolve().parents[1]
+    block = ("import sys, runpy\n"
+             "for m in ('jax', 'flax', 'mapping_tpu'):\n"
+             "    sys.modules[m] = None\n"
+             "import torch\n"
+             "torch.cuda.is_available = lambda: {card}\n"
+             "sys.argv = ['chip_smoke.py']\n"
+             "runpy.run_path({path!r}, run_name='__main__')\n")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((root / "chip_smoke.py").read_text())
+    for card, path, reason in ((False, root / "chip_smoke.py", "is False"),
+                               (True, alone, "no mapping_tpu_torch")):
+        out = subprocess.run(
+            [sys.executable, "-c", block.format(card=card, path=str(path))],
+            capture_output=True, text=True, timeout=120, cwd=tmp_path)
+        assert out.returncode != 0 and reason in out.stderr, out.stderr
+        assert out.stdout == ""
 
 
 def test_constants_equal_jax_package():
