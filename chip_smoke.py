@@ -22,7 +22,7 @@ the JAX package is imported. Phases, each printing what it found:
      300) noise of density 0.5: kernel, plain, torch.unique's inverse as a
      yardstick for the renumbering, and the parent tree's kernels (K1, K2
      and K1 + K2) where present. K1 and `label` are timed the same way on
-     phase 4's serving masks and on phase 7's masks and building
+     phase 4's serving masks and on phase 8's masks and building
      footprints; each mask batch is saved under build/ccl_masks/ for
      `python3 -m mapping_tpu_torch.tools.kernel_variants ccl`;
   4. slice: a ResNet101 UNetPipeline (32 filters, deconv, BN folded,
@@ -40,17 +40,38 @@ the JAX package is imported. Phases, each printing what it found:
      (64, 64, 128, 128), and the train step's dec0.conv (20, 32, 256, 256)
      and dec1.block.0.conv (20, 128, 128, 128), with the parent tree's
      kernel where present;
-  6. train: a ResNet101 UNetTrainer at the JAX config's defaults (bf16,
+  6. prepare: a CrowdAI-style split under build/chip_smoke_prepare/, PNG
+     written with the standard library: train holds 1,000 synthetic 300^2
+     tiles (tests/fixtures/synthetic.py `_make_image`, up to 20
+     buildings), a crowded tile of 150 small buildings (more than
+     MAX_OBJECTS = 128: the chunked path) and a tile without annotations;
+     val holds 110 tiles. The CLI (`python3 -m mapping_tpu_torch.main
+     prepare_masks`) runs at the JAX defaults (erosion, dilation and border
+     0) in a child process: wall time, images/s and the child's peak RSS.
+     In this process the same leg over the train split times each
+     `connected_components` call (the CUDA `label`) with CUDA events, and
+     `overlay_masks` runs on 100 tiles with erosion 3, erosion 3 +
+     dilation 2, and border width 2; the CCL launches of these runs must
+     be above 0. On 20 tiles (the crowded and the empty one among them),
+     in each mode, the files written on the card must equal those of the
+     port on the CPU and of the plain CCL swapped in for the kernels
+     (masks, sizes and float16 distances exact), and the card's targets
+     must match a scipy oracle (the objects' rules applied with
+     ndimage filters, distance_transform_edt's top 2): masks and sizes
+     exact, distances within 1e-4 relative;
+  7. train: a ResNet101 UNetTrainer at the JAX config's defaults (bf16,
      batch 20, 256^2, weighted loss, Adam with L2 on conv kernels) with
-     seeded random weights fits one epoch of augmented 300^2 tiles; the
-     losses must be finite, and must fall over 5 steps on one batch
-     repeated; one float32 step on the card must match one on the CPU;
-     the dW kernel, run by the dW probe on the input and output gradient
-     of dec0.conv and dec1.block.0.conv captured in a bf16 step, must
-     match the plain version and autograd's weight gradient; the trained
-     weights serve one batch through the pipeline. The kernels' launch
-     counts are read from that run;
-  7. evaluate: a CrowdAI-style val split of 110 synthetic 300^2 tiles
+     seeded random weights trains on the files phase 6 wrote, read through
+     `prepare_metadata -tr` and SegmentationLoader.transform: one epoch of
+     5 augmented batches in `resize` mode (its peak RSS printed), then one
+     `crop_and_pad` batch; the losses must be finite, and must fall over 5
+     steps on one batch repeated; one float32 step on the card must match
+     one on the CPU; the dW kernel, run by the dW probe on the input and
+     output gradient of dec0.conv and dec1.block.0.conv captured in a bf16
+     step, must match the plain version and autograd's weight gradient;
+     the trained weights serve one batch through the pipeline. The
+     kernels' launch counts are read from that run;
+  8. evaluate: a CrowdAI-style val split of 110 synthetic 300^2 tiles
      (tests/fixtures/synthetic.py `_make_image`, up to 20 buildings), PNG
      written with the standard library, and its COCO annotation.json, under
      build/chip_smoke_evaluate/. Seeded random ResNet101 weights saved with
@@ -80,15 +101,17 @@ it, library time), then as its last line {"ok": true, "device": {...}}.
 Any failure raises: the exit code is not 0 and no result is printed.
 """
 
+import importlib.util
 import json
 import math
+import os
 import re
 import shutil
-import struct
 import subprocess
 import sys
+import threading
 import time
-import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -115,10 +138,22 @@ DW_TOL, DW_AUTOGRAD_TOL = 1e-4, 2e-2
 OLD_TREE = ROOT / "build" / "old"
 EVAL_TILES = 110  # 5 full batches of 20 and a ragged tail of 10
 EVAL_DIR = ROOT / "build" / "chip_smoke_evaluate"
-#: parameters of phase 7 over the JAX config's defaults (ResNet101, bf16,
+#: parameters of phase 8 over the JAX config's defaults (ResNet101, bf16,
 #: batch 20, 300^2 -> 256^2 -> 300^2)
 EVAL_PARAMS = {}
 EVAL_DEPTH = 101
+PREP_DIR = ROOT / "build" / "chip_smoke_prepare"
+#: tiles of phase 6: train (besides a crowded and an empty tile), val, the
+#: in-process sample of each mode, the tiles checked against the CPU, the
+#: plain CCL and scipy
+PREP_TRAIN, PREP_VAL, PREP_SAMPLE, PREP_CHECKED = 1000, 110, 100, 20
+PREP_CROWDED = 150  # buildings on the crowded tile, > MAX_OBJECTS = 128
+#: the modes of phase 6 besides the JAX defaults (no erosion, dilation or
+#: border), as overlay_masks arguments
+PREP_MODES = {"erode3": {"erode": 3}, "erode3_dilate2": {"erode": 3,
+                                                         "dilate": 2},
+              "border2": {"border_width": 2}}
+PREP_REL_TOL = 1e-4  # distances against scipy's, relative
 
 
 def card():
@@ -670,25 +705,6 @@ def conv_dw_phase():
     return max_err, times[DW_MAIN]
 
 
-def stand_in_targets(tiles):
-    """[mask, distance, sqrt(size)] uint16 targets of the tiles' bright
-    blobs, made on the host with scipy (component sizes from
-    ndimage.label, distance to the nearest blob from
-    distance_transform_edt), in the JAX loader's uint16 format. A stand-in
-    until prepare_masks is ported (ROADMAP Slice C)."""
-    from scipy import ndimage
-
-    out = np.zeros(tiles.shape[:3] + (3,), np.uint16)
-    for i, tile in enumerate(tiles):
-        mask = tile.mean(-1) > 140
-        labels, _ = ndimage.label(mask)
-        sizes = np.bincount(labels.ravel())[labels] * mask
-        out[i, ..., 0] = mask
-        out[i, ..., 1] = ndimage.distance_transform_edt(~mask).astype(np.uint16)
-        out[i, ..., 2] = np.sqrt(sizes).astype(np.uint16)
-    return out
-
-
 def trainer(model_dtype, state, device=None):
     """A UNetTrainer at the JAX config's defaults (mapping_tpu/config.py:
     ResNet101, 32 filters, deconv, 2 classes, weighted loss w0 50, sigma
@@ -708,52 +724,123 @@ def trainer(model_dtype, state, device=None):
     return t
 
 
-def train_phase(gen, smi):
-    from mapping_tpu_torch.data.loader import (in_memory_train_flow,
-                                               train_batch_resize)
+class ResidentSet:
+    """The resident set of this process in MiB, from /proc/self/statm: at
+    the start of the with-block and its peak, sampled every 10 ms on a
+    thread, over the block."""
+
+    @staticmethod
+    def mib():
+        pages = int(Path("/proc/self/statm").read_text().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") / 2 ** 20
+
+    def __enter__(self):
+        self.start = self.peak = self.mib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self.mib())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.mib())
+
+
+def train_phase(gen, smi, prepared):
+    from mapping_tpu_torch import main as cli
+    from mapping_tpu_torch.data.loader import (SegmentationLoader,
+                                               in_memory_train_flow,
+                                               load_image, load_target)
+    from mapping_tpu_torch.data.metadata import read_metadata
     from mapping_tpu_torch.kernels import ccl, conv_dw
     from mapping_tpu_torch.ops.conv_dw import conv_dw_plain
     from mapping_tpu_torch.tools.dw_probe import train_step_dw
 
-    tiles = make_tiles(gen, (TRAIN_STEPS + 1) * BATCH)
-    targets = stand_in_targets(tiles)
-    print(f"train: targets are a host stand-in (scipy ndimage.label sizes, "
-          f"distance_transform_edt distances) until prepare_masks is ported; "
-          f"foreground share {targets[..., 0].mean():.3f}")
+    # the files phase 6 wrote, through the metadata as the train command
+    # reads them
+    cli.main(["--config", prepared["config"], "prepare_metadata", "-tr"])
+    rows = read_metadata(prepared["meta_dir"] / "metadata.csv")
+    n = (TRAIN_STEPS + 1) * BATCH
+    x = [r["file_path_image"] for r in rows[:n]]
+    y = [r["file_path_mask_eroded_0_dilated_0"] for r in rows[:n]]
+
+    def loader(mode="resize", augment=True):
+        return SegmentationLoader(mode=mode, size=TRAIN_SIZE,
+                                  batch_size_train=BATCH, seed=5,
+                                  augment=augment, device=DEVICE)
+
+    def first_batch(mode, augment):
+        flow, _ = loader(mode, augment).transform(x[:BATCH],
+                                                  y[:BATCH])["datagen"]
+        batch = next(iter(flow))
+        flow.close()
+        return batch
+
+    one = first_batch("resize", False)
+    tiles = np.stack([load_image(p) for p in x[:BATCH]])
+    print(f"train: targets read from the files of phase 6 "
+          f"({Path(y[0]).parent}); foreground share "
+          f"{float(one['target'][..., 0].mean()):.3f}, sqrt(size) max "
+          f"{float(one['target'][..., 2].max()):.1f}")
     state = random_model(101, gen).state_dict()
     tr = trainer("bfloat16", state)
-
-    def batch(lo, hi):
-        return train_batch_resize(
-            None, torch.from_numpy(tiles[lo:hi]).to(DEVICE),
-            torch.from_numpy(targets[lo:hi]).to(DEVICE), TRAIN_SIZE,
-            augment=False)
-
-    one = batch(0, BATCH)
     tr.fit(([one], 1))  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     ccl.reset_launches()
     conv_dw.reset_launches()
-    # the slice: one epoch of augmented batches, the dW probe on one bf16
-    # step's tensors, and serving with the trained weights
-    flow = in_memory_train_flow(tiles[BATCH:], targets[BATCH:], BATCH,
-                                TRAIN_SIZE, torch.Generator().manual_seed(1),
-                                device=DEVICE)
-    start = time.perf_counter()
-    tr.fit(flow)
-    seconds = time.perf_counter() - start
+    # the slice: one epoch of augmented batches read from the files, the
+    # dW probe on one bf16 step's tensors, and serving the trained weights
+    files = loader()
+    flow = files.transform(x[BATCH:], y[BATCH:])["datagen"]
+    with ResidentSet() as rss:
+        start = time.perf_counter()
+        tr.fit(flow)
+        seconds = time.perf_counter() - start
     losses = tr.train_losses
+    # the same epoch from files and from host memory, in turns: what
+    # reading the files on the prefetch thread costs the step
+    held = (np.stack([load_image(p) for p in x[BATCH:]]),
+            np.stack([load_target(p) for p in y[BATCH:]]))
+    epochs = {
+        "files": lambda: loader().transform(x[BATCH:], y[BATCH:])["datagen"],
+        "memory": lambda: in_memory_train_flow(
+            *held, BATCH, TRAIN_SIZE, torch.Generator().manual_seed(1),
+            device=DEVICE)}
+
+    def epoch_ms(make, _):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        tr.fit(make())
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - begin) / len(tr.train_losses)
+
+    per_step = in_turns(epochs, {k: epoch_ms for k in epochs},
+                        {k: None for k in epochs})
+    print("train: ms/step of an epoch read from " + ", ".join(
+        f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in per_step.items())
+        + f" (in turns, host clock) on {smi}")
     captured = train_step_dw(tr, one, ["dec0.conv", "dec1.block.0.conv"])
     pipe = pipeline({"encoder": "ResNet101", "model_dtype": "bfloat16",
                      "batch_size_inference": BATCH}, tr.state_dict())
-    rows = list(pipe.transform_arrays(tiles[:BATCH]))
+    rows = list(pipe.transform_arrays(tiles))
     torch.cuda.synchronize()
     launches = {**ccl.LAUNCHES, **conv_dw.LAUNCHES}
     print(f"train: ResNet101 bf16, {len(losses)} steps of {BATCH} tiles "
-          f"300^2 -> {TRAIN_SIZE[0]}^2 with augmentation in {seconds:.4f} s: "
+          f"300^2 -> {TRAIN_SIZE[0]}^2 with augmentation, read from files on "
+          f"the prefetch thread, in {seconds:.4f} s: "
           f"{1e3 * seconds / len(losses):.2f} ms/step, "
           f"{BATCH * len(losses) / seconds:.2f} images/s (the loss is read "
           f"back to the host after every step, included) on {smi}")
+    print(f"train: resident set of this process over the epoch: "
+          f"{rss.start:.1f} MiB at its start, peak {rss.peak:.1f} MiB "
+          f"(/proc/self/statm every 10 ms); decode on the prefetch thread "
+          f"{files.decode_seconds / len(losses) * 1e3:.2f} ms per batch of "
+          f"{BATCH} tiles and targets")
     print(f"train: losses {[round(l, 5) for l in losses]}")
     print(f"train: launches in that run {launches}")
     if len(losses) < TRAIN_STEPS or not np.isfinite(losses).all():
@@ -765,6 +852,15 @@ def train_phase(gen, smi):
         raise AssertionError("the trained weights did not serve the batch")
     print(f"train: served {len(rows)} tiles with the trained weights, "
           f"instances per image max {max(len(t[1]) for _, t in rows)}")
+
+    # one crop_and_pad batch: random 256^2 crops of the augmented tiles
+    crop = first_batch("crop_and_pad", True)
+    tr.fit(([crop], 1))
+    print(f"train: one crop_and_pad batch {tuple(crop['image'].shape)}, "
+          f"loss {tr.train_losses[0]:.5f}")
+    if crop["target"].shape != (BATCH,) + TRAIN_SIZE + (3,) \
+            or not np.isfinite(tr.train_losses).all():
+        raise AssertionError("the crop_and_pad batch did not train")
 
     # the dW kernel on the step's own tensors
     for name, got in captured.items():
@@ -787,7 +883,7 @@ def train_phase(gen, smi):
         raise AssertionError("the loss did not fall on a repeated batch")
 
     # one float32 step on the card against one on the CPU, 2 tiles
-    two = {k: v[:2] for k, v in batch(0, 2).items()}
+    two = {k: v[:2] for k, v in one.items()}
     steps = {}
     for device in (DEVICE, "cpu"):
         t32 = trainer("float32", state, device)
@@ -805,57 +901,80 @@ def train_phase(gen, smi):
     return launches
 
 
-def write_png(path, rgb):
-    """(H, W, 3) uint8 as an 8-bit RGB PNG without row filters."""
-    h, w, _ = rgb.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, -1)], 1)
-
-    def chunk(kind, body):
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body)))
-
-    path.write_bytes(b"\x89PNG\r\n\x1a\n"
-                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0,
-                                                  0, 0))
-                     + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                     + chunk(b"IEND", b""))
-
-
-def write_val_split(root, n, seed):
-    """n synthetic CrowdAI-style 300^2 tiles (up to 20 buildings each) as
-    root/val/images/*.png with root/val/annotation.json; returns them."""
-    import importlib.util
-
-    # by path: an installed package named `tests` may shadow the repo's
+def synthetic_fixture():
+    """tests/fixtures/synthetic.py, loaded by path: an installed package
+    named `tests` may shadow the repository's."""
     spec = importlib.util.spec_from_file_location(
         "synthetic_fixture", ROOT / "tests" / "fixtures" / "synthetic.py")
     fixture = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fixture)
-    rng = np.random.RandomState(seed)
-    images = root / "val" / "images"
+    return fixture
+
+
+def crowded_tile(rng, n=PREP_CROWDED, side=8, step=20):
+    """A tile of n bright side x side buildings on a grid of `step`
+    pixels, and their annotations."""
+    tile = rng.randint(30, 90, (TILE, TILE, 3)).astype(np.uint8)
+    spots = [(y, x) for y in range(6, TILE - side - 5, step)
+             for x in range(6, TILE - side - 5, step)]
+    anns = []
+    for k in rng.permutation(len(spots))[:n]:
+        y0, x0 = spots[k]
+        tile[y0:y0 + side, x0:x0 + side] = 220
+        x1, y1 = float(x0 + side), float(y0 + side)
+        anns.append({"segmentation": [[float(x0), float(y0), x1, float(y0),
+                                       x1, y1, float(x0), y1]],
+                     "area": float(side * side),
+                     "bbox": [float(x0), float(y0), float(side), float(side)],
+                     "iscrowd": 0, "category_id": 100})
+    return tile, anns
+
+
+def write_split(root, split, n, rng, extra=()):
+    """The `extra` (tile, annotations) pairs, then n synthetic CrowdAI-style
+    300^2 tiles (up to 20 buildings each), as root/split/images/*.png
+    (written on 8 threads) with root/split/annotation.json; returns the
+    tiles."""
+    from mapping_tpu_torch.utils.png import encode_png
+
+    fixture = synthetic_fixture()
+    images = root / split / "images"
     images.mkdir(parents=True)
     dataset = {"images": [], "annotations": [], "categories": [
         {"id": 100, "name": "building", "supercategory": "building"}]}
-    tiles = []
-    for i in range(n):
-        tile, anns = fixture._make_image(rng, h=TILE, w=TILE,
-                                         max_buildings=20)
-        name = f"val_{i:05d}.png"
-        write_png(images / name, tile)
-        tiles.append(tile)
+    pairs = list(extra) + [fixture._make_image(rng, h=TILE, w=TILE,
+                                               max_buildings=20)
+                           for _ in range(n)]
+    for i, (tile, anns) in enumerate(pairs):
+        name = f"{split}_{i:05d}.png"
         dataset["images"].append({"id": i + 1, "file_name": name,
                                   "height": TILE, "width": TILE})
         for ann in anns:
             dataset["annotations"].append(
                 {**ann, "id": len(dataset["annotations"]) + 1,
                  "image_id": i + 1})
-    (root / "val" / "annotation.json").write_text(json.dumps(dataset))
-    return np.stack(tiles)
+    with ThreadPoolExecutor(8) as pool:  # zlib releases the GIL
+        list(pool.map(lambda i: (images / f"{split}_{i:05d}.png").write_bytes(
+            encode_png(pairs[i][0])), range(len(pairs))))
+    (root / split / "annotation.json").write_text(json.dumps(dataset))
+    return np.stack([tile for tile, _ in pairs])
 
 
-def write_config(name, params):
+def sub_split(root, split, name, n):
+    """root/name/annotation.json: the first n images of `split` (no image
+    files: overlay_masks reads only the annotations)."""
+    doc = json.loads((root / split / "annotation.json").read_text())
+    keep = {img["id"] for img in doc["images"][:n]}
+    doc["images"] = doc["images"][:n]
+    doc["annotations"] = [a for a in doc["annotations"]
+                          if a["image_id"] in keep]
+    (root / name).mkdir()
+    (root / name / "annotation.json").write_text(json.dumps(doc))
+
+
+def write_config(name, params, where=EVAL_DIR):
     """A parameter file (neptune.yaml layout) of `params`."""
-    path = EVAL_DIR / f"{name}.yaml"
+    path = where / f"{name}.yaml"
     path.write_text("parameters:\n" + "".join(
         f"  {k}: {json.dumps(v)}\n" for k, v in params.items()))
     return str(path)
@@ -887,6 +1006,295 @@ def last_scores(experiment):
     return ap, ar
 
 
+def run_child(args, log):
+    """Run `args` from the checkout with its output in `log`; returns
+    (exit code, seconds, the child's peak RSS in MiB from wait4's
+    rusage). Killed after 900 s."""
+    start = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(args, cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT)
+        timer = threading.Timer(900, proc.kill)
+        timer.start()
+        try:
+            _, status, usage = os.wait4(proc.pid, 0)
+        finally:
+            timer.cancel()
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    return (proc.returncode, time.perf_counter() - start,
+            usage.ru_maxrss / 1024)
+
+
+def read_targets(target_dir, split):
+    """{stem: (mask, distances, sizes)} of the files under target_dir."""
+    from mapping_tpu_torch.utils import ndpickle
+    from mapping_tpu_torch.utils.png import read_png_gray
+
+    out = {}
+    for path in sorted((target_dir / split / "masks").iterdir()):
+        out[path.stem] = (read_png_gray(path),) + tuple(
+            ndpickle.load(target_dir / split / sub / path.stem)
+            for sub in ("distances", "sizes"))
+    return out
+
+
+def oracle_targets(masks, erode=0, dilate=0, border_width=0,
+                   small_annotations_size=14):
+    """The reference's rules with scipy: (mask uint8, distances float64,
+    sizes) of decoded annotation masks. Erosion and dilation are k x k
+    minimum and maximum filters anchored as skimage anchors an even
+    footprint (the dilation's window mirrored); objects only in the
+    2-pixel frame are dropped; erosion applies to objects of more than
+    small_annotations_size^2 pixels, and erased ones come back unless
+    dilate > 0, which dilates the small ones; distances are the two
+    smallest of distance_transform_edt over the objects; sizes are
+    component areas, 1 on the background."""
+    from scipy import ndimage
+
+    objects = []
+    for m in masks:
+        m = m.astype(np.uint8)
+        if not m[2:-2, 2:-2].any():
+            continue
+        p = m
+        if erode > 0 and m.sum() > small_annotations_size ** 2:
+            p = ndimage.minimum_filter(m, size=erode, mode="constant", cval=1)
+            if dilate == 0 and not p.any():
+                p = m
+        elif erode > 0 and dilate > 0:
+            p = ndimage.maximum_filter(m, size=dilate, mode="constant",
+                                       cval=0, origin=-(1 - dilate % 2))
+        objects.append(p.astype(bool))
+    if not objects:
+        return (np.zeros((TILE, TILE), np.uint8), np.zeros((TILE, TILE)),
+                np.ones((TILE, TILE), np.int64))
+    d = np.sort([ndimage.distance_transform_edt(~p) for p in objects], 0)
+    second = d[1] if len(objects) > 1 else d[0]
+    mask = np.any(objects, 0)
+    labels, _ = ndimage.label(mask)
+    counts = np.bincount(labels.ravel())
+    counts[0] = 1
+    out = mask.astype(np.uint8)
+    if border_width > 0:
+        out[(second < border_width) & ~mask] = out.max() + 1
+    return out, d[0] + second, counts[labels]
+
+
+def cuda_timed(fn, events):
+    """`fn` recording a pair of CUDA events around each call into
+    `events`."""
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return timed
+
+
+def prepare_phase(smi):
+    from mapping_tpu_torch.constants import CATEGORY_IDS
+    from mapping_tpu_torch.data.coco import COCOIndex
+    from mapping_tpu_torch.kernels import ccl as K
+    from mapping_tpu_torch.ops.ccl import _label_raw, _renumber
+    from mapping_tpu_torch.prep import targets
+
+    shutil.rmtree(PREP_DIR, ignore_errors=True)
+    data, meta = PREP_DIR / "data", PREP_DIR / "meta"
+    rng = np.random.RandomState(9)
+    empty = (rng.randint(30, 90, (TILE, TILE, 3)).astype(np.uint8), [])
+    start = time.perf_counter()
+    write_split(data, "train", PREP_TRAIN, rng,
+                extra=[crowded_tile(rng), empty])
+    write_split(data, "val", PREP_VAL, rng)
+    n_train, n_images = PREP_TRAIN + 2, PREP_TRAIN + 2 + PREP_VAL
+    print(f"prepare: wrote {n_images} PNG tiles of {TILE}^2 (train "
+          f"{n_train}: a crowded tile of {PREP_CROWDED} buildings and an "
+          f"empty one among them; val {PREP_VAL}) in "
+          f"{time.perf_counter() - start:.2f} s")
+    config = write_config("prepare", {
+        "data_dir": str(data), "meta_dir": str(meta),
+        "experiment_dir": str(PREP_DIR / "experiment"), "device": DEVICE},
+        PREP_DIR)
+
+    # the CLI as a user runs it, at the JAX defaults
+    rc, seconds, child_rss = run_child(
+        [sys.executable, "-m", "mapping_tpu_torch.main", "--config", config,
+         "prepare_masks"], PREP_DIR / "prepare_masks.log")
+    if rc != 0:
+        raise AssertionError("prepare_masks failed:\n" + (
+            PREP_DIR / "prepare_masks.log").read_text()[-3000:])
+    written = meta / "masks_overlayed_eroded_0_dilated_0"
+    want = {"train": n_train, "val": PREP_VAL}
+    counts = {(split, sub): len(list((written / split / sub).iterdir()))
+              for split in want for sub in ("masks", "distances", "sizes")}
+    _, _, context_rss = run_child(
+        [sys.executable, "-c", "import torch; torch.zeros(1, device='cuda')"
+         "; torch.cuda.synchronize()"], PREP_DIR / "context.log")
+    print(f"prepare: CLI child `prepare_masks` exited 0: {n_images} tiles "
+          f"in {seconds:.2f} s of wall time, {n_images / seconds:.2f} "
+          f"images/s, peak RSS of the child {child_rss:.1f} MiB (wait4; a "
+          f"child that only makes the CUDA context peaks at "
+          f"{context_rss:.1f} MiB) on {smi}")
+    if any(n != want[split] for (split, _), n in counts.items()):
+        raise AssertionError(f"prepare_masks wrote {counts} files")
+
+    # the same leg in this process over the train split: the labelling
+    # and the whole device function timed with CUDA events, the decode and
+    # the writes with the host clock on the pool's threads
+    events, device, host, launches = [], [], {"decode": 0.0, "write": 0.0}, {}
+    lock = threading.Lock()
+
+    def host_timed(fn, what):
+        def timed(*args):
+            start = time.perf_counter()
+            out = fn(*args)
+            with lock:
+                host[what] += time.perf_counter() - start
+            return out
+        return timed
+
+    saved = (targets.connected_components, targets.prepare_batch,
+             targets.write_artifacts, COCOIndex.ann_to_mask)
+    largest = []  # the largest batch of masks labelled, for graph timing
+
+    def labels(mask):
+        if not largest or mask.numel() > largest[0].numel():
+            largest[:] = [mask.clone()]
+        return saved[0](mask)
+
+    targets.connected_components = cuda_timed(labels, events)
+    targets.prepare_batch = cuda_timed(saved[1], device)
+    targets.write_artifacts = host_timed(saved[2], "write")
+    COCOIndex.ann_to_mask = host_timed(saved[3], "decode")
+    try:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        with ResidentSet() as rss:
+            start = time.perf_counter()
+            targets.overlay_masks(str(data), "train",
+                                  str(PREP_DIR / "inproc"), CATEGORY_IDS,
+                                  num_threads=8, device=DEVICE)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+    finally:
+        (targets.connected_components, targets.prepare_batch,
+         targets.write_artifacts, COCOIndex.ann_to_mask) = saved
+    launches["defaults"] = dict(K.LAUNCHES)
+    label_ms = sum(s.elapsed_time(e) for s, e in events)
+    device_ms = sum(s.elapsed_time(e) for s, e in device)
+    print(f"prepare: in process, train split at the defaults: {n_train} "
+          f"tiles in {seconds:.2f} s ({n_train / seconds:.2f} images/s); "
+          f"{len(events)} label calls (one per batch, the crowded tile's "
+          f"merge one more), {label_ms / len(events):.4f} ms of device "
+          f"time each, {label_ms:.2f} ms in all: "
+          f"{label_ms / 1e3 / seconds:.5f} of the leg; {len(device)} "
+          f"prepare_batch calls {device_ms:.2f} ms from first to last "
+          f"kernel of each (EDT, morphology, CCL, sizes; "
+          f"{device_ms / 1e3 / seconds:.4f} of the leg); annotation decode "
+          f"{host['decode']:.2f} s and file writes {host['write']:.2f} s "
+          f"of host time summed over the 8 pool threads; CCL launches "
+          f"{launches['defaults']} (event spans include the host's launch "
+          f"gaps); resident set {rss.start:.1f} MiB at the start, peak "
+          f"{rss.peak:.1f} MiB (/proc/self/statm every 10 ms)")
+    ccl_times(largest[0], "prepare masks", old_kernels(), plain=False)
+    inproc, child = (read_targets(d, "train")
+                     for d in (PREP_DIR / "inproc", written))
+    if inproc.keys() != child.keys() or not all(
+            np.array_equal(a, b) for stem in child
+            for a, b in zip(inproc[stem], child[stem])):
+        raise AssertionError("the in-process leg and the CLI child wrote "
+                             "different files")
+
+    # the other modes on a sample of the train split
+    sub_split(data, "train", "sample", PREP_SAMPLE)
+    for name, mode in PREP_MODES.items():
+        torch.cuda.synchronize()
+        K.reset_launches()
+        start = time.perf_counter()
+        targets.overlay_masks(str(data), "sample", str(PREP_DIR / name),
+                              CATEGORY_IDS, num_threads=8, device=DEVICE,
+                              **mode)
+        torch.cuda.synchronize()
+        launches[name] = dict(K.LAUNCHES)
+        print(f"prepare: in process, {PREP_SAMPLE} tiles with {mode} in "
+              f"{time.perf_counter() - start:.2f} s; CCL launches "
+              f"{launches[name]}")
+    if min(min(v.values()) for v in launches.values()) < 1:
+        raise AssertionError(f"prepare did not launch the CCL kernels: "
+                             f"{launches}")
+
+    # 20 tiles, every mode: card = CPU = plain CCL, and scipy's oracle
+    sub_split(data, "train", "checked", PREP_CHECKED)
+    coco = COCOIndex(str(data / "checked" / "annotation.json"))
+    decoded = {coco.load_imgs([i])[0]["file_name"][:-4]: [
+        coco.ann_to_mask(a) for a in coco.load_anns(coco.get_ann_ids(
+            img_ids=[i]))] for i in coco.get_img_ids()}
+
+    def plain(mask):
+        return _renumber(_label_raw(mask != 0, mask.shape[-2]
+                                    + mask.shape[-1]))
+
+    for name, mode in {"defaults": {}, **PREP_MODES}.items():
+        out = {}
+        for path in ("card", "cpu", "plain"):
+            target_dir = PREP_DIR / "checked" / f"{name}_{path}"
+            if path == "plain":
+                targets.connected_components = plain
+            try:
+                targets.overlay_masks(str(data), "checked", str(target_dir),
+                                      CATEGORY_IDS, device="cpu"
+                                      if path == "cpu" else DEVICE, **mode)
+            finally:
+                targets.connected_components = saved[0]
+            out[path] = read_targets(target_dir, "checked")
+        for path in ("cpu", "plain"):
+            for stem, files in out["card"].items():
+                if not all(np.array_equal(a, b) and a.dtype == b.dtype
+                           for a, b in zip(files, out[path][stem])):
+                    raise AssertionError(f"prepare {name}: card differs from "
+                                         f"{path} on {stem}")
+        err = 0.0
+        for stem, masks in decoded.items():
+            mask, dist, sizes = oracle_targets(masks, **mode)
+            got_mask, got16, got_sizes = out["card"][stem]
+            got = prepare_targets_f32(targets, masks, mode)
+            if not (np.array_equal(got_mask, mask)
+                    and np.array_equal(got_sizes, sizes)
+                    and np.array_equal(got.astype(np.float16), got16)):
+                raise AssertionError(f"prepare {name}: {stem} differs from "
+                                     f"scipy's masks or sizes")
+            rel = np.abs(got - dist) / np.maximum(dist, 1e-30)
+            err = max(err, float(rel[dist > 0].max(initial=0.0)))
+            if (got[dist == 0] != 0).any() or err > PREP_REL_TOL:
+                raise AssertionError(f"prepare {name}: {stem} distances off "
+                                     f"scipy's by {err:.3e}")
+        print(f"prepare: {name}: {PREP_CHECKED} tiles, card = CPU = plain "
+              f"CCL (masks, sizes, float16 distances exact); = scipy "
+              f"(masks and sizes exact, distances max relative error "
+              f"{err:.3e}, tolerance {PREP_REL_TOL})")
+    return {"config": config, "meta_dir": meta,
+            "launches": {k: sum(v[k] for v in launches.values())
+                         for k in K.LAUNCHES}}
+
+
+def prepare_targets_f32(targets, masks, mode):
+    """The card's float32 distances of one tile's objects: prepare_batch
+    with every object in one stack (what the chunked path gives, exactly,
+    for more than MAX_OBJECTS)."""
+    if not masks:
+        return np.zeros((TILE, TILE), np.float32)
+    stack = torch.from_numpy(np.stack(masks).astype(bool))[None].to(DEVICE)
+    rules = {k: mode.get(k, 0) for k in ("erode", "dilate", "border_width")}
+    _, dist, _, _ = targets.prepare_batch(
+        stack, torch.ones(stack.shape[:2], dtype=torch.bool, device=DEVICE),
+        rules["erode"], rules["dilate"], 14, rules["border_width"])
+    return dist[0].cpu().numpy()
+
+
 def evaluate_phase(gen, smi):
     from mapping_tpu_torch import main as cli
     from mapping_tpu_torch.data.augment import resize_bilinear
@@ -900,7 +1308,7 @@ def evaluate_phase(gen, smi):
 
     shutil.rmtree(EVAL_DIR, ignore_errors=True)
     data, experiment = EVAL_DIR / "data", EVAL_DIR / "experiment"
-    tiles = write_val_split(data, EVAL_TILES, seed=8)
+    tiles = write_split(data, "val", EVAL_TILES, np.random.RandomState(8))
     gt_path = data / "val" / "annotation.json"
     image_ids = set(range(1, EVAL_TILES + 1))
     if native_decode.available():
@@ -1048,9 +1456,11 @@ def main():
     err, times = kernel_phase(gen)
     launches = slice_phase(gen, smi)
     err["conv_dw"], times["conv_dw"] = conv_dw_phase()
-    launches["conv_dw"] = train_phase(gen, smi)["conv_dw"]
-    for name, n in evaluate_phase(gen, smi).items():
-        launches[name] += n
+    prepared = prepare_phase(smi)
+    launches["conv_dw"] = train_phase(gen, smi, prepared)["conv_dw"]
+    for phase in (prepared["launches"], evaluate_phase(gen, smi)):
+        for name, n in phase.items():
+            launches[name] += n
     n, c, h, w = DW_TIMED[DW_MAIN]
     bound = {"ccl_label_raw": bounds.ccl_label_raw(BATCH, TILE, TILE),
              "ccl_renumber": bounds.ccl_renumber(BATCH, TILE, TILE),

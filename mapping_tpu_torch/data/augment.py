@@ -2,16 +2,18 @@
 
 Counterpart of mapping_tpu/data/augment.py `_MEAN`/`_STD`,
 `normalize_image`, `resize_bilinear`, `resize_nearest`, the fixed pads of
-the `crop_and_pad` loader mode (`pad_fixed`), and `fast_augment`
-(the reference's fast_seq: 1-2 of {fliplr(0.5), flipud(0.5), affine
-rotate +-10 deg, translate +-10 %}, applied jointly to images and targets).
-Images keep the JAX package's NHWC layout.
+the `crop_and_pad` loader mode (`pad_fixed`), its random and centre crops
+(`random_crop`, `center_crop`), and `fast_augment` (the reference's
+fast_seq: 1-2 of {fliplr(0.5), flipud(0.5), affine rotate +-10 deg,
+translate +-10 %}, applied jointly to images and targets). Images keep the
+JAX package's NHWC layout.
 
-The augmentation is split in two: `sample_fast_augment` draws every
-image's parameters from a torch.Generator on the host, and
-`apply_fast_augment` applies given parameters on the tensors' device. The
-random streams of the two frameworks cannot match, so the tests hold the
-applier against the JAX ops with fixed parameters.
+Each random transform is split in two: `sample_fast_augment` and
+`sample_random_crop` draw every image's parameters from a torch.Generator
+on the host, and `apply_fast_augment` and `random_crop` apply given
+parameters on the tensors' device. The random streams of the two
+frameworks cannot match, so the tests hold the appliers against the JAX
+ops with the JAX draw's parameters.
 """
 
 import math
@@ -96,6 +98,38 @@ def pad_fixed(x, pad: Tuple[int, int], method: str = "replicate"):
         raise ValueError(
             f"unknown pad_method {method!r}; expected one of "
             f"{sorted(PAD_FUNCTION)}") from None
+
+
+def center_crop(x, size: Tuple[int, int]):
+    """(B, H, W, C) -> the centred (B, size[0], size[1], C) window."""
+    h, w = x.shape[1:3]
+    top, left = (h - size[0]) // 2, (w - size[1]) // 2
+    return x[:, top:top + size[0], left:left + size[1]]
+
+
+def sample_random_crop(n: int, image_hw: Tuple[int, int],
+                       size: Tuple[int, int], generator: torch.Generator):
+    """(tops, lefts) int64 of `n` crops of `size` from images of
+    `image_hw`, each uniform over the offsets that fit, drawn on the
+    host."""
+    (h, w), (ch, cw) = image_hw, size
+    if ch > h or cw > w:
+        raise ValueError(f"crop {size} larger than the images {image_hw}")
+    return (torch.randint(0, h - ch + 1, (n,), generator=generator),
+            torch.randint(0, w - cw + 1, (n,), generator=generator))
+
+
+def random_crop(images, targets, tops, lefts, size: Tuple[int, int]):
+    """The joint crop of the reference's RandomCropFixedSize: image i and
+    its targets cut to `size` at (tops[i], lefts[i])."""
+    ch, cw = size
+    rows = torch.as_tensor(tops, device=images.device)[:, None] + torch.arange(
+        ch, device=images.device)
+    cols = torch.as_tensor(lefts, device=images.device)[:, None] \
+        + torch.arange(cw, device=images.device)
+    batch = torch.arange(images.shape[0], device=images.device)[:, None, None]
+    index = (batch, rows[:, :, None], cols[:, None, :])
+    return images[index], targets[index]
 
 
 def _affine_grid(h, w, angle_deg, tx_frac, ty_frac):

@@ -1,23 +1,28 @@
 """Host decode, batch preprocessing on the device, and the batch flows.
 
 Counterpart of mapping_tpu/data/loader.py:
-- host decode (`load_image`), on a thread pool where the native decoder
-  serves, with the next batches decoded on a worker thread while the
-  device runs (`_Prefetcher`);
+- host decode: `load_image` (JPEG/PNG tiles) and `load_target` (a mask
+  PNG and its distance and size pickles), on a thread pool where the
+  native decoder serves, with the next batches decoded on a worker thread
+  while the device runs (`_Prefetcher`);
 - the device preprocess of both loader modes: `infer_batch_resize`
-  (`_infer_batch_resize`) and `infer_batch_pad` (`_infer_batch_pad`,
-  the `crop_and_pad` mode), `eval_batch_resize`, `train_batch_resize` and
-  `_resize_target`;
-- `SegmentationLoader`, inference half: `infer_preprocess` and the
-  inference flow over image files, whose ragged tail batch is padded with
-  duplicates of the last image and whose `n_images` is the real count;
+  (`_infer_batch_resize`), `infer_batch_pad` (`_infer_batch_pad`, the
+  `crop_and_pad` mode), `train_batch_resize`, `train_batch_crop`,
+  `eval_batch_resize` and `_resize_target`;
+- `SegmentationLoader.transform`: the training flow over image and mask
+  files (a new order each epoch from np.random.RandomState(seed), as in
+  the JAX package, the next epoch's decode started as the last batch of
+  one is handed out), validation flows with targets (ragged last batch),
+  and inference flows (the ragged tail padded with duplicates of the last
+  image, `n_images` the real count); `array_flow` serves tiles already in
+  host memory;
 - `in_memory_train_flow`, the `(flow, steps)` contract of `_train_gen`
-  for tiles already in host memory.
-Targets are (B, H, W, 3) [mask, distance, size] and may arrive as uint16
-(the JAX loader's host format); they are cast to float32 on the device.
-The file-backed training flow, validation batches with targets from files,
-and tiles of mixed sizes (resized with PIL in the JAX package) are not
-ported yet and raise (ROADMAP item 12).
+  for tiles and targets already in host memory.
+Targets are (B, H, W, 3) [mask, distance, sqrt(size)], uint16 on the host
+(the JAX loader's format), cast to float32 on the device. The random
+draws (augmentation, crops) come from a host torch.Generator seeded with
+`seed`. Batches of tiles of mixed sizes raise: the JAX package resizes them
+on the host through PIL and gives float32 targets (ROADMAP item 12).
 """
 
 import os
@@ -31,15 +36,41 @@ import numpy as np
 import torch
 
 from mapping_tpu_torch.data.augment import (PAD_FUNCTION, apply_fast_augment,
-                                            normalize_image, pad_fixed,
+                                            center_crop, normalize_image,
+                                            pad_fixed, random_crop,
                                             resize_bilinear, resize_nearest,
-                                            sample_fast_augment)
-from mapping_tpu_torch.utils import native_decode
+                                            sample_fast_augment,
+                                            sample_random_crop)
+from mapping_tpu_torch.utils import native_decode, ndpickle, png
 
 
 def load_image(path) -> np.ndarray:
     """(H, W, 3) uint8 RGB of a JPEG or PNG file (utils/native_decode)."""
     return native_decode.decode_rgb(path)
+
+
+def load_target(mask_path) -> np.ndarray:
+    """A mask PNG and its distance and size files -> (H, W, 3) uint16
+    [mask, distance, sqrt(size)].
+
+    The paths follow the reference (src/loaders.py:140-153): /masks/ ->
+    /distances/ (extension dropped) -> /sizes/. The distances are
+    truncated to uint16 and the sizes are uint16 -> sqrt -> uint16; a
+    missing distance file gives zeros, a missing size file ones."""
+    mask = png.read_png_gray(mask_path).astype(np.uint16)
+    distance_path = os.path.splitext(mask_path.replace("/masks/",
+                                                       "/distances/"))[0]
+    size_path = distance_path.replace("/distances/", "/sizes/")
+    if os.path.exists(distance_path):
+        dist = ndpickle.load(distance_path).astype(np.uint16)
+    else:
+        dist = np.zeros_like(mask)
+    if os.path.exists(size_path):
+        sizes = np.sqrt(ndpickle.load(size_path).astype(np.uint16)).astype(
+            np.uint16)
+    else:
+        sizes = np.ones_like(mask)
+    return np.stack([mask, dist, sizes], axis=-1)
 
 
 def infer_batch_resize(image_u8: torch.Tensor, size: Tuple[int, int]):
@@ -79,6 +110,23 @@ def train_batch_resize(generator: Optional[torch.Generator], image_u8,
     img = resize_bilinear(img, size)
     return {"image": normalize_image(img),
             "target": _resize_target(target, size)}
+
+
+def train_batch_crop(generator: Optional[torch.Generator], image_u8, target,
+                     size: Tuple[int, int], augment: bool = True):
+    """A training batch of the `crop_and_pad` mode: with `augment`,
+    fast_seq then a random crop to `size` (both drawn from `generator`);
+    without, the centred crop."""
+    img = image_u8.to(torch.float32) / 255.0
+    target = target.to(torch.float32)
+    if augment:
+        img, target = apply_fast_augment(
+            img, target, sample_fast_augment(img.shape[0], generator))
+        img, target = random_crop(img, target, *sample_random_crop(
+            img.shape[0], img.shape[1:3], size, generator), size)
+    else:
+        img, target = center_crop(img, size), center_crop(target, size)
+    return {"image": normalize_image(img), "target": target}
 
 
 def eval_batch_resize(image_u8, target, size: Tuple[int, int]):
@@ -135,11 +183,6 @@ def in_memory_train_flow(images_u8: np.ndarray, targets: np.ndarray,
     return flow, flow.steps
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP item 12)")
-
-
 class _Prefetcher:
     """Makes the host batches on a worker thread, `depth` ahead of the
     consumer; an exception in the worker is raised to the consumer."""
@@ -178,9 +221,9 @@ class _Prefetcher:
                 self.thread.join(timeout=0.05)
 
 
-class _InferFlow:
-    """One pass over the host batches of `make_batch`, each preprocessed
-    on the loader's device: {"image": normalised float32 batch}."""
+class _EvalFlow:
+    """One pass over the host batches of `make_batch`, (images, targets or
+    None), each preprocessed on the loader's device."""
 
     def __init__(self, loader, make_batch, steps, n_images):
         self.loader, self.make_batch = loader, make_batch
@@ -189,8 +232,8 @@ class _InferFlow:
     def __iter__(self):
         prefetcher = _Prefetcher(self.make_batch, self.steps)
         try:
-            for image_b in prefetcher:
-                yield {"image": self.loader.infer_preprocess(image_b)}
+            for image_b, target_b in prefetcher:
+                yield self.loader.eval_preprocess(image_b, target_b)
         finally:
             prefetcher.cancel()
 
@@ -198,18 +241,56 @@ class _InferFlow:
         return self.steps
 
 
+class _FileTrainFlow:
+    """Training batches of image and mask files, one pass per iteration in
+    a new order; the next pass's decode starts when the last batch of one
+    is handed out."""
+
+    def __init__(self, loader, X, y):
+        self.loader, self.X, self.y = loader, list(X), list(y)
+        self.steps = -(-len(self.X) // loader.batch_size_train)
+        self._next = None
+
+    def _start(self):
+        bs = self.loader.batch_size_train
+        order = self.loader._np_rng.permutation(len(self.X))
+        return _Prefetcher(lambda i: self.loader._assemble(
+            self.X, self.y, order[i * bs:(i + 1) * bs]), self.steps)
+
+    def __iter__(self):
+        prefetcher, self._next = self._next or self._start(), None
+        for batch_id, (image_b, target_b) in enumerate(prefetcher):
+            if batch_id + 1 == self.steps:
+                self._next = self._start()
+            yield self.loader.train_preprocess(image_b, target_b)
+
+    def __len__(self):
+        return self.steps
+
+    def close(self):
+        """Retire the next pass's prefetch (the trainer calls this when the
+        schedule ends)."""
+        if self._next is not None:
+            self._next.cancel()
+            self._next = None
+
+
 class SegmentationLoader:
-    """Inference batches of image files or host arrays, preprocessed on
-    `device` by the loader mode: `resize` to `size`, or `crop_and_pad`,
-    which pads each side by `pad` with `pad_method` (replicate or
-    reflect). `decode_seconds` adds up the host time spent decoding and
-    stacking, on the worker threads."""
+    """Batches of image files (with their mask files for training and
+    validation) or host arrays, preprocessed on `device` by the loader
+    mode: `resize` to `size`, or `crop_and_pad`, which trains on random
+    crops of `size` and pads each side of inference images by `pad` with
+    `pad_method` (replicate or reflect). `decode_seconds` adds up the host
+    time spent decoding and stacking, on the worker threads."""
 
     def __init__(self, mode: str = "resize",
                  size: Tuple[int, int] = (256, 256),
                  pad: Tuple[int, int] = (10, 10),
                  pad_method: str = "replicate",
+                 batch_size_train: int = 20,
                  batch_size_inference: int = 20,
+                 seed: int = 1234,
+                 augment: bool = True,
                  load_in_memory: bool = False,
                  device="cuda"):
         if mode not in ("resize", "crop_and_pad"):
@@ -221,21 +302,25 @@ class SegmentationLoader:
         self.size = tuple(size)
         self.pad = tuple(pad)
         self.pad_method = pad_method
+        self.batch_size_train = batch_size_train
         self.batch_size_inference = batch_size_inference
+        self.augment = augment
         self.device = torch.device(device)
         self._cache = {} if load_in_memory else None
         self._lock = threading.Lock()
+        self._np_rng = np.random.RandomState(seed)
+        self._generator = torch.Generator().manual_seed(seed)
         self.decode_seconds = 0.0
 
-    def _cached(self, path):
+    def _cached(self, load, path):
         if self._cache is None:
-            return load_image(path)
+            return load(path)
         hit = self._cache.get(path)
         if hit is None:
-            hit = self._cache[path] = load_image(path)
+            hit = self._cache[path] = load(path)
         return hit
 
-    def _decode_many(self, paths):
+    def _decode_many(self, load, paths):
         """Decode files on up to 8 threads when the native decoder serves
         them: it releases the GIL for the whole call. The stdlib PNG reader
         holds the GIL between its numpy calls, and threads contending for
@@ -244,19 +329,27 @@ class SegmentationLoader:
         paths = list(paths)
         workers = min(8, os.cpu_count() or 1)
         if len(paths) <= 1 or workers <= 1 or not native_decode.available():
-            return [self._cached(p) for p in paths]
+            return [self._cached(load, p) for p in paths]
         with ThreadPoolExecutor(max_workers=workers) as ex:
-            return list(ex.map(self._cached, paths))
+            return list(ex.map(lambda p: self._cached(load, p), paths))
 
-    def _assemble(self, image_paths, idxs):
+    def _assemble(self, image_paths, target_paths, idxs):
+        """(images (B, H, W, 3) uint8, targets (B, H, W, 3) uint16 or
+        None) of the files at `idxs`."""
         start = time.perf_counter()
-        images = self._decode_many(np.asarray(image_paths)[idxs])
+        images = self._decode_many(load_image, np.asarray(image_paths)[idxs])
         if len({im.shape for im in images}) > 1:
-            raise _not_ported("a batch of tiles of mixed sizes")
+            raise NotImplementedError(
+                "a batch of tiles of mixed sizes is not ported to PyTorch "
+                "yet (ROADMAP item 12)")
+        targets = None
+        if target_paths is not None:
+            targets = np.stack(self._decode_many(
+                load_target, np.asarray(target_paths)[idxs]))
         batch = np.stack(images)
         with self._lock:
             self.decode_seconds += time.perf_counter() - start
-        return batch
+        return batch, targets
 
     def infer_preprocess(self, image_u8_batch):
         """(B, H, W, 3) uint8 (numpy or tensor) -> normalised float32
@@ -266,39 +359,73 @@ class SegmentationLoader:
             return infer_batch_resize(image, self.size)
         return infer_batch_pad(image, self.pad, self.pad_method)
 
-    def _infer_flow(self, n, host_batch):
-        """(flow, steps): batches of `batch_size_inference` images
-        host_batch(indices) -> (B, H, W, 3) uint8; the ragged tail is
-        padded with duplicates of the last image, so every batch has one
-        shape, and `flow.n_images` is the real count."""
+    def eval_preprocess(self, image_u8_batch, target_batch=None):
+        """{"image": ..., "target": ...} of a validation batch on the
+        loader's device (no "target" without targets): resized to `size`,
+        or padded as inference pads, the targets with the images' pad
+        method."""
+        out = {"image": self.infer_preprocess(image_u8_batch)}
+        if target_batch is not None:
+            target = torch.as_tensor(target_batch).to(self.device).to(
+                torch.float32)
+            out["target"] = (_resize_target(target, self.size)
+                             if self.mode == "resize" else
+                             pad_fixed(target, self.pad, self.pad_method))
+        return out
+
+    def train_preprocess(self, image_u8_batch, target_batch):
+        """A training batch on the loader's device by the loader mode,
+        augmented when `augment` is set."""
+        make = (train_batch_resize if self.mode == "resize"
+                else train_batch_crop)
+        return make(self._generator,
+                    torch.as_tensor(image_u8_batch).to(self.device),
+                    torch.as_tensor(target_batch).to(self.device),
+                    self.size, self.augment)
+
+    def _eval_gen(self, n, host_batch, with_targets):
+        """(flow, steps): batches of `batch_size_inference` from
+        host_batch(indices). Without targets the ragged tail is padded with
+        duplicates of the last image, so every batch has one shape;
+        validation batches stay ragged (padding would bias the mean loss).
+        `flow.n_images` is the real count."""
         bs = self.batch_size_inference
         steps = -(-n // bs)
 
         def make_batch(i):
             idxs = np.arange(i * bs, min((i + 1) * bs, n))
-            if len(idxs) < bs:
+            if not with_targets and len(idxs) < bs:
                 idxs = np.concatenate([idxs, np.full(bs - len(idxs),
                                                      idxs[-1])])
             return host_batch(idxs)
 
-        return _InferFlow(self, make_batch, steps, n), steps
+        return _EvalFlow(self, make_batch, steps, n), steps
 
     def array_flow(self, images_u8):
         """(flow, steps) over (N, H, W, 3) uint8 tiles in host memory."""
         images_u8 = np.asarray(images_u8)
-        return self._infer_flow(len(images_u8), lambda idxs: images_u8[idxs])
+        return self._eval_gen(len(images_u8),
+                              lambda idxs: (images_u8[idxs], None), False)
+
+    def _file_flow(self, X, y):
+        X = list(X)
+        y = None if y is None else list(y)
+        return self._eval_gen(len(X), lambda idxs: self._assemble(X, y, idxs),
+                              y is not None)
 
     def transform(self, X, y=None, X_valid=None, y_valid=None,
                   train_mode=True, **kwargs):
-        """{"datagen": (flow, steps), "validation_datagen": (None, None)}
-        for the image paths X. Only inference flows are ported: training
-        flows, targets and validation flows raise."""
-        if (train_mode and y is not None) or X_valid is not None:
-            raise _not_ported("the file-backed training flow")
-        if y is not None:
-            raise _not_ported("validation batches with targets from files")
-        X = list(X)
-        flow, steps = self._infer_flow(len(X),
-                                       lambda idxs: self._assemble(X, idxs))
-        return {"datagen": (flow, steps),
-                "validation_datagen": (None, None)}
+        """{"datagen": (flow, steps), "validation_datagen": (flow, steps) or
+        (None, None)} for the image paths X and mask paths y: a training
+        flow with `train_mode` and targets, else a validation flow (with
+        targets) or an inference flow (train_mode False ignores y); the
+        validation flow of X_valid, y_valid where both are given."""
+        if train_mode and y is not None:
+            flow = _FileTrainFlow(self, X, y)
+            steps = flow.steps
+        else:
+            flow, steps = self._file_flow(X, None if train_mode else y)
+        valid = (self._file_flow(X_valid, y_valid)
+                 if X_valid is not None and y_valid is not None
+                 else (None, None))
+        return {"datagen": (flow, steps), "validation_datagen": valid}

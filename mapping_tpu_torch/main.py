@@ -4,9 +4,9 @@
 
 Counterpart of mapping_tpu/main.py with argparse in place of click: the
 same command names, flags and --config (default $CONFIG_PATH). Commands:
-prepare_metadata, evaluate, predict_on_dir and import_checkpoint. The
-parameter `device` (default cuda) says where the model runs; a CUDA device
-needs a card. The other commands of the JAX CLI exit non-zero, naming the
+prepare_masks, prepare_metadata, evaluate, predict_on_dir and
+import_checkpoint. The parameter `device` (default cuda) says where the
+model and the target preparation run; a CUDA device needs a card. The other commands of the JAX CLI exit non-zero, naming the
 ROADMAP item that ports them.
 
     python3 -m mapping_tpu_torch.main --config config.yaml evaluate -p unet_weighted
@@ -19,8 +19,7 @@ import sys
 from mapping_tpu_torch.manager import PipelineManager
 
 #: commands of the JAX CLI not ported yet -> ROADMAP item
-NOT_PORTED = {"prepare_masks": "13 (Slice C)", "train": "12 and Slice C",
-              "train_evaluate": "12 and Slice C", "serve": "17",
+NOT_PORTED = {"train": "11", "train_evaluate": "11", "serve": "17",
               "export": "18", "visualize": "23", "parity_drill": "23"}
 
 
@@ -30,6 +29,9 @@ def _parser():
     ap.add_argument("--config", dest="config_path", default=None,
                     help="yaml parameter file (defaults to $CONFIG_PATH)")
     sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("prepare_masks")
+    p.add_argument("-d", "--dev_mode", action="store_true")
 
     p = sub.add_parser("prepare_metadata")
     p.add_argument("-tr", "--train_data", action="store_true")
@@ -85,6 +87,9 @@ def main(argv=None) -> PipelineManager:
                          "item 18)")
     _init_logger()
     manager = PipelineManager(args.config_path)
+    if args.command == "prepare_masks":
+        manager.prepare_masks(args.dev_mode)
+        return manager
     if args.command == "prepare_metadata":
         train_data, valid_data = args.train_data, args.valid_data
         if not (train_data or valid_data):

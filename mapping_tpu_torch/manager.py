@@ -1,6 +1,7 @@
 """PipelineManager: the experiment lifecycle behind the CLI.
 
-Counterpart of mapping_tpu/manager.py for the inference commands:
+Counterpart of mapping_tpu/manager.py for prepare_masks (the target files
+of the train and val splits, computed on the config's `device`),
 prepare_metadata, evaluate (validation sample, chunked or streamed
 prediction, prediction.json, COCO AP/AR at IoU 0.5), predict_on_dir and
 import_checkpoint, with the CATEGORY_LAYERS guards and the MetricSink
@@ -10,9 +11,8 @@ row dicts (data/metadata.py) instead of DataFrames.
 Each evaluate and predict_on_dir leaves the host seconds of its stages in
 `manager.timings`: decode (on the loader's threads), device (in
 FusedServe.dispatch and .collect), annotation + RLE, COCOeval, and the
-whole call. Not ported yet, and raising with their ROADMAP item:
-prepare_masks (Slice C), train (Slice C and item 12), artifacts (item 18)
-and the parity drill (item 23).
+whole call. Not ported yet, and raising with their ROADMAP item: train
+(item 11), artifacts (item 18) and the parity drill (item 23).
 """
 
 import json
@@ -34,6 +34,7 @@ from mapping_tpu_torch.data.metadata import (generate_inference_metadata,
 from mapping_tpu_torch.eval.cocoeval import coco_evaluation
 from mapping_tpu_torch.infer.annotations import labeled_to_annotations
 from mapping_tpu_torch.pipelines import PIPELINES
+from mapping_tpu_torch.prep.targets import overlay_masks
 from mapping_tpu_torch.train.callbacks import MetricSink
 
 logger = logging.getLogger(__name__)
@@ -62,7 +63,7 @@ class PipelineManager:
         return list(self.params.get("category_layers", CATEGORY_LAYERS))
 
     def prepare_masks(self, dev_mode):
-        raise _not_ported("prepare_masks", "13 (Slice C)")
+        prepare_masks(dev_mode, self.params)
 
     def prepare_metadata(self, train_data, valid_data):
         prepare_metadata(train_data, valid_data, self.params)
@@ -74,7 +75,7 @@ class PipelineManager:
         pass
 
     def train(self, pipeline_name, dev_mode, warm_start=False):
-        raise _not_ported("train", "12 and Slice C")
+        raise _not_ported("train", "11")
 
     def evaluate(self, pipeline_name, dev_mode, chunk_size):
         cl = self._category_layers()
@@ -131,6 +132,29 @@ def parity_drill(*args, **kwargs):
 # ---------------------------------------------------------------------------
 # module-level drivers
 # ---------------------------------------------------------------------------
+
+def prepare_masks(dev_mode, params):
+    """The target files of the train and val splits (annotation-small.json
+    in dev mode) under meta_dir/masks_overlayed_eroded_{e}_dilated_{d}."""
+    for dataset in ["train", "val"]:
+        mask_dirname = "masks_overlayed_eroded_{}_dilated_{}".format(
+            params.erode_selem_size, params.dilate_selem_size)
+        target_dir = os.path.join(params.meta_dir, mask_dirname)
+        logger.info("overlaying masks for %s -> %s", dataset, target_dir)
+        overlay_masks(
+            data_dir=params.data_dir,
+            dataset=dataset,
+            target_dir=target_dir,
+            category_ids=CATEGORY_IDS,
+            erode=params.erode_selem_size,
+            dilate=params.dilate_selem_size,
+            is_small=bool(dev_mode),
+            num_threads=params.num_threads,
+            border_width=params.border_width,
+            small_annotations_size=params.small_annotations_size,
+            device=params.get("device", "cuda"),
+        )
+
 
 def prepare_metadata(train_data, valid_data, params):
     logger.info("creating metadata")

@@ -1,7 +1,9 @@
 """Flax params -> torch state_dict, the inverse of
-mapping_tpu/models/torch_convert.py `convert_unet_resnet`.
+mapping_tpu/models/torch_convert.py `convert_unet_resnet` and
+`convert_albunet`.
 
-This carries a UNetResNet trained by the JAX package into the port. Numpy
+This carries a UNetResNet or an AlbuNet trained by the JAX package into the
+port. Numpy
 only: the trees may hold numpy or JAX arrays, and neither framework is
 imported here.
 
@@ -77,3 +79,15 @@ def state_dict_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any],
     conv_bias("dec0.conv", params["dec0"]["conv"])
     conv_bias("final", params["final"])
     return out
+
+
+def albunet_state_dict_from_flax(params: Dict[str, Any],
+                                 batch_stats: Dict[str, Any],
+                                 is_deconv: bool = True
+                                 ) -> Dict[str, np.ndarray]:
+    """(params, batch_stats) of mapping_tpu AlbuNet, which nests
+    UNetResNet(34) under the scope `unet` -> the state_dict of
+    mapping_tpu_torch.models.unet_resnet.AlbuNet (UNetResNet(34)'s
+    keys)."""
+    return state_dict_from_flax(params["unet"], batch_stats["unet"], 34,
+                                is_deconv)

@@ -13,7 +13,7 @@ read from a cache are folded once and the float32 model is freed
 `transform(data)` takes the manager's data dict, whose metadata rows name
 the image files; `transform_arrays(images_u8)` serves uint8 tiles already
 in host memory through the same program. Not ported yet, and raising with
-their ROADMAP item: training (Slice C and item 12), TTA and the padded
+their ROADMAP item: training (item 11), TTA and the padded
 centre crop (item 14), the scoring pipelines (item 15), int8 serving (item
 21) and a device mesh (item 16).
 """
@@ -48,7 +48,7 @@ class UNetPipeline:
 
     def __init__(self, config, train_mode: bool, loss_name: str = "ce"):
         if train_mode:
-            raise _not_ported("training a pipeline", "12 and Slice C")
+            raise _not_ported("training a pipeline", "11")
         for key, item in _NOT_PORTED.items():
             if config.params.get(key, 0):
                 raise _not_ported(f"{key}: {config.params[key]!r}", item)
@@ -203,13 +203,12 @@ def _unported_factory(what, item):
 
 PIPELINES = {
     "unet": {
-        "train": _unported_factory("the unet train pipeline",
-                                   "12 and Slice C"),
+        "train": _unported_factory("the unet train pipeline", "11"),
         "inference": partial(UNetPipeline, train_mode=False, loss_name="ce"),
     },
     "unet_weighted": {
         "train": _unported_factory("the unet_weighted train pipeline",
-                                   "12 and Slice C"),
+                                   "11"),
         "inference": partial(UNetPipeline, train_mode=False,
                              loss_name="weighted"),
     },

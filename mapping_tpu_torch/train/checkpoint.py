@@ -6,7 +6,8 @@ mapping_tpu/models/torch_convert.py `load_torch_file`:
 - the port's cache `unet.pt` is torch.save of the model's reference-named
   state_dict (weights and BatchNorm statistics), written atomically;
 - a reference checkpoint is a torch state_dict: plain, wrapped as
-  {"state_dict": ...}, or with nn.DataParallel's "module." prefix;
+  {"state_dict": ...}, or with nn.DataParallel's "module." prefix; a
+  `.npz` of the same names is read too (pretrained encoder files);
 - a JAX experiment's `unet.msgpack` is flax.serialization's msgpack of
   {params, batch_stats, opt_state, step}. `msgpack_restore` reads it with
   the standard library: the msgpack formats, ext type 1 (an ndarray,
@@ -156,8 +157,13 @@ def load_flax_weights(path) -> Tuple[Dict[str, Any], Dict[str, Any]]:
 
 def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
     """A reference checkpoint: a plain state_dict, {"state_dict": ...},
-    or "module."-prefixed keys -> {name: CPU tensor}."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
+    or "module."-prefixed keys, or a .npz of such names -> {name: CPU
+    tensor}."""
+    if str(path).endswith(".npz"):
+        with np.load(path) as f:
+            state = {k: torch.from_numpy(f[k]) for k in f.files}
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and "state_dict" in state:
         state = state["state_dict"]
     return {(k[len("module."):] if k.startswith("module.") else k):

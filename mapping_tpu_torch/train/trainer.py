@@ -16,11 +16,16 @@ copy once and frees the float32 model, for a trainer that only serves.
 
 Weights come and go as the reference-named state_dict: `save` writes the
 port's transformer cache (torch.save, `unet.pt`), `load` reads it or a JAX
-experiment's flax `unet.msgpack`, and `import_torch_checkpoint` takes a
-reference torch checkpoint; each checks every key and shape.
+experiment's flax `unet.msgpack` (UNetResNet or AlbuNet), and
+`import_torch_checkpoint` takes a reference torch checkpoint; each checks
+every key and shape. `pretrained_weights` names a local torchvision
+encoder file (.pth or .npz), grafted onto the encoder the first time the
+float32 model is used, as the JAX package grafts it when it creates its
+state: fit, save, serving, and before any weights are loaded, which then
+replace it.
 
 Not ported yet, and raising with their ROADMAP item: callbacks (11), a
-device mesh (16), pretrained encoder weights (6), warm start (11).
+device mesh (16), warm start (11).
 """
 
 import copy
@@ -29,7 +34,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from mapping_tpu_torch.models.convert import state_dict_from_flax
+from mapping_tpu_torch.models.convert import (albunet_state_dict_from_flax,
+                                              state_dict_from_flax)
 from mapping_tpu_torch.models.fold_bn import fold_batch_stats
 from mapping_tpu_torch.models.registry import build_network
 from mapping_tpu_torch.train.checkpoint import (load_flax_weights,
@@ -67,8 +73,6 @@ class UNetTrainer:
             raise _not_ported("callbacks_config", 11)
         if mesh is not None:
             raise _not_ported("a device mesh", 16)
-        if pretrained_weights:
-            raise _not_ported("pretrained_weights", 6)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("UNetTrainer: CUDA device requested but "
@@ -81,6 +85,8 @@ class UNetTrainer:
         self.input_size = tuple(input_size)
         self.seed = seed
         self.remat = remat
+        self.pretrained_weights = pretrained_weights
+        self._graft_pending = bool(pretrained_weights)
         self.dtype = _DTYPES[self.model_params.get("dtype", "bfloat16")]
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -97,11 +103,39 @@ class UNetTrainer:
 
     # ------------------------------------------------------------- state
     def _master(self):
-        """The float32 model; raises after `serve_only()` freed it."""
+        """The float32 model, with the pretrained encoder grafted on first
+        use; raises after `serve_only()` freed it."""
         if self.model is None:
             raise RuntimeError("this trainer only serves: serve_only() freed "
                                "its float32 model")
+        if self._graft_pending:
+            self._graft_pending = False
+            self._graft_pretrained(self.pretrained_weights)
         return self.model
+
+    def _graft_pretrained(self, path):
+        """The encoder's weights and BatchNorm statistics from a torchvision
+        ResNet state_dict file, by the reference's names (its `fc.` head
+        aside; `num_batches_tracked` may be absent): any other missing or
+        extra key, or another shape, raises."""
+        encoder = self.model_params.get("encoder", "ResNet101")
+        state = {k: v for k, v in load_torch_state_dict(path).items()
+                 if not k.startswith("fc.")}
+        own = self.model.encoder.state_dict()
+        optional = {k for k in own if k.endswith("num_batches_tracked")}
+        missing = sorted(set(own) - set(state) - optional)
+        extra = sorted(set(state) - set(own))
+        if missing or extra:
+            raise ValueError(f"{path}: encoder keys do not match {encoder}: "
+                             f"missing {missing[:5]}, unexpected {extra[:5]}")
+        for k, v in state.items():
+            if tuple(v.shape) != tuple(own[k].shape):
+                raise ValueError(f"{path}: shape mismatch at {k}: "
+                                 f"{tuple(v.shape)} vs {tuple(own[k].shape)}")
+        with torch.no_grad():
+            for k, v in state.items():
+                own[k].copy_(v.to(own[k].dtype))
+        self._state_version += 1
 
     def _ensure_state(self, steps_per_epoch: int = 1):
         master = self._master()
@@ -168,14 +202,19 @@ class UNetTrainer:
         read)."""
         if str(filepath).endswith(".msgpack"):
             encoder = self.model_params.get("encoder", "ResNet101")
-            if not encoder.startswith("ResNet"):
+            is_deconv = bool(self.model_params.get("is_deconv", True))
+            params, batch_stats = load_flax_weights(filepath)
+            if encoder.startswith("ResNet"):
+                state = state_dict_from_flax(
+                    params, batch_stats, int(encoder[len("ResNet"):]),
+                    is_deconv)
+            elif encoder == "AlbuNet":
+                state = albunet_state_dict_from_flax(params, batch_stats,
+                                                     is_deconv)
+            else:
                 raise NotImplementedError(
                     f"reading a flax checkpoint of {encoder!r} is not "
                     f"ported yet (ROADMAP item 20)")
-            params, batch_stats = load_flax_weights(filepath)
-            state = state_dict_from_flax(
-                params, batch_stats, int(encoder[len("ResNet"):]),
-                bool(self.model_params.get("is_deconv", True)))
         else:
             state = torch.load(filepath, map_location="cpu",
                                weights_only=True)
@@ -185,6 +224,8 @@ class UNetTrainer:
     def serving_model(self):
         """The BN-folded copy of the model in the compute dtype that
         `probs_apply_fn` runs, re-made when the weights changed."""
+        if self.model is not None:
+            self._master()  # a pending encoder graft changes the weights
         if self._folded_version != self._state_version:
             model = copy.deepcopy(self.model).eval()
             self._folded = fold_batch_stats(model).to(

@@ -1,10 +1,13 @@
-"""A small PNG reader on the standard library's zlib and numpy.
+"""A small PNG reader and writer on the standard library's zlib and numpy.
 
-It decodes what a tile dataset holds: 8-bit greyscale, greyscale with
-alpha, RGB and RGBA, not interlaced, with any of the five row filters.
-Anything else (palettes, 16-bit samples, Adam7) raises. The loader uses it
-for PNG files when the native decoder (cpp/decode.cpp, which needs the
-libpng and libjpeg headers) did not build.
+The reader decodes what a tile dataset holds: 8-bit greyscale, greyscale
+with alpha, RGB and RGBA, not interlaced, with any of the five row
+filters. Anything else (palettes, 16-bit samples, Adam7) raises. The
+loader uses it for PNG files when the native decoder (cpp/decode.cpp,
+which needs the libpng and libjpeg headers) did not build, and for the
+target masks. The writer writes the 8-bit greyscale masks of
+`prep.targets` (the JAX package writes them with imageio): no row
+filters, zlib level 6.
 """
 
 import struct
@@ -112,6 +115,52 @@ def to_rgb(pixels: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(pixels[..., :3])
 
 
+def to_gray(pixels: np.ndarray) -> np.ndarray:
+    """(H, W, C) as `decode_png` returns it -> (H, W) uint8, the way PIL's
+    convert("L") maps them: grey kept, alpha dropped, RGB weighted by
+    ITU-R 601-2 (L = (19595 R + 38470 G + 7471 B + 2^15) >> 16)."""
+    if pixels.shape[-1] in (1, 2):
+        return np.ascontiguousarray(pixels[..., 0])
+    rgb = pixels[..., :3].astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+             + 0x8000) >> 16).astype(np.uint8)
+
+
 def read_png_rgb(path) -> np.ndarray:
     with open(path, "rb") as f:
         return to_rgb(decode_png(f.read()))
+
+
+def read_png_gray(path) -> np.ndarray:
+    with open(path, "rb") as f:
+        return to_gray(decode_png(f.read()))
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode_png(pixels: np.ndarray) -> bytes:
+    """(H, W) grey or (H, W, 3) RGB uint8 -> PNG bytes, no row filters."""
+    if pixels.dtype != np.uint8 or pixels.ndim not in (2, 3) or (
+            pixels.ndim == 3 and pixels.shape[-1] != 3):
+        raise ValueError(f"encode_png: needs (H, W) or (H, W, 3) uint8, got "
+                         f"{pixels.shape} {pixels.dtype}")
+    h, w = pixels.shape[:2]
+    colour = 0 if pixels.ndim == 2 else 2
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           pixels.reshape(h, -1)], axis=1)
+    return (SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0,
+                                          0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png_gray(path, mask: np.ndarray):
+    """(H, W) uint8 -> an 8-bit greyscale PNG file."""
+    if np.asarray(mask).ndim != 2:
+        raise ValueError(f"write_png_gray: needs (H, W), got {mask.shape}")
+    with open(path, "wb") as f:
+        f.write(encode_png(np.asarray(mask)))

@@ -213,7 +213,7 @@ def test_unported_settings_raise():
                        ("unet_scoring_model", 15)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             PIPELINES[name]["inference"](build_config())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         PIPELINES["unet_weighted"]["train"](build_config())
 
 
@@ -226,12 +226,13 @@ def test_cuda_pipeline_without_card_raises():
 
 def test_port_imports_without_jax():
     """Every module of mapping_tpu_torch, the CLI included, imports with
-    jax, flax, pandas, yaml, click, PIL and msgpack blocked, and none
-    imports the JAX package: the port must run where none is installed."""
+    jax, flax, pandas, yaml, click, PIL, msgpack, joblib and imageio
+    blocked, and none imports the JAX package: the port must run where
+    none is installed."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('jax', 'flax', 'pandas', 'yaml', 'click', 'PIL', "
-        "'msgpack'):\n"
+        "'msgpack', 'joblib', 'imageio'):\n"
         "    sys.modules[m] = None\n"
         "import mapping_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
@@ -249,10 +250,13 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.main', 'mapping_tpu_torch.manager',\n"
         "        'mapping_tpu_torch.config',\n"
         "        'mapping_tpu_torch.train.checkpoint',\n"
-        "        'mapping_tpu_torch.utils.png'} <= set(names)\n"
+        "        'mapping_tpu_torch.utils.png',\n"
+        "        'mapping_tpu_torch.prep.targets',\n"
+        "        'mapping_tpu_torch.ops.edt',\n"
+        "        'mapping_tpu_torch.utils.ndpickle'} <= set(names)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'mapping_tpu', 'pandas', 'yaml', 'click', 'PIL', "
-        "'msgpack') and sys.modules[k] is not None]\n"
+        "'msgpack', 'joblib', 'imageio') and sys.modules[k] is not None]\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -564,8 +564,7 @@ def test_steps_per_call_runs_the_same_single_steps():
 
 @pytest.mark.parametrize("kw,item", [
     ({"callbacks_config": {"checkpoint_dir": "x"}}, 11),
-    ({"mesh": "auto"}, 16),
-    ({"pretrained_weights": "resnet.pth"}, 6)])
+    ({"mesh": "auto"}, 16)])
 def test_unported_trainer_settings_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         _trainer(**kw)
@@ -575,3 +574,131 @@ def test_unported_trainer_settings_raise(kw, item):
 def test_unported_trainer_methods_raise(method, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         getattr(_trainer(), method)("model.pth")
+
+
+# ------------------------------------------------- pretrained encoders
+
+def _torchvision_file(path, seed=0, drop=None, add=None):
+    """A torchvision resnet34 state_dict file (.pth or .npz) of random
+    values: the encoder's keys, num_batches_tracked and the fc head."""
+    from mapping_tpu_torch.models.resnet import ResNetEncoder
+
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for k, v in ResNetEncoder(34).state_dict().items():
+        if not v.is_floating_point():
+            state[k] = v
+        elif k.endswith("running_var"):
+            state[k] = 0.5 + torch.rand(v.shape, generator=gen)
+        else:
+            state[k] = 0.1 * torch.randn(v.shape, generator=gen)
+    state["fc.weight"] = torch.randn((1000, 512), generator=gen)
+    state["fc.bias"] = torch.randn((1000,), generator=gen)
+    if drop:
+        del state[drop]
+    if add:
+        state[add] = torch.zeros(3)
+    if str(path).endswith(".npz"):
+        np.savez(path, **{k: v.numpy() for k, v in state.items()})
+    else:
+        torch.save(state, path)
+    return state
+
+
+def _jax_grafted(encoder, path):
+    from mapping_tpu.train.trainer import UNetTrainer as JaxTrainer
+
+    trainer = JaxTrainer(
+        model_params={"encoder": encoder, "dtype": "float32"},
+        optimizer_params={"lr": 5e-4}, loss_params=LOSS_PARAMS,
+        training_config={"epochs": 1}, input_size=(64, 64),
+        pretrained_weights=str(path))
+    trainer._ensure_state()
+    return trainer.state.params, trainer.state.batch_stats
+
+
+@pytest.mark.parametrize("encoder,suffix", [("ResNet34", ".pth"),
+                                            ("ResNet34", ".npz"),
+                                            ("AlbuNet", ".pth")])
+def test_pretrained_encoder_graft_matches_jax(tmp_path, encoder, suffix):
+    """pretrained_weights is read on first use, not at construction, and
+    grafts the encoder's weights and BatchNorm statistics as the JAX
+    package's _graft_pretrained does (exact); the decoder keeps its
+    seeded weights."""
+    from mapping_tpu_torch.models.convert import albunet_state_dict_from_flax
+
+    path = tmp_path / f"resnet34{suffix}"
+    _torchvision_file(path)
+    params, stats = _jax_grafted(encoder, path)
+    want = (albunet_state_dict_from_flax(params, stats) if encoder == "AlbuNet"
+            else state_dict_from_flax(params, stats, 34))
+    trainer = _trainer(model_params={"encoder": encoder, "dtype": "float32"},
+                       pretrained_weights=str(path))
+    decoder = {k: v.clone() for k, v in trainer.model.state_dict().items()
+               if not k.startswith("encoder.")}
+    got = trainer.state_dict()
+    for k, v in want.items():
+        if k.startswith("encoder.") and "num_batches_tracked" not in k:
+            np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    for k, v in decoder.items():
+        assert torch.equal(got[k], v), k
+
+
+def test_pretrained_file_is_read_lazily_and_strictly(tmp_path):
+    missing = _trainer(pretrained_weights=str(tmp_path / "absent.pth"))
+    with pytest.raises(FileNotFoundError):
+        missing.state_dict()
+    for kw, match in (({"drop": "layer2.1.conv1.weight"}, "missing"),
+                      ({"add": "layer5.0.conv1.weight"}, "unexpected")):
+        path = tmp_path / f"{match}.pth"
+        _torchvision_file(path, **kw)
+        with pytest.raises(ValueError, match=match):
+            _trainer(pretrained_weights=str(path)).state_dict()
+
+
+def test_pretrained_graft_runs_before_weights_are_loaded(tmp_path):
+    """Loading a whole state_dict after construction grafts first and then
+    replaces everything, as the JAX package's load does: the loaded
+    weights are what serve, and a later fit does not graft again."""
+    path = tmp_path / "resnet34.pth"
+    grafted = _torchvision_file(path)
+    source = _trainer().state_dict()
+    trainer = _trainer(pretrained_weights=str(path)).load_state_dict(source)
+    for k, v in source.items():
+        assert torch.equal(trainer.state_dict()[k], v), k
+    trainer.fit(_flow())
+    assert not torch.equal(trainer.state_dict()["encoder.conv1.weight"],
+                           grafted["conv1.weight"])
+
+
+def test_trainer_loads_a_jax_albunet_cache(tmp_path):
+    """A JAX UNetTrainer(AlbuNet) `save` read by the port: the state_dict
+    of albunet_state_dict_from_flax, and float32 logits within the
+    ResNet34 forward tolerance (1e-4) of the JAX model's."""
+    from mapping_tpu.train.trainer import UNetTrainer as JaxTrainer
+    from mapping_tpu_torch.models.convert import albunet_state_dict_from_flax
+    from mapping_tpu_torch.train.checkpoint import load_flax_weights
+
+    jax_trainer = JaxTrainer(
+        model_params={"encoder": "AlbuNet", "dtype": "float32"},
+        optimizer_params={"lr": 5e-4}, loss_params=LOSS_PARAMS,
+        training_config={"epochs": 1}, input_size=(64, 64))
+    path = str(tmp_path / "unet.msgpack")
+    jax_trainer.save(path)
+    trainer = _trainer(model_params={"encoder": "AlbuNet",
+                                     "dtype": "float32"}).load(path)
+    want = albunet_state_dict_from_flax(*load_flax_weights(path))
+    got = trainer.state_dict()
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k])
+    x = np.random.RandomState(0).randn(2, 64, 64, 3).astype(np.float32)
+    state = jax_trainer.state
+    logits = np.asarray(jax_trainer.model.apply(
+        {"params": state.params, "batch_stats": state.batch_stats},
+        jnp.asarray(x), train=False))
+    model = trainer.model.eval()
+    with torch.no_grad():
+        out = model(torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), logits,
+                               atol=1e-4, rtol=1e-4)
