@@ -88,8 +88,26 @@ the JAX package is imported. Phases, each printing what it found:
      probabilities, and the split's ground truth scored as predictions
      must give AP = AR = 1. Prints the default run's images/s and its
      seconds in decode, on the device, in annotation + RLE and in COCOeval
-     (host clock).
-
+     (host clock);
+  9. train CLI: on phase 6's split (1,002 train tiles, 110 val), at full
+     width (ResNet101, bf16, batch 20, 256^2, weighted loss) and the JAX
+     config's defaults but for the number of epochs and the checkpoint
+     cadence, four legs through `python3 -m mapping_tpu_torch.main`'s
+     entry point, the first three each in a child process that prints its
+     CCL launch counts: (a) `train -p unet_weighted`, 2 epochs of all
+     train tiles, each validated by COCO mAP on the 110 val tiles through
+     FusedServe and the CUDA `label`: wall time, ms/step, each epoch's mAP
+     and seconds; unet.pt, best.pt, last.pt with its aux file at epoch 1,
+     STAGE_COMPLETE and metrics.jsonl with the JAX package's channels must
+     be written, and the losses finite; (b) `train -d` with 4 epochs is
+     killed (SIGKILL) once its resume file shows an epoch before the last,
+     and the same command run again must resume at the next epoch and end
+     at epoch 3 with 4 epochs of optimizer steps in last.pt; (c) `train -w
+     -d` with another lr must archive the completed stage
+     (checkpoints/unet.stage1, transformers/unet.stage1.pt) and train a
+     fresh schedule; (d) in this process, `evaluate -p unet_weighted` on
+     leg (a)'s weights must write a prediction.json of the 110 images with
+     AP/AR in [0, 1] and launch the CCL kernels.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -154,6 +172,19 @@ PREP_MODES = {"erode3": {"erode": 3}, "erode3_dilate2": {"erode": 3,
                                                          "dilate": 2},
               "border2": {"border_width": 2}}
 PREP_REL_TOL = 1e-4  # distances against scipy's, relative
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+#: parameters of phase 9 over the JAX config's defaults; leg (a) validates
+#: on every val tile
+TRAIN_CLI_PARAMS = {"epochs_nr": 2, "resume_every": 1, "best_write_every": 1,
+                    "evaluation_data_sample": PREP_VAL}
+RESUME_EPOCHS, WARM_LR = 4, 1e-4  # legs (b) and (c)
+#: a child process that runs the CLI's entry point on its arguments and
+#: prints the CCL launch counts of its run as its last line
+CLI_CHILD = ("import json, sys\n"
+             "from mapping_tpu_torch import main\n"
+             "from mapping_tpu_torch.kernels import ccl\n"
+             "main.main(sys.argv[1:])\n"
+             "print('ccl launches ' + json.dumps(ccl.LAUNCHES))\n")
 
 
 def card():
@@ -980,11 +1011,11 @@ def write_config(name, params, where=EVAL_DIR):
     return str(path)
 
 
-def check_prediction(path, image_ids, what):
+def check_prediction(path, image_ids, what, allow_empty=False):
     """prediction.json parses, holds 300^2 masks of the expected images,
     and finite scores; returns it."""
     prediction = json.loads(Path(path).read_text())
-    if not prediction:
+    if not prediction and not allow_empty:
         raise AssertionError(f"{what}: empty prediction")
     for p in prediction:
         if p["segmentation"]["size"] != [TILE, TILE] \
@@ -1447,6 +1478,189 @@ def evaluate_phase(gen, smi):
             for k in K.LAUNCHES}
 
 
+def cli_child(config, *command):
+    return [sys.executable, "-c", CLI_CHILD, "--config", config, *command]
+
+
+def run_cli(config, log, *command):
+    """A CLI_CHILD of `command` that must exit 0: (seconds, the CCL launch
+    counts it printed)."""
+    rc, seconds, _ = run_child(cli_child(config, *command), log)
+    last = log.read_text().strip().splitlines()[-1]
+    if rc != 0 or not last.startswith("ccl launches "):
+        raise AssertionError(f"{' '.join(command)} exited {rc}:\n"
+                             + log.read_text()[-3000:])
+    return seconds, json.loads(last[len("ccl launches "):])
+
+
+def resume_files(checkpoint_dir):
+    """(last.pt's dict, read back with weights_only, and the sidecar
+    JSON beside it)."""
+    payload = torch.load(checkpoint_dir / "last.pt", map_location="cpu",
+                         weights_only=True)
+    return payload, json.loads((checkpoint_dir / "last.pt.aux.json")
+                               .read_text())
+
+
+def kill_at_first_resume_save(args, log, aux):
+    """Start `args` and SIGKILL it as soon as the resume sidecar `aux`
+    appears; returns the epoch_id the sidecar shows."""
+    with open(log, "w") as out:
+        proc = subprocess.Popen(args, cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 600
+            while not aux.exists():
+                if proc.poll() is not None:
+                    raise AssertionError(f"exited {proc.returncode} before "
+                                         f"its first resume save")
+                if time.monotonic() > deadline:
+                    raise AssertionError("no resume save in 600 s")
+                time.sleep(0.02)
+            proc.kill()
+            return json.loads(aux.read_text())["epoch_id"]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def train_cli_phase(smi, prepared):
+    import hashlib
+
+    from mapping_tpu_torch import main as cli
+    from mapping_tpu_torch.kernels import ccl as K
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    steps = -(-(PREP_TRAIN + 2) // BATCH)
+    dev_steps = -(-min(20, PREP_TRAIN + 2) // BATCH)  # dev mode: 20 rows
+
+    def config(name, **extra):
+        return write_config(name, {
+            "data_dir": str(PREP_DIR / "data"),
+            "meta_dir": str(prepared["meta_dir"]),
+            "experiment_dir": str(TRAIN_DIR / name), "device": DEVICE,
+            **TRAIN_CLI_PARAMS, **extra}, TRAIN_DIR)
+
+    full = config("full")
+    cli.main(["--config", full, "prepare_metadata"])  # both splits
+    launches = {k: 0 for k in K.LAUNCHES}
+
+    def count(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    # (a) the train command at full width
+    experiment = TRAIN_DIR / "full"
+    checkpoints = experiment / "checkpoints" / "unet"
+    seconds, got = run_cli(full, TRAIN_DIR / "full.log", "train", "-p",
+                           "unet_weighted")
+    count(got)
+    log = (TRAIN_DIR / "full.log").read_text()
+    maps = re.findall(r"epoch (\d+) validation mAP = ([\d.]+) in ([\d.]+) s",
+                      log)
+    took = [float(t) for t in re.findall(r"epoch \d+ took ([\d.]+)s", log)]
+    writes = {what: [float(t) for t in re.findall(
+        rf"{what} checkpoint .* in ([\d.]+) s", log)]
+        for what in ("best", "resume")}
+    metrics = [json.loads(l) for l in
+               (experiment / "metrics.jsonl").read_text().splitlines()]
+    losses = [m["y"] for m in metrics if m["channel"] == "unet batch loss"]
+    val = [m["y"] for m in metrics if m["channel"] == "unet epoch_val sum"]
+    payload, aux = resume_files(checkpoints)
+    last_mib = (checkpoints / "last.pt").stat().st_size / 2 ** 20
+    print(f"train CLI: (a) `train -p unet_weighted` exited 0 in {seconds:.2f} "
+          f"s of wall time (child process); {len(took)} epochs of {steps} "
+          f"steps of {BATCH} tiles read from files: " + ", ".join(
+              f"epoch {e} {1e3 * t / steps:.2f} ms/step, validation mAP "
+              f"{float(ap):.5f} in {float(vs):.2f} s on {PREP_VAL} tiles"
+              for t, (e, ap, vs) in zip(took, maps))
+          + f"; checkpoint writes (s): best.pt {writes['best']}, last.pt "
+          f"{writes['resume']} ({last_mib:.1f} MiB) (host clock); CCL "
+          f"launches {got} on {smi}")
+    files = [experiment / "transformers" / "unet.pt", checkpoints / "best.pt",
+             checkpoints / "last.pt", checkpoints / "STAGE_COMPLETE"]
+    missing = [f.name for f in files if not f.exists()]
+    if missing or aux["epoch_id"] != 1 or payload["aux"] != aux \
+            or payload["step"] != 2 * steps:
+        raise AssertionError(f"train: missing {missing}, aux {aux}, step "
+                             f"{payload['step']}")
+    if len(losses) != 2 * steps or not np.isfinite(losses).all() \
+            or len(val) != 2 or len(maps) != 2 or min(got.values()) < 1:
+        raise AssertionError(f"train: {len(losses)} losses (finite: "
+                             f"{np.isfinite(losses).all()}), validation "
+                             f"{val}, mAP lines {maps}, launches {got}")
+
+    # (b) a run killed after an epoch before its last, then resumed
+    resume = config("resume", epochs_nr=RESUME_EPOCHS)
+    checkpoints = TRAIN_DIR / "resume" / "checkpoints" / "unet"
+    shown = kill_at_first_resume_save(cli_child(resume, "train", "-d"),
+                                      TRAIN_DIR / "killed.log",
+                                      checkpoints / "last.pt.aux.json")
+    payload, _ = resume_files(checkpoints)
+    killed_at = payload["aux"]["epoch_id"]  # written with the state
+    if not killed_at < RESUME_EPOCHS - 1 \
+            or payload["step"] != (killed_at + 1) * dev_steps:
+        raise AssertionError(f"killed run: epoch {killed_at}, step "
+                             f"{payload['step']}")
+    seconds, got = run_cli(resume, TRAIN_DIR / "resumed.log", "train", "-d")
+    count(got)
+    log = (TRAIN_DIR / "resumed.log").read_text()
+    payload, aux = resume_files(checkpoints)
+    print(f"train CLI: (b) `train -d` with {RESUME_EPOCHS} epochs killed "
+          f"(SIGKILL) when its sidecar showed epoch {shown} (last.pt: epoch "
+          f"{killed_at}); the rerun exited 0 in {seconds:.2f} s, ended at "
+          f"epoch {aux['epoch_id']} with {payload['step']} optimizer steps; "
+          f"CCL launches {got}")
+    if f"resuming epoch schedule at {killed_at + 1}/{RESUME_EPOCHS}" \
+            not in log or aux["epoch_id"] != RESUME_EPOCHS - 1 \
+            or payload["step"] != RESUME_EPOCHS * dev_steps:
+        raise AssertionError("the rerun did not resume the schedule")
+
+    # (c) the next stage, warm-started with another rate
+    transformers = TRAIN_DIR / "resume" / "transformers"
+    stage1 = hashlib.sha256((transformers / "unet.pt").read_bytes()).digest()
+    warm = config("resume", epochs_nr=2, lr=WARM_LR)
+    seconds, got = run_cli(warm, TRAIN_DIR / "warm.log", "train", "-w", "-d")
+    count(got)
+    payload, aux = resume_files(checkpoints)
+    lr = payload["optimizer"]["param_groups"][0]["lr"]
+    archived = transformers / "unet.stage1.pt"
+    print(f"train CLI: (c) `train -w -d` with lr {WARM_LR} exited 0 in "
+          f"{seconds:.2f} s: stage 1 archived as {checkpoints.name}.stage1 "
+          f"and {archived.name}; the new stage ended at epoch "
+          f"{aux['epoch_id']} with {payload['step']} steps at lr {lr}; CCL "
+          f"launches {got}")
+    if not ((checkpoints.parent / "unet.stage1" / "STAGE_COMPLETE").exists()
+            and archived.exists()
+            and hashlib.sha256(archived.read_bytes()).digest() == stage1
+            and aux["epoch_id"] == 1 and payload["step"] == 2 * dev_steps
+            and lr == WARM_LR and (checkpoints / "STAGE_COMPLETE").exists()):
+        raise AssertionError("the warm start did not archive stage 1 and "
+                             "train a fresh schedule")
+
+    # (d) evaluate the weights of leg (a), in this process
+    torch.cuda.synchronize()
+    K.reset_launches()
+    manager = cli.main(["--config", full, "evaluate", "-p", "unet_weighted"])
+    torch.cuda.synchronize()
+    got = dict(K.LAUNCHES)
+    count(got)
+    # two epochs may not yet find a building: no instance is a result
+    check_prediction(experiment / "prediction.json",
+                     set(range(1, PREP_VAL + 1)), "train CLI (d)",
+                     allow_empty=True)
+    ap, ar = last_scores(experiment)
+    print(f"train CLI: (d) `evaluate -p unet_weighted` on leg (a)'s weights: "
+          f"{manager.timings['images']} images, AP {ap} AR {ar}; CCL "
+          f"launches {got}")
+    if manager.timings["images"] != PREP_VAL or min(got.values()) < 1:
+        raise AssertionError(f"evaluate: {manager.timings['images']} "
+                             f"images, launches {got}")
+    return launches
+
+
 def main():
     smi = card()
     from mapping_tpu_torch.kernels import bounds
@@ -1458,7 +1672,8 @@ def main():
     err["conv_dw"], times["conv_dw"] = conv_dw_phase()
     prepared = prepare_phase(smi)
     launches["conv_dw"] = train_phase(gen, smi, prepared)["conv_dw"]
-    for phase in (prepared["launches"], evaluate_phase(gen, smi)):
+    for phase in (prepared["launches"], evaluate_phase(gen, smi),
+                  train_cli_phase(smi, prepared)):
         for name, n in phase.items():
             launches[name] += n
     n, c, h, w = DW_TIMED[DW_MAIN]

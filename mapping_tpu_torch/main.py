@@ -1,14 +1,16 @@
-"""CLI of the port: the JAX package's command surface for inference.
+"""CLI of the port: the JAX package's command surface.
 
     python3 -m mapping_tpu_torch.main [--config FILE] COMMAND [options]
 
 Counterpart of mapping_tpu/main.py with argparse in place of click: the
 same command names, flags and --config (default $CONFIG_PATH). Commands:
-prepare_masks, prepare_metadata, evaluate, predict_on_dir and
-import_checkpoint. The parameter `device` (default cuda) says where the
-model and the target preparation run; a CUDA device needs a card. The other commands of the JAX CLI exit non-zero, naming the
+prepare_masks, prepare_metadata, train, train_evaluate, evaluate,
+predict_on_dir and import_checkpoint. The parameter `device` (default
+cuda) says where the model and the target preparation run; a CUDA device
+needs a card. The other commands of the JAX CLI exit non-zero, naming the
 ROADMAP item that ports them.
 
+    python3 -m mapping_tpu_torch.main --config config.yaml train -p unet_weighted
     python3 -m mapping_tpu_torch.main --config config.yaml evaluate -p unet_weighted
 """
 
@@ -19,8 +21,11 @@ import sys
 from mapping_tpu_torch.manager import PipelineManager
 
 #: commands of the JAX CLI not ported yet -> ROADMAP item
-NOT_PORTED = {"train": "11", "train_evaluate": "11", "serve": "17",
-              "export": "18", "visualize": "23", "parity_drill": "23"}
+NOT_PORTED = {"serve": "17", "export": "18", "visualize": "23",
+              "parity_drill": "23"}
+_WARM_START_HELP = ("continue training from the cached transformer under the "
+                    "current yaml (stage 2+ of the multistage recipe); the "
+                    "completed previous stage is archived, not overwritten")
 
 
 def _parser():
@@ -36,6 +41,19 @@ def _parser():
     p = sub.add_parser("prepare_metadata")
     p.add_argument("-tr", "--train_data", action="store_true")
     p.add_argument("-val", "--valid_data", action="store_true")
+
+    p = sub.add_parser("train")
+    p.add_argument("-p", "--pipeline_name", default="unet_weighted")
+    p.add_argument("-d", "--dev_mode", action="store_true")
+    p.add_argument("-w", "--warm_start", action="store_true",
+                   help=_WARM_START_HELP)
+
+    p = sub.add_parser("train_evaluate")
+    p.add_argument("-p", "--pipeline_name", default="unet_weighted")
+    p.add_argument("-d", "--dev_mode", action="store_true")
+    p.add_argument("-c", "--chunk_size", type=int, default=None)
+    p.add_argument("-w", "--warm_start", action="store_true",
+                   help=_WARM_START_HELP)
 
     p = sub.add_parser("evaluate")
     p.add_argument("-p", "--pipeline_name", default="unet")
@@ -97,12 +115,15 @@ def main(argv=None) -> PipelineManager:
         manager.prepare_metadata(train_data, valid_data)
         return manager
     manager.start_experiment()
-    if args.command == "evaluate":
+    if args.command in ("train", "train_evaluate"):
+        manager.train(args.pipeline_name, args.dev_mode,
+                      warm_start=args.warm_start)
+    if args.command in ("evaluate", "train_evaluate"):
         manager.evaluate(args.pipeline_name, args.dev_mode, args.chunk_size)
     elif args.command == "predict_on_dir":
         manager.predict_on_dir(args.pipeline_name, args.dir_path,
                                args.prediction_path, args.chunk_size)
-    else:
+    elif args.command == "import_checkpoint":
         manager.import_checkpoint(args.checkpoint_path, args.pipeline_name)
     manager.finish_experiment()
     return manager

@@ -2,7 +2,9 @@
 
 Counterpart of mapping_tpu/manager.py for prepare_masks (the target files
 of the train and val splits, computed on the config's `device`),
-prepare_metadata, evaluate (validation sample, chunked or streamed
+prepare_metadata, train (the validation sample, dev mode's 20 train and
+10 validation rows, `overwrite`, and `warm_start` for one call), evaluate
+(validation sample, chunked or streamed
 prediction, prediction.json, COCO AP/AR at IoU 0.5), predict_on_dir and
 import_checkpoint, with the CATEGORY_LAYERS guards and the MetricSink
 (stdout + metrics.jsonl under the experiment dir). Metadata are lists of
@@ -11,8 +13,9 @@ row dicts (data/metadata.py) instead of DataFrames.
 Each evaluate and predict_on_dir leaves the host seconds of its stages in
 `manager.timings`: decode (on the loader's threads), device (in
 FusedServe.dispatch and .collect), annotation + RLE, COCOeval, and the
-whole call. Not ported yet, and raising with their ROADMAP item: train
-(item 11), artifacts (item 18) and the parity drill (item 23).
+whole call. Not ported yet, and raising with their ROADMAP item: training
+the scoring model (item 15), artifacts (item 18) and the parity drill
+(item 23).
 """
 
 import json
@@ -20,6 +23,7 @@ import logging
 import math
 import os
 import random
+import shutil
 import time
 from typing import Optional
 
@@ -75,7 +79,30 @@ class PipelineManager:
         pass
 
     def train(self, pipeline_name, dev_mode, warm_start=False):
-        raise _not_ported("train", "11")
+        cl = self._category_layers()
+        if pipeline_name == "scoring_model":
+            assert cl[1] > 1, (
+                "Train the scoring model with multiple thresholds: set "
+                "category_layers to [1, 19]")
+        else:
+            assert cl[1] == 1, (
+                "Training the base unet requires category_layers [1, 1]")
+        if (warm_start or self.config.params.get("warm_start", 0)) \
+                and self.config.params.get("overwrite", 0):
+            raise ValueError(
+                "warm_start and overwrite are mutually exclusive: overwrite "
+                "deletes the experiment dir (including the previous stage's "
+                "weights warm_start would continue from)")
+        # the flag holds for this call only: config.params is shared, and a
+        # later train() on this manager must not warm-start because an
+        # earlier call asked for it
+        prev = self.config.params.get("warm_start", 0)
+        if warm_start:
+            self.config.params["warm_start"] = 1
+        try:
+            train(pipeline_name, dev_mode, self.config)
+        finally:
+            self.config.params["warm_start"] = prev
 
     def evaluate(self, pipeline_name, dev_mode, chunk_size):
         cl = self._category_layers()
@@ -180,6 +207,34 @@ def _sample(rows, n, seed):
         return rows
     idx = np.random.RandomState(seed).choice(len(rows), size=n, replace=False)
     return [rows[i] for i in idx]
+
+
+def train(pipeline_name, dev_mode, config):
+    params = config.params
+    logger.info("training %s", pipeline_name)
+    if bool(params.overwrite) and os.path.isdir(params.experiment_dir):
+        shutil.rmtree(params.experiment_dir)
+    if pipeline_name == "scoring_model":
+        raise _not_ported("training the scoring model", "15")
+
+    meta = read_metadata(os.path.join(params.meta_dir, "metadata.csv"))
+    meta_train = [r for r in meta if r["is_train"] == 1]
+    meta_valid = _sample([r for r in meta if r["is_valid"] == 1],
+                         params.evaluation_data_sample, SEED)
+    if dev_mode:
+        meta_train = _sample(meta_train, 20, SEED)
+        meta_valid = _sample(meta_valid, 10, SEED)
+    data = {
+        "input": {"meta": meta_train,
+                  "target_sizes": [(300, 300)] * len(meta_train),
+                  "annotations": None},
+        "specs": {"train_mode": True},
+        "callback_input": {"meta_valid": meta_valid},
+    }
+    pipeline = PIPELINES[pipeline_name]["train"](config)
+    pipeline.clean_cache()
+    pipeline.fit_transform(data)
+    pipeline.clean_cache()
 
 
 def _validation_rows(params, dev_mode):

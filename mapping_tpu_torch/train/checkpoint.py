@@ -1,10 +1,27 @@
-"""Checkpoints: the port's own transformer cache, reference torch
-checkpoints, and the JAX package's flax msgpack files.
+"""Checkpoints: the port's own transformer cache and resume files,
+reference torch checkpoints, and the JAX package's flax msgpack files.
 
 Counterpart of mapping_tpu/train/checkpoint.py and
 mapping_tpu/models/torch_convert.py `load_torch_file`:
-- the port's cache `unet.pt` is torch.save of the model's reference-named
-  state_dict (weights and BatchNorm statistics), written atomically;
+- the port's cache `unet.pt` and best weights `best.pt` are torch.save of
+  the model's reference-named state_dict (weights and BatchNorm
+  statistics), written atomically;
+- the port's resume file `last.pt` holds the whole training state
+  (`save_train_state`): the model's state_dict, `optimizer.state_dict()`
+  (Adam's moments and step counts), the schedule's state_dict (StepLR's
+  `last_epoch` counts optimizer steps), the optimizer step count, and the
+  resume sidecar's dict, so that the epoch schedule and the state it
+  belongs to are renamed into place together. Every leaf is a tensor or a
+  plain Python value: `torch.load(weights_only=True)` reads it back;
+- `load_weights` reads the weights alone of a cache, a best file or a
+  resume file (warm start);
+- the port resumes only from its own `last.pt`. The JAX package's resume
+  file `last.msgpack` holds optax's state tree, which has no one-to-one
+  map onto torch's Adam state without the JAX package's tree structure, so
+  a checkpoint dir that holds one is refused (`refuse_jax_resume_file`)
+  rather than resumed from or silently ignored: a run would otherwise
+  start its schedule again over a JAX run's epochs. The JAX package's
+  *weights* (`unet.msgpack`) are read, for serving and for warm start;
 - a reference checkpoint is a torch state_dict: plain, wrapped as
   {"state_dict": ...}, or with nn.DataParallel's "module." prefix; a
   `.npz` of the same names is read too (pretrained encoder files);
@@ -170,10 +187,50 @@ def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
             torch.as_tensor(v) for k, v in state.items()}
 
 
+def _save_atomic(payload, path):
+    """torch.save to a temporary file renamed over `path`."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
 def save_state_dict(state: Dict[str, torch.Tensor], path):
     """torch.save of `state` (moved to the CPU), written to a temporary
     file and renamed over `path`."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({k: v.detach().cpu() for k, v in state.items()}, tmp)
-    os.replace(tmp, path)
+    _save_atomic({k: v.detach().cpu() for k, v in state.items()}, path)
+
+
+def save_train_state(path, model_state, optimizer_state, scheduler_state,
+                     step: int, aux: Dict[str, Any]):
+    """The resume file: the whole training state and the sidecar's dict
+    in one atomically written torch.save."""
+    _save_atomic({"model": {k: v.detach().cpu()
+                            for k, v in model_state.items()},
+                  "optimizer": optimizer_state, "scheduler": scheduler_state,
+                  "step": int(step), "aux": aux}, path)
+
+
+def load_train_state(path) -> Dict[str, Any]:
+    """The dict `save_train_state` wrote, tensors on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_weights(path) -> Dict[str, torch.Tensor]:
+    """The model's state_dict of a port cache, best file or resume
+    file."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return state["model"] if "optimizer" in state else state
+
+
+def refuse_jax_resume_file(checkpoint_dir):
+    """Raise if `checkpoint_dir` holds the JAX package's resume file."""
+    path = os.path.join(checkpoint_dir, "last.msgpack")
+    if os.path.exists(path):
+        raise RuntimeError(
+            f"{path} is a resume file of the JAX package; the PyTorch port "
+            f"resumes only from its own last.pt and does not read optax "
+            f"state. Train this experiment on with the JAX package, or "
+            f"move {path} away to start the port's own schedule (its "
+            f"weights can seed one: `train -w` reads the experiment's "
+            f"unet.msgpack).")

@@ -59,6 +59,16 @@ def _running_stats_held(model: nn.Module):
             m.momentum = momentum
 
 
+@contextlib.contextmanager
+def _eval_mode(model: nn.Module):
+    was_training = model.training
+    model.eval()
+    try:
+        yield
+    finally:
+        model.train(was_training)
+
+
 def _nchw(images):
     return images.permute(0, 3, 1, 2)
 
@@ -121,13 +131,14 @@ def make_train_step_multi(loss_fn: Callable, model: nn.Module,
 def make_eval_step(loss_fn: Callable, model: nn.Module,
                    dtype: torch.dtype = torch.bfloat16):
     """Returns batch -> validation loss (0-dim tensor): BatchNorm with its
-    running statistics, no gradient."""
+    running statistics, no gradient; the model's train/eval mode is left
+    as it was."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
     def eval_step(batch):
-        model.eval()
-        with _no_tf32(dtype == torch.float32), _autocast(device, dtype):
+        with _eval_mode(model), _no_tf32(dtype == torch.float32), \
+                _autocast(device, dtype):
             logits = model(_nchw(batch["image"]))
         return loss_fn(logits.float().permute(0, 2, 3, 1), batch["target"])
 
@@ -136,13 +147,13 @@ def make_eval_step(loss_fn: Callable, model: nn.Module,
 
 def make_predict_step(model: nn.Module, dtype: torch.dtype = torch.bfloat16):
     """Returns images (N, H, W, 3) -> float32 softmax probabilities
-    (N, H, W, C)."""
+    (N, H, W, C); the model's train/eval mode is left as it was."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
     def predict_step(images):
-        model.eval()
-        with _no_tf32(dtype == torch.float32), _autocast(device, dtype):
+        with _eval_mode(model), _no_tf32(dtype == torch.float32), \
+                _autocast(device, dtype):
             logits = model(_nchw(images))
         return torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)
 

@@ -2,33 +2,43 @@
 
 Counterpart of mapping_tpu/train/trainer.py `UNetTrainer` for one device:
 it takes the JAX config's `unet` section (model_params, optimizer_params,
-loss, training), builds the network from the registry with weights drawn
-from `seed`, and runs the epoch/batch loop. The model lives on `device` in
-channels_last memory with float32 parameters; `model_params["dtype"]`
+loss, training, callbacks), builds the network from the registry with
+weights drawn from `seed`, and runs the epoch/batch loop with the JAX
+package's callbacks (train/callbacks.py `default_unet_callbacks` when a
+callbacks_config is given): per-epoch validation, the best weights, early
+stopping, metrics and the resume checkpoint. The model lives on `device`
+in channels_last memory with float32 parameters; `model_params["dtype"]`
 ("bfloat16", the default, or "float32") is the compute dtype of its steps.
 
 `fit` reads the loss back to the host after every optimizer step call (one
 step unless `training.steps_per_call` groups several), as the JAX loop
-does; the per-step losses of the last `fit` are kept in `train_losses`.
-`probs_apply_fn()` is what the serving pipeline runs: the softmax of a
-BN-folded copy of the model in the compute dtype. `serve_only()` folds that
-copy once and frees the float32 model, for a trainer that only serves.
+does; the per-step losses of the last `fit` are kept in `train_losses`, and
+`step` counts the optimizer steps of the whole schedule (a resume restores
+it). `probs_apply_fn()` is what the serving pipeline and the per-epoch mAP
+run: the softmax of a BN-folded copy of the model in the compute dtype,
+folded again after the weights change (every optimizer step, a load, a
+resume). `serve_only()` folds that copy once and frees the float32 model,
+for a trainer that only serves.
 
 Weights come and go as the reference-named state_dict: `save` writes the
-port's transformer cache (torch.save, `unet.pt`), `load` reads it or a JAX
-experiment's flax `unet.msgpack` (UNetResNet or AlbuNet), and
-`import_torch_checkpoint` takes a reference torch checkpoint; each checks
-every key and shape. `pretrained_weights` names a local torchvision
-encoder file (.pth or .npz), grafted onto the encoder the first time the
-float32 model is used, as the JAX package grafts it when it creates its
-state: fit, save, serving, and before any weights are loaded, which then
-replace it.
+port's transformer cache (torch.save, `unet.pt`), `load` reads it, a best
+or resume file, or a JAX experiment's flax `unet.msgpack` (UNetResNet or
+AlbuNet), and `import_torch_checkpoint` takes a reference torch
+checkpoint; each checks every key and shape. `save_train_state` and
+`load_train_state` write and read the whole training state (the resume
+file). `warm_start(path)` starts the next fit from the weights in `path`
+with a fresh optimizer, step 0 and a fresh schedule. `pretrained_weights`
+names a local torchvision encoder file (.pth or .npz), grafted onto the
+encoder the first time the float32 model is used, as the JAX package
+grafts it when it creates its state: fit, save, serving, and before any
+weights are loaded, which then replace it.
 
-Not ported yet, and raising with their ROADMAP item: callbacks (11), a
-device mesh (16), warm start (11).
+Not ported yet, and raising with its ROADMAP item: a device mesh (16).
 """
 
 import copy
+import logging
+import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -38,13 +48,20 @@ from mapping_tpu_torch.models.convert import (albunet_state_dict_from_flax,
                                               state_dict_from_flax)
 from mapping_tpu_torch.models.fold_bn import fold_batch_stats
 from mapping_tpu_torch.models.registry import build_network
+from mapping_tpu_torch.train.callbacks import (CallbackList,
+                                               default_unet_callbacks)
 from mapping_tpu_torch.train.checkpoint import (load_flax_weights,
                                                 load_torch_state_dict,
-                                                save_state_dict)
+                                                load_train_state, load_weights,
+                                                save_state_dict,
+                                                save_train_state)
 from mapping_tpu_torch.train.losses import make_loss_fn
 from mapping_tpu_torch.train.state import make_optimizer
 from mapping_tpu_torch.train.step import (_no_tf32, make_eval_step,
+                                          make_predict_step,
                                           make_train_step_multi)
+
+logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -69,8 +86,6 @@ class UNetTrainer:
                  remat: bool = False,
                  pretrained_weights: str = "",
                  device="cuda"):
-        if callbacks_config:
-            raise _not_ported("callbacks_config", 11)
         if mesh is not None:
             raise _not_ported("a device mesh", 16)
         self.device = torch.device(device)
@@ -81,6 +96,7 @@ class UNetTrainer:
         self.optimizer_params = dict(optimizer_params)
         self.loss_params = dict(loss_params)
         self.training_config = dict(training_config)
+        self.callbacks_config = dict(callbacks_config or {})
         self.loss_name = loss_name
         self.input_size = tuple(input_size)
         self.seed = seed
@@ -96,6 +112,11 @@ class UNetTrainer:
         self.optimizer = None
         self.scheduler = None
         self.train_losses: List[float] = []
+        self.step = 0  # optimizer steps of the schedule
+        self.validation_loss: Dict[int, Dict[str, Any]] = {}
+        self.resume_info: Dict[str, Any] = {}
+        self.warm_started_from = None
+        self._warm_start_path = None
         # the folded serving copy and the weights' version it was made from
         self._state_version = 0
         self._folded = None
@@ -104,13 +125,16 @@ class UNetTrainer:
     # ------------------------------------------------------------- state
     def _master(self):
         """The float32 model, with the pretrained encoder grafted on first
-        use; raises after `serve_only()` freed it."""
+        use, then a pending warm start's weights loaded; raises after
+        `serve_only()` freed it."""
         if self.model is None:
             raise RuntimeError("this trainer only serves: serve_only() freed "
                                "its float32 model")
         if self._graft_pending:
             self._graft_pending = False
             self._graft_pretrained(self.pretrained_weights)
+        if self._warm_start_path is not None:
+            self._apply_warm_start()
         return self.model
 
     def _graft_pretrained(self, path):
@@ -153,9 +177,46 @@ class UNetTrainer:
             self._loss_fn, master, self.optimizer, self.scheduler,
             self.dtype, self.remat)
         self._eval_step = make_eval_step(self._loss_fn, master, self.dtype)
+        self._predict_step = make_predict_step(master, self.dtype)
 
     def warm_start(self, path):
-        raise _not_ported("warm start", 11)
+        """The next fit starts from the weights in `path` (the transformer
+        cache of a completed stage, or any port or JAX checkpoint) with a
+        fresh optimizer, step 0 and a fresh epoch schedule: stage 2+ of the
+        multistage recipe. A resume file of an interrupted run of this
+        stage, read when fit begins, wins over it."""
+        self._warm_start_path = path
+        if self.optimizer is not None:
+            self._apply_warm_start()
+        return self
+
+    def _apply_warm_start(self):
+        path, self._warm_start_path = self._warm_start_path, None
+        self.load(path)
+        self.optimizer = self.scheduler = None  # _ensure_state makes anew
+        self.step = 0
+        self.warm_started_from = path
+        logger.info("warm start: loaded stage weights from %s (fresh "
+                    "optimizer state and schedule)", path)
+
+    def save_train_state(self, path, aux: Dict[str, Any]):
+        """The resume file: weights, optimizer and schedule state, the step
+        count and `aux` (the sidecar's dict)."""
+        save_train_state(path, self._master().state_dict(),
+                         self.optimizer.state_dict(),
+                         None if self.scheduler is None
+                         else self.scheduler.state_dict(), self.step, aux)
+
+    def load_train_state(self, path) -> Dict[str, Any]:
+        """Restore what `save_train_state` wrote into the trainer (Adam's
+        moments go to the model's device); returns its `aux`."""
+        payload = load_train_state(path)
+        self.load_state_dict(payload["model"])
+        self.optimizer.load_state_dict(payload["optimizer"])
+        if self.scheduler is not None and payload["scheduler"] is not None:
+            self.scheduler.load_state_dict(payload["scheduler"])
+        self.step = int(payload["step"])
+        return payload["aux"]
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The model's reference-named weights and BatchNorm statistics, on
@@ -196,10 +257,9 @@ class UNetTrainer:
         save_state_dict(self._master().state_dict(), filepath)
 
     def load(self, filepath):
-        """Weights from the port's cache (torch.save of a state_dict) or,
-        for a path ending in .msgpack, from the JAX package's flax
-        checkpoint (params and batch_stats; the optimizer state is not
-        read)."""
+        """Weights from the port's cache, best or resume file (the
+        optimizer state is not read) or, for a path ending in .msgpack,
+        from the JAX package's flax checkpoint (params and batch_stats)."""
         if str(filepath).endswith(".msgpack"):
             encoder = self.model_params.get("encoder", "ResNet101")
             is_deconv = bool(self.model_params.get("is_deconv", True))
@@ -216,8 +276,7 @@ class UNetTrainer:
                     f"reading a flax checkpoint of {encoder!r} is not "
                     f"ported yet (ROADMAP item 20)")
         else:
-            state = torch.load(filepath, map_location="cpu",
-                               weights_only=True)
+            state = load_weights(filepath)
         return self.load_state_dict(state)
 
     # ------------------------------------------------------------ serve
@@ -263,21 +322,48 @@ class UNetTrainer:
         """Train for `training.epochs` passes over `datagen` = (flow,
         steps): each pass takes at most `steps` batches of flow, {"image":
         (N, H, W, 3), "target": (N, H, W, 1+K)} on the trainer's device.
-        `validation_datagen` and `meta_valid` feed callbacks, which are not
-        ported yet, and are not read."""
+        The callbacks get `validation_datagen` and `meta_valid` (the
+        validation rows); a resume checkpoint continues the schedule at
+        the epoch after its own, and the best weights, where kept, are
+        loaded at the end."""
         flow, steps = datagen
         self._ensure_state(steps_per_epoch=steps)
         self.train_losses = []
+        self.validation_loss = {}
+        self.resume_info = {}
+        callbacks = self._build_callbacks()
+        self._callbacks = callbacks  # ResumeCheckpoint gathers their states
+        callbacks.set_params(self, validation_datagen=validation_datagen,
+                             meta_valid=meta_valid)
+        callbacks.on_train_begin()
+        epochs = self.training_config.get("epochs", 1)
+        start_epoch = self.resume_info.get("next_epoch", 0)
+        if start_epoch:
+            logger.info("resuming epoch schedule at %d/%d", start_epoch,
+                        epochs)
         spc = int(self.training_config.get("steps_per_call", 1))
         pending = []
 
         def run_pending():
-            if pending:
-                losses = self._train_steps(pending)["loss"]
-                self.train_losses.extend(losses.tolist())  # host sync
-                pending.clear()
+            if not pending:
+                return
+            # one step: its hooks bracket it; a group: the hooks follow,
+            # once per loss (the JAX loop's two paths)
+            single = len(pending) == 1
+            if single:
+                callbacks.on_batch_begin()
+            losses = self._train_steps(pending)["loss"].tolist()  # host sync
+            self.step += len(pending)
+            self._state_version += 1  # the folded serving copy is stale
+            self.train_losses.extend(losses)
+            for loss in losses:
+                if not single:
+                    callbacks.on_batch_begin()
+                callbacks.on_batch_end(metrics={"loss": loss})
+            pending.clear()
 
-        for _ in range(self.training_config.get("epochs", 1)):
+        for epoch_id in range(start_epoch, epochs):
+            callbacks.on_epoch_begin()
             for batch_id, batch in enumerate(flow):
                 pending.append(batch)
                 if len(pending) >= spc:
@@ -285,10 +371,25 @@ class UNetTrainer:
                 if batch_id + 1 >= steps:
                     break
             run_pending()
+            callbacks.on_epoch_end()
+            if callbacks.training_break():
+                logger.info("early stopping at epoch %d", epoch_id)
+                break
         if hasattr(flow, "close"):
-            flow.close()
-        self._state_version += 1
+            flow.close()  # retire the next epoch's decode prefetch
+        callbacks.on_train_end()
+        # hand back the best weights where a checkpoint kept them
+        best = os.path.join(self.callbacks_config.get("checkpoint_dir", ""),
+                            "best.pt")
+        if self.callbacks_config.get("checkpoint_dir") and \
+                os.path.exists(best):
+            self.load(best)
         return self
+
+    def _build_callbacks(self) -> CallbackList:
+        if self.callbacks_config:
+            return default_unet_callbacks(self.callbacks_config)
+        return CallbackList([])
 
     # -------------------------------------------------------------- eval
     def score_validation(self, validation_datagen) -> Dict[str, Any]:

@@ -329,11 +329,10 @@ def test_manager_evaluate_scores_ground_truth_as_one(workspace, monkeypatch):
                 }) == 4
 
 
-@pytest.mark.parametrize("command,item", [("train", "11"), ("serve", "17"),
+@pytest.mark.parametrize("command,item", [("serve", "17"),
                                           ("export", "18"),
                                           ("visualize", "23"),
-                                          ("parity_drill", "23"),
-                                          ("train_evaluate", "11")])
+                                          ("parity_drill", "23")])
 def test_cli_unported_commands_exit_naming_their_item(command, item):
     from mapping_tpu_torch import main
 

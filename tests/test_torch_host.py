@@ -33,6 +33,7 @@ from mapping_tpu.data.loader import load_image as jax_load_image
 from mapping_tpu.eval import cocoeval as jax_cocoeval
 from mapping_tpu.infer import annotations as jax_annotations
 from mapping_tpu.ops import rle as jax_rle
+from mapping_tpu.utils import native as jax_native
 from mapping_tpu_torch import config, manager
 from mapping_tpu_torch.data import metadata
 from mapping_tpu_torch.data.coco import COCOIndex
@@ -176,6 +177,12 @@ def test_rle_matches_jax_byte_exact(monkeypatch, numpy_path):
         monkeypatch.setattr(jax_rle, "_native", None)
     else:
         assert native.available()
+        # the JAX package's library too: a worker whose first load lost
+        # the build race of its one cpp/librle.so.tmp keeps its numpy
+        # path; build() loads the library again (and resets that)
+        if not jax_native.available():
+            assert jax_native.build()
+        assert jax_rle._native is jax_native and jax_native.available()
     masks = _masks(0)
     got = [rle.encode(m) for m in masks]
     want = [jax_rle.encode(m) for m in masks]

@@ -213,8 +213,8 @@ def test_unported_settings_raise():
                        ("unet_scoring_model", 15)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             PIPELINES[name]["inference"](build_config())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        PIPELINES["unet_weighted"]["train"](build_config())
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        PIPELINES["scoring_model"]["train"](build_config())
 
 
 def test_cuda_pipeline_without_card_raises():
@@ -253,7 +253,9 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.utils.png',\n"
         "        'mapping_tpu_torch.prep.targets',\n"
         "        'mapping_tpu_torch.ops.edt',\n"
-        "        'mapping_tpu_torch.utils.ndpickle'} <= set(names)\n"
+        "        'mapping_tpu_torch.utils.ndpickle',\n"
+        "        'mapping_tpu_torch.train.callbacks',\n"
+        "        'mapping_tpu_torch.pipelines'} <= set(names)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'mapping_tpu', 'pandas', 'yaml', 'click', 'PIL', "
         "'msgpack', 'joblib', 'imageio') and sys.modules[k] is not None]\n"

@@ -562,18 +562,10 @@ def test_steps_per_call_runs_the_same_single_steps():
     np.testing.assert_allclose(two.train_losses, one.train_losses, rtol=1e-6)
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"callbacks_config": {"checkpoint_dir": "x"}}, 11),
-    ({"mesh": "auto"}, 16)])
+@pytest.mark.parametrize("kw,item", [({"mesh": "auto"}, 16)])
 def test_unported_trainer_settings_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         _trainer(**kw)
-
-
-@pytest.mark.parametrize("method,item", [("warm_start", 11)])
-def test_unported_trainer_methods_raise(method, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        getattr(_trainer(), method)("model.pth")
 
 
 # ------------------------------------------------- pretrained encoders
