@@ -22,8 +22,9 @@ the JAX package is imported. Phases, each printing what it found:
      300) noise of density 0.5: kernel, plain, torch.unique's inverse as a
      yardstick for the renumbering, and the parent tree's kernels (K1, K2
      and K1 + K2) where present. K1 and `label` are timed the same way on
-     phase 4's serving masks and on phase 8's masks and building
-     footprints; each mask batch is saved under build/ccl_masks/ for
+     phase 4's serving masks, on phase 8's masks and building footprints,
+     and on phase 10's 19-layer masks; each mask batch is saved under
+     build/ccl_masks/ for
      `python3 -m mapping_tpu_torch.tools.kernel_variants ccl`;
   4. slice: a ResNet101 UNetPipeline (32 filters, deconv, BN folded,
      bfloat16, random weights from a seeded torch.Generator) serves 3
@@ -107,7 +108,26 @@ the JAX package is imported. Phases, each printing what it found:
      (checkpoints/unet.stage1, transformers/unet.stage1.pt) and train a
      fresh schedule; (d) in this process, `evaluate -p unet_weighted` on
      leg (a)'s weights must write a prediction.json of the 110 images with
-     AP/AR in [0, 1] and launch the CCL kernels.
+     AP/AR in [0, 1] and launch the CCL kernels;
+ 10. TTA, padded and scoring pipelines, under build/chip_smoke_scoring/,
+     on phase 9 (a)'s weights (random weights find no building to score)
+     and phase 6's split: (a) `train -p scoring_model` with
+     category_layers [1, 19] in a child process (CLI_CHILD) over 500 of
+     the train tiles (the JAX default samples 10,000): wall time,
+     feature rows, GBM fit seconds, best_iteration and the child's CCL
+     launches; (b) in this process, `evaluate` of unet_tta and unet_padded
+     at [1, 1], then unet_scoring_model, unet_padded_scoring_model and
+     unet_tta_scoring_model at [1, 19], each on the 110 val tiles: each
+     must write a prediction.json of those images with AP/AR in [0, 1] and
+     launch the CCL kernels; prints images/s, the stage seconds (the
+     scoring runs also their scoring and NMS seconds and how many
+     instances NMS suppressed) and peak device memory; (c) on one batch,
+     the 19-layer postprocess with the feature tensor gives the same
+     labels, areas and features through the kernels as through the plain
+     CCL (exact); (d) in float32, the served TTA (12 deduplicated
+     forwards) equals the 16-spec stack within 1e-5; (e) K1 and `label`
+     are timed on (c)'s 380 masks beside the plain CCL, saved under
+     build/ccl_masks/.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -178,6 +198,19 @@ TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 TRAIN_CLI_PARAMS = {"epochs_nr": 2, "resume_every": 1, "best_write_every": 1,
                     "evaluation_data_sample": PREP_VAL}
 RESUME_EPOCHS, WARM_LR = 4, 1e-4  # legs (b) and (c)
+SCORING_DIR = ROOT / "build" / "chip_smoke_scoring"
+#: tiles of phase 10 (a)'s scoring sample (10,000 by default), drawn from
+#: phase 6's train split; cut for the script's time limit
+SCORING_SAMPLE = 500
+#: parameters of phase 10 over the JAX config's defaults: the scoring
+#: sample, validation on every val tile
+SCORING_PARAMS = {"scoring_model__num_training_examples": SCORING_SAMPLE,
+                  "evaluation_data_sample": PREP_VAL}
+#: phase 10 (b)'s evaluate runs: pipeline, category_layers
+SCORING_EVALS = (("unet_tta", [1, 1]), ("unet_padded", [1, 1]),
+                 ("unet_scoring_model", [1, 19]),
+                 ("unet_padded_scoring_model", [1, 19]),
+                 ("unet_tta_scoring_model", [1, 19]))
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
 CLI_CHILD = ("import json, sys\n"
@@ -1661,6 +1694,147 @@ def train_cli_phase(smi, prepared):
     return launches
 
 
+def scoring_phase(smi, prepared):
+    from mapping_tpu_torch import main as cli
+    from mapping_tpu_torch.config import build_config
+    from mapping_tpu_torch.data.augment import resize_bilinear
+    from mapping_tpu_torch.data.loader import load_image
+    from mapping_tpu_torch.data.tta import tta_specs, tta_wrap_predict
+    from mapping_tpu_torch.infer import postprocess
+    from mapping_tpu_torch.kernels import bounds
+    from mapping_tpu_torch.kernels import ccl as K
+    from mapping_tpu_torch.ops.ccl import _label_raw, _renumber
+    from mapping_tpu_torch.pipelines import PIPELINES
+
+    shutil.rmtree(SCORING_DIR, ignore_errors=True)
+    experiment = SCORING_DIR / "experiment"
+    (experiment / "transformers").mkdir(parents=True)
+    # phase 9 (a)'s weights: random ones find no building to score
+    shutil.copy2(TRAIN_DIR / "full" / "transformers" / "unet.pt",
+                 experiment / "transformers" / "unet.pt")
+    launches = {k: 0 for k in K.LAUNCHES}
+
+    def count(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    def config(name, layers, **extra):
+        return write_config(name, {
+            "data_dir": str(PREP_DIR / "data"),
+            "meta_dir": str(prepared["meta_dir"]),
+            "experiment_dir": str(experiment), "device": DEVICE,
+            **SCORING_PARAMS, "category_layers": layers, **extra},
+            SCORING_DIR)
+
+    # (a) the scoring model's training, from the CLI
+    log = SCORING_DIR / "train.log"
+    seconds, got = run_cli(config("train", [1, 19]), log, "train", "-p",
+                           "scoring_model")
+    count(got)
+    fit = re.search(r"scoring model: (\d+) feature rows from (\d+) images "
+                    r"\(train (\d+), valid (\d+)\); fit in ([\d.]+) s, "
+                    r"best_iteration (\d+) of (\d+) trees", log.read_text())
+    model_file = experiment / "transformers" / "scoring_model.pkl"
+    print(f"scoring: (a) `train -p scoring_model` with category_layers "
+          f"[1, 19] exited 0 in {seconds:.2f} s of wall time (child "
+          f"process): {fit and fit.group(1)} feature rows from "
+          f"{fit and fit.group(2)} images (train {fit and fit.group(3)}, "
+          f"valid {fit and fit.group(4)}), GBM fit {fit and fit.group(5)} s "
+          f"(host clock), best_iteration {fit and fit.group(6)} of "
+          f"{fit and fit.group(7)} trees; CCL launches {got} on {smi}")
+    if not fit or int(fit.group(1)) < 1 or int(fit.group(2)) != min(
+            SCORING_SAMPLE, PREP_TRAIN + 2) or not model_file.exists() \
+            or min(got.values()) < 1:
+        raise AssertionError("scoring model training: "
+                             + log.read_text()[-3000:])
+
+    # (b) evaluate every pipeline of items 14 and 15, in this process
+    for pipeline, layers in SCORING_EVALS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        manager = cli.main(["--config", config(pipeline, layers), "evaluate",
+                            "-p", pipeline])
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        count(got)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_prediction(experiment / "prediction.json",
+                         set(range(1, PREP_VAL + 1)), pipeline)
+        ap, ar = last_scores(experiment)
+        t = manager.timings
+        scored = (f", scoring (tables + GBM) {t['scoring_s']:.4f} s, NMS "
+                  f"{t['nms_s']:.4f} s, {t['suppressed']} instances "
+                  f"suppressed" if "nms_s" in t else "")
+        print(f"scoring: (b) `evaluate -p {pipeline}` with category_layers "
+              f"{layers}: {t['images']} images in {t['total_s']:.4f} s, "
+              f"{t['images'] / t['total_s']:.2f} images/s; decode "
+              f"{t['decode_s']:.4f} s, device {t['device_s']:.4f} s, "
+              f"annotation + RLE {t['annotation_s']:.4f} s, COCOeval "
+              f"{t['cocoeval_s']:.4f} s{scored} (host clock); AP {ap} AR "
+              f"{ar}; CCL launches {got}; peak device memory {peak:.2f} GiB")
+        if t["images"] != PREP_VAL or min(got.values()) < 1:
+            raise AssertionError(f"{pipeline}: {t['images']} images, "
+                                 f"launches {got}")
+
+    # (c) kernel path = plain path, 19 layers with the feature tensor
+    paths = sorted((PREP_DIR / "data" / "val" / "images").iterdir())[:BATCH]
+    tiles = np.stack([load_image(p) for p in paths])
+    pipe = PIPELINES["unet_weighted"]["inference"](build_config(
+        config("probe", [1, 19])))
+    pipe._ensure_weights()
+    probs = resize_bilinear(probs_of(pipe, tiles), (TILE, TILE))
+    post = dict(target_size=(TILE, TILE), category_layers=(1, 19),
+                active_layers=tuple(range(1, 20)), compute_features=True)
+    kernel = postprocess.fused_postprocess(probs, **post)
+    saved = postprocess.connected_components
+    postprocess.connected_components = lambda mask: _renumber(
+        _label_raw(mask != 0, mask.shape[-2] + mask.shape[-1]))
+    try:
+        plain = postprocess.fused_postprocess(probs, **post)
+    finally:
+        postprocess.connected_components = saved
+    if not (torch.equal(kernel[0], plain[0]) and torch.equal(kernel[2],
+                                                             plain[2])
+            and torch.equal(kernel[3], plain[3])
+            and torch.allclose(kernel[1], plain[1], rtol=1e-6, atol=0)):
+        raise AssertionError("19-layer postprocess with features: kernel "
+                             "path differs from the plain path")
+    print(f"scoring: (c) 19-layer postprocess with the feature tensor, "
+          f"kernel path = plain path on one batch ({int(kernel[0].amax())} "
+          f"instances max; labels, areas and features exact, scores 1e-6 "
+          f"relative)")
+
+    # (e) K1 and `label` on those 380 masks
+    thresholds = torch.tensor([t for t, _ in
+                               postprocess.layer_thresholds((1, 19))[1:]],
+                              device=DEVICE).view(1, -1, 1, 1)
+    masks = (probs[..., 1][:, None] > thresholds).reshape(-1, TILE, TILE)
+    ccl_times(masks, "scoring masks", old_kernels())
+    n = masks.shape[0]
+    print(f"scoring: bounds at ({n}, {TILE}, {TILE}) (kernels/bounds.py): "
+          f"K1 {bounds.ccl_label_raw(n, TILE, TILE)}, label "
+          f"{bounds.ccl_label(n, TILE, TILE)}")
+
+    # (d) float32: the deduplicated TTA serve = the full 16-spec stack
+    pipe32 = PIPELINES["unet_tta"]["inference"](build_config(config(
+        "tta32", [1, 1], model_dtype="float32")))
+    pipe32._ensure_weights()
+    images = pipe32.loader.infer_preprocess(tiles)
+    with torch.inference_mode():
+        served = pipe32.serve_program()._probs(images)
+        full = tta_wrap_predict(pipe32.trainer.probs_apply_fn(), tta_specs(),
+                                pipe32.config.tta_aggregator.method,
+                                dedupe=False)(images)
+    err = float((served - full).abs().max())
+    print(f"scoring: (d) float32 TTA of one batch, the served 12 "
+          f"deduplicated forwards vs the 16-spec stack: max |diff| "
+          f"{err:.3e} (tolerance 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError("deduplicated TTA differs from the full stack")
+    return launches
+
+
 def main():
     smi = card()
     from mapping_tpu_torch.kernels import bounds
@@ -1673,7 +1847,8 @@ def main():
     prepared = prepare_phase(smi)
     launches["conv_dw"] = train_phase(gen, smi, prepared)["conv_dw"]
     for phase in (prepared["launches"], evaluate_phase(gen, smi),
-                  train_cli_phase(smi, prepared)):
+                  train_cli_phase(smi, prepared),
+                  scoring_phase(smi, prepared)):
         for name, n in phase.items():
             launches[name] += n
     n, c, h, w = DW_TIMED[DW_MAIN]

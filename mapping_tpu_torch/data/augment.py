@@ -5,13 +5,15 @@ Counterpart of mapping_tpu/data/augment.py `_MEAN`/`_STD`,
 the `crop_and_pad` loader mode (`pad_fixed`), its random and centre crops
 (`random_crop`, `center_crop`), and `fast_augment` (the reference's
 fast_seq: 1-2 of {fliplr(0.5), flipud(0.5), affine rotate +-10 deg,
-translate +-10 %}, applied jointly to images and targets). Images keep the
-JAX package's NHWC layout.
+translate +-10 %}, applied jointly to images and targets), and the
+colour shift of test-time augmentation (`color_shift`, the reference's
+color_seq). Images keep the JAX package's NHWC layout.
 
-Each random transform is split in two: `sample_fast_augment` and
-`sample_random_crop` draw every image's parameters from a torch.Generator
-on the host, and `apply_fast_augment` and `random_crop` apply given
-parameters on the tensors' device. The random streams of the two
+Each random transform is split in two: `sample_fast_augment`,
+`sample_random_crop` and `sample_color_shift` draw every image's
+parameters from a torch.Generator on the host, and `apply_fast_augment`,
+`random_crop` and `color_shift` apply given parameters on the tensors'
+device. The random streams of the two
 frameworks cannot match, so the tests hold the appliers against the JAX
 ops with the JAX draw's parameters.
 """
@@ -209,3 +211,69 @@ def apply_fast_augment(images, targets, params: Dict[str, torch.Tensor]):
     linear = _sample(targets[..., 1:2], src_y, src_x, order=1)
     return images, torch.cat([nearest[..., :1], linear, nearest[..., 1:]],
                              dim=-1)
+
+
+def sample_color_shift(generator: torch.Generator):
+    """(choice, add) of one colour shift, drawn on the host: a channel
+    0..5 (0-2 H, S, V; 3-5 R, G, B) and an amount from U(0, 100)."""
+    choice = int(torch.randint(0, 6, (), generator=generator))
+    add = float(torch.rand((), generator=generator, dtype=torch.float64))
+    return choice, 100.0 * add
+
+
+def color_shift(image, choice: int, add: float):
+    """(H, W, 3) float RGB in 0..255 -> the same with one channel shifted:
+    an RGB channel (choice 3-5) += add, clipped to 0..255, or an HSV one
+    (0-2) in OpenCV's uint8 scale, H 0..180 wrapping and S, V 0..255
+    clipped, then back to RGB (the reference's color_seq)."""
+    if choice >= 3:
+        out = image.clone()
+        out[..., choice - 3] = torch.clamp(image[..., choice - 3] + add, 0,
+                                           255)
+        return out
+    hsv = _rgb_to_hsv(image / 255.0)
+    scale = 180.0 if choice == 0 else 255.0
+    value = hsv[..., choice] * scale + add
+    value = (torch.remainder(value, 180.0) if choice == 0
+             else torch.clamp(value, 0, 255))
+    hsv = hsv.clone()
+    hsv[..., choice] = value / scale
+    return torch.clamp(_hsv_to_rgb(hsv) * 255.0, 0, 255)
+
+
+def _rgb_to_hsv(rgb):
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    delta = maxc - minc
+    s = torch.where(maxc > 0, delta / torch.clamp(maxc, min=1e-12), 0.0)
+    safe = torch.clamp(delta, min=1e-12)
+    rc, gc, bc = (maxc - r) / safe, (maxc - g) / safe, (maxc - b) / safe
+    h = torch.where(r == maxc, bc - gc,
+                    torch.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.remainder(h / 6.0, 1.0)
+    h = torch.where(delta == 0, 0.0, h)
+    return torch.stack([h, s, maxc], dim=-1)
+
+
+def _hsv_to_rgb(hsv):
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    i = torch.remainder(i, 6.0).to(torch.int64)
+    sector = [i == k for k in range(6)]
+
+    def select(values):
+        out = torch.zeros_like(v)
+        for cond, val in zip(sector, values):
+            out = torch.where(cond, val, out)
+        return out
+
+    # the JAX package's sector table, whose green and blue rows differ
+    # from colorsys' in sectors 2-5; the port keeps it
+    return torch.stack([select([v, q, p, p, t, v]),
+                        select([t, v, q, p, p, q]),
+                        select([p, p, t, v, q, v])], dim=-1)

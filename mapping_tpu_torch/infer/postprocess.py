@@ -4,9 +4,9 @@ Counterpart of mapping_tpu/infer/postprocess.py: resize the (B, H, W, C)
 probabilities to the target size, threshold each category channel per
 layer, optionally erode and bring back the components erosion erased,
 label the connected components (the CUDA CCL kernels for a CUDA tensor),
-optionally dilate the labels, and score every instance as mean probability
-x sqrt(area). The scoring feature tensor (ROADMAP item 15) is not ported
-yet and raises.
+optionally dilate the labels, score every instance as mean probability
+x sqrt(area), and, for the scoring models, compute the per-instance
+feature tensor (`compute_features`, ops/instance.instance_feature_tensor).
 """
 
 import logging
@@ -18,6 +18,7 @@ import torch
 from mapping_tpu_torch.data.augment import resize_bilinear
 from mapping_tpu_torch.ops.ccl import connected_components
 from mapping_tpu_torch.ops.instance import (instance_areas_and_prob_sums,
+                                            instance_feature_tensor,
                                             instance_prob_sums)
 from mapping_tpu_torch.ops.morphology import dilate, erode
 
@@ -75,15 +76,12 @@ def fused_postprocess(probs, target_size: Tuple[int, int] = (300, 300),
                       active_layers: Tuple[int, ...] = None,
                       compute_features: bool = False):
     """probs (B, H, W, C) float -> labels (B, L, th, tw) int32,
-    scores (B, L, max_instances) float32, areas (B, L, max_instances) int32,
+    scores (B, L, max_instances) float32, areas (B, L, max_instances) int32
+    [, features (B, L, max_instances, 9) float32 with `compute_features`],
     on the device of `probs`.
 
     L = sum(category_layers); inactive layers (not in `active_layers`,
     default all) come back as zeros."""
-    if compute_features:
-        raise NotImplementedError(
-            "compute_features: the scoring feature tensor is not ported yet "
-            "(ROADMAP item 15)")
     b = probs.shape[0]
     th, tw = target_size
     probs = probs.to(torch.float32)
@@ -124,7 +122,15 @@ def fused_postprocess(probs, target_size: Tuple[int, int] = (300, 300),
     labels[:, idx] = labels_a
     scores[:, idx] = scores_a.reshape(b, la, max_instances)
     areas_out[:, idx] = areas_i.reshape(b, la, max_instances)
-    return labels, scores, areas_out
+    if not compute_features:
+        return labels, scores, areas_out
+    feats_a = instance_feature_tensor(labels_a.reshape(-1, th, tw),
+                                      layer_probs.reshape(-1, th, tw),
+                                      max_instances)
+    features = torch.zeros((b, n_layers) + feats_a.shape[1:],
+                           dtype=torch.float32, device=probs.device)
+    features[:, idx] = feats_a.reshape((b, la) + feats_a.shape[1:])
+    return labels, scores, areas_out, features
 
 
 def _merge_overflow(outs, retried, overflow):

@@ -1,19 +1,24 @@
-"""Serving: forward + postprocess for one batch, enqueued on the device.
+"""Serving: forward (+TTA) + postprocess for one batch, enqueued on the
+device.
 
-Counterpart of mapping_tpu/infer/serving.py `FusedServe` on one device.
-`dispatch` enqueues the forward, softmax, resize, threshold, CCL and scores
-on the current CUDA stream and returns without waiting; `collect` copies
-the compact outputs to the host, which waits for them, and runs the
-overflow escalation. A serving loop that dispatches batch k+1 before it
-collects batch k keeps the device busy while the host handles batch k.
-Mesh and spatial serving (ROADMAP item 16), TTA and the pad-mode centre
-crop (item 14) are not ported yet.
+Counterpart of mapping_tpu/infer/serving.py `FusedServe` on one device:
+images -> [TTA expand -> forward -> inverse -> aggregate | forward] ->
+softmax -> [centre crop] -> resize -> threshold -> erode/restore -> CCL ->
+dilate -> scores [-> the per-instance feature tensor]. `dispatch` enqueues
+all of it on the current CUDA stream and returns without waiting;
+`collect` copies the compact outputs to the host, which waits for them,
+and runs the overflow escalation (the rerun repeats the TTA on the images
+it reruns). A serving loop that dispatches batch k+1 before it collects
+batch k keeps the device busy while the host handles batch k. Mesh and
+spatial serving (ROADMAP item 16) are not ported yet.
 """
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from mapping_tpu_torch.data.augment import center_crop
+from mapping_tpu_torch.data.tta import tta_wrap_predict
 from mapping_tpu_torch.infer.postprocess import (MAX_INSTANCES,
                                                  escalate_overflow,
                                                  fused_postprocess)
@@ -21,30 +26,48 @@ from mapping_tpu_torch.infer.postprocess import (MAX_INSTANCES,
 
 class FusedServe:
     """images (B, H, W, 3) normalised float -> numpy labels (B, L, th, tw)
-    int16, scores (B, L, N) float32, areas (B, L, N) int32.
+    int16, scores (B, L, N) float32, areas (B, L, N) int32 [, features
+    (B, L, N, 9) float32 with `compute_features`].
 
     probs_fn(images) -> (B, H, W, C) softmax probabilities, float32.
+    `tta_specs` (data/tta.py) serve every batch through test-time
+    augmentation aggregated by `tta_method`; `crop_size` cuts the centre
+    of the probabilities (the padded loader's undo) before the resize.
     """
 
     def __init__(self, probs_fn: Callable, *, target_size: Tuple[int, int],
                  category_layers: Tuple[int, ...],
                  active_layers: Optional[Tuple[int, ...]] = None,
                  erode_size: int = 0, dilate_size: int = 0,
+                 crop_size: Optional[Tuple[int, int]] = None,
+                 tta_specs: Optional[Sequence] = None,
+                 tta_method: str = "gmean",
+                 compute_features: bool = False,
                  max_instances: int = MAX_INSTANCES):
         self._probs_fn = probs_fn
+        if tta_specs:
+            self._probs_fn = tta_wrap_predict(probs_fn, list(tta_specs),
+                                              tta_method)
         self._post = dict(target_size=tuple(target_size),
                           category_layers=tuple(category_layers),
                           active_layers=active_layers,
                           erode_size=int(erode_size),
-                          dilate_size=int(dilate_size))
+                          dilate_size=int(dilate_size),
+                          compute_features=bool(compute_features))
+        self._crop_size = tuple(crop_size) if crop_size else None
         self._base_max_instances = int(max_instances)
+
+    def _probs(self, images):
+        probs = self._probs_fn(images)
+        if self._crop_size is not None:
+            probs = center_crop(probs, self._crop_size)
+        return probs
 
     @torch.inference_mode()
     def _run(self, images, max_instances):
-        probs = self._probs_fn(images)
-        labels, scores, areas = fused_postprocess(
-            probs, max_instances=max_instances, **self._post)
-        return labels_i16(labels), scores, areas
+        outs = fused_postprocess(self._probs(images),
+                                 max_instances=max_instances, **self._post)
+        return (labels_i16(outs[0]),) + tuple(outs[1:])
 
     def dispatch(self, images):
         """Enqueue one batch; returns a handle for `collect`. Does not

@@ -11,7 +11,11 @@ needs a card. The other commands of the JAX CLI exit non-zero, naming the
 ROADMAP item that ports them.
 
     python3 -m mapping_tpu_torch.main --config config.yaml train -p unet_weighted
-    python3 -m mapping_tpu_torch.main --config config.yaml evaluate -p unet_weighted
+    python3 -m mapping_tpu_torch.main --config config.yaml evaluate -p unet_tta
+    # with `category_layers: [1, 19]` in scoring.yaml:
+    python3 -m mapping_tpu_torch.main --config scoring.yaml train -p scoring_model
+    python3 -m mapping_tpu_torch.main --config scoring.yaml evaluate \
+        -p unet_tta_scoring_model
 """
 
 import argparse

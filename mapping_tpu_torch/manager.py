@@ -10,12 +10,20 @@ import_checkpoint, with the CATEGORY_LAYERS guards and the MetricSink
 (stdout + metrics.jsonl under the experiment dir). Metadata are lists of
 row dicts (data/metadata.py) instead of DataFrames.
 
+Training the scoring model (`train -p scoring_model`) samples
+`scoring_model__num_training_examples` train rows and groups their
+annotations per category (`_get_scoring_model_data`). The scoring
+inference pipelines are streamed (their `force_stream`), and the
+instances their NMS suppressed (score 0) are written only with
+`emit_suppressed`.
+
 Each evaluate and predict_on_dir leaves the host seconds of its stages in
 `manager.timings`: decode (on the loader's threads), device (in
 FusedServe.dispatch and .collect), annotation + RLE, COCOeval, and the
-whole call. Not ported yet, and raising with their ROADMAP item: training
-the scoring model (item 15), artifacts (item 18) and the parity drill
-(item 23).
+whole call; a scoring pipeline adds its feature tables and regressor
+(`scoring_s`), its NMS (`nms_s`) and the instances NMS suppressed. Not
+ported yet, and raising with their ROADMAP item: artifacts (item 18) and
+the parity drill (item 23).
 """
 
 import json
@@ -32,6 +40,7 @@ import numpy as np
 from mapping_tpu_torch.config import build_config
 from mapping_tpu_torch.constants import (CATEGORY_IDS, CATEGORY_LAYERS, SEED,
                                          Y_COLUMNS_SCORING)
+from mapping_tpu_torch.data.coco import COCOIndex
 from mapping_tpu_torch.data.metadata import (generate_inference_metadata,
                                              generate_metadata, read_metadata,
                                              write_metadata)
@@ -137,8 +146,8 @@ class PipelineManager:
             assert cl[1] == 1, (
                 "Importing a base unet checkpoint requires category_layers "
                 "[1, 1] (this yaml sets {})".format(cl))
-        PIPELINES[pipeline_name]["inference"](self.config).import_checkpoint(
-            path)
+        pipeline = PIPELINES[pipeline_name]["inference"](self.config)
+        getattr(pipeline, "base", pipeline).import_checkpoint(path)
 
     def predict_on_dir(self, pipeline_name, dir_path, prediction_path,
                        chunk_size):
@@ -214,8 +223,6 @@ def train(pipeline_name, dev_mode, config):
     logger.info("training %s", pipeline_name)
     if bool(params.overwrite) and os.path.isdir(params.experiment_dir):
         shutil.rmtree(params.experiment_dir)
-    if pipeline_name == "scoring_model":
-        raise _not_ported("training the scoring model", "15")
 
     meta = read_metadata(os.path.join(params.meta_dir, "metadata.csv"))
     meta_train = [r for r in meta if r["is_train"] == 1]
@@ -224,11 +231,17 @@ def train(pipeline_name, dev_mode, config):
     if dev_mode:
         meta_train = _sample(meta_train, 20, SEED)
         meta_valid = _sample(meta_valid, 10, SEED)
+    train_mode, annotations = True, None
+    if pipeline_name == "scoring_model":
+        train_mode = False
+        meta_train, annotations = _get_scoring_model_data(
+            params.data_dir, meta_train,
+            params.scoring_model__num_training_examples, SEED)
     data = {
         "input": {"meta": meta_train,
                   "target_sizes": [(300, 300)] * len(meta_train),
-                  "annotations": None},
-        "specs": {"train_mode": True},
+                  "annotations": annotations},
+        "specs": {"train_mode": train_mode},
         "callback_input": {"meta_valid": meta_valid},
     }
     pipeline = PIPELINES[pipeline_name]["train"](config)
@@ -295,24 +308,28 @@ def generate_prediction(meta_data, pipeline, config, chunk_size=None,
                         timings=None):
     """COCO result dicts for the metadata rows: per chunk of rows (all of
     them when chunk_size is None), or per image through the pipeline's
-    stream when `stream_mode` is set and no chunk size is. Fills
-    `timings` with the host seconds of decode, device and annotation +
-    RLE, and the image count."""
+    stream when `stream_mode` is set, or the pipeline forces it, and no
+    chunk size is. A pipeline with an NMS marks suppressed instances with
+    score 0; they are written only with `emit_suppressed`. Fills `timings`
+    with the host seconds of decode, device and annotation + RLE (and a
+    scoring pipeline's scoring and NMS seconds and suppressed count), and
+    the image count."""
     timings = {} if timings is None else timings
     category_layers = tuple(config.params.get("category_layers",
                                               CATEGORY_LAYERS))
-    stream = bool(config.params.get("stream_mode", 0))
+    emit_suppressed = (not hasattr(pipeline, "nms")
+                       or bool(config.params.get("emit_suppressed", 0)))
+    stream = bool(config.params.get("stream_mode", 0)
+                  or getattr(pipeline, "force_stream", False))
     annotation_s = 0.0
     prediction = []
 
     def annotate(image_id, labels, scores):
         nonlocal annotation_s
         start = time.perf_counter()
-        # the unet pipelines never zero a score (only the scoring
-        # pipelines' NMS does, ROADMAP item 15), so every instance is kept
         prediction.extend(labeled_to_annotations(
             image_id, np.asarray(labels), scores, CATEGORY_IDS,
-            category_layers, emit_suppressed=True))
+            category_layers, emit_suppressed=emit_suppressed))
         annotation_s += time.perf_counter() - start
 
     def data_of(rows):
@@ -338,8 +355,32 @@ def generate_prediction(meta_data, pipeline, config, chunk_size=None,
             pipeline.clean_cache()
             for row, (labels, scores) in zip(chunk, y_pred, strict=True):
                 annotate(row["ImageId"], labels, scores)
+    base = getattr(pipeline, "base", pipeline)
     timings.update(images=len(meta_data),
-                   decode_s=pipeline.loader.decode_seconds,
-                   device_s=pipeline.device_seconds,
+                   decode_s=base.loader.decode_seconds,
+                   device_s=base.device_seconds,
                    annotation_s=annotation_s)
+    if hasattr(pipeline, "nms"):
+        timings.update(scoring_s=pipeline.scoring_seconds,
+                       nms_s=pipeline.nms.seconds,
+                       suppressed=pipeline.nms.suppressed)
     return prediction
+
+
+def _get_scoring_model_data(data_dir, meta, num_training_examples, seed):
+    """The sampled train rows and, per row, its annotations grouped by
+    category id ({category_id: [annotation]}; none for the background)."""
+    coco = COCOIndex(os.path.join(data_dir, "train", "annotation.json"))
+    meta = _sample(meta, num_training_examples, seed)
+    annotations = []
+    for row in meta:
+        image_annotations = {}
+        for category_id in CATEGORY_IDS:
+            if category_id is None:
+                image_annotations[category_id] = []
+                continue
+            ann_ids = coco.get_ann_ids(img_ids=[row["ImageId"]],
+                                       cat_ids=[category_id])
+            image_annotations[category_id] = coco.load_anns(ann_ids)
+        annotations.append(image_annotations)
+    return meta, annotations

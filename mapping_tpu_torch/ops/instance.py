@@ -1,12 +1,15 @@
 """Per-instance reductions over labelled masks.
 
 Counterpart of mapping_tpu/ops/instance.py `instance_areas`,
-`instance_prob_sums`, `instance_areas_and_prob_sums` and `size_matrix`.
-The JAX version reduces with a one-hot matmul and a bf16 hi/lo split of the
-probabilities, a TPU workaround for serialized scatters; the contract it
-meets is exact int32 areas and float32 probability sums, and scatter_add_
-meets it here. It accumulates in float64: a float32 running sum over an
-instance of tens of thousands of pixels drifts by ~1e-5 relative.
+`instance_prob_sums`, `instance_areas_and_prob_sums`, `size_matrix` and
+`instance_feature_tensor` (the scoring models' nine features per
+instance, `FEATURE_COLUMNS`). The JAX version reduces with a one-hot
+matmul and a bf16 hi/lo split of the probabilities, a TPU workaround for
+serialized scatters; the contract it meets is exact int32 areas and
+float32 probability sums, and scatter_add_ / scatter_reduce_ meet it here.
+They accumulate in float64: a float32 running sum over an instance of tens
+of thousands of pixels drifts by ~1e-5 relative, and JAX's hi/lo split
+differs from the exact sum by about 2^-16 relative.
 """
 
 import math
@@ -67,3 +70,74 @@ def size_matrix(labels, max_instances):
     flat = areas.reshape(-1, max_instances + 1)
     return torch.gather(flat, 1, idx.reshape(flat.shape[0], -1)).reshape(
         labels.shape)
+
+
+#: column order of instance_feature_tensor (the GT iou and the threshold
+#: are added on the host, scoring.features_from_tensor)
+FEATURE_COLUMNS = ("area", "mean_prob", "max_prob", "bbox_ar", "bbox_area",
+                   "bbox_fill", "min_dist_to_border", "max_dist_to_border",
+                   "contour_length")
+
+
+def _interior(labels):
+    """Foreground pixels whose 4 neighbours carry their label; a neighbour
+    outside the image counts as the same label."""
+    inside = labels > 0
+    same = torch.ones_like(inside)
+    same[:, 1:] &= labels[:, 1:] == labels[:, :-1]
+    same[:, :-1] &= labels[:, :-1] == labels[:, 1:]
+    same[:, :, 1:] &= labels[:, :, 1:] == labels[:, :, :-1]
+    same[:, :, :-1] &= labels[:, :, :-1] == labels[:, :, 1:]
+    return inside & same
+
+
+def instance_feature_tensor(labels, probabilities, max_instances):
+    """labels (M, H, W) int in 0..N, probabilities (M, H, W) float ->
+    (M, max_instances, 9) float32 in FEATURE_COLUMNS order for instances
+    1..max_instances; slots without pixels are rows of zeros, and labels
+    above `max_instances` count nowhere.
+
+    contour_length = area - interior pixels (`_interior`), the JAX
+    version's count, which equals the host oracle's 4-neighbour erosion
+    (scoring._contour_length) also where dilated instances touch."""
+    m, h, w = labels.shape
+    n = max_instances + 1
+    dev = labels.device
+    idx = labels.reshape(m, -1).to(torch.int64)
+    idx = torch.where(idx > max_instances, n, idx)  # one dropped slot
+
+    def scatter(values, reduce, init, dtype):
+        out = torch.full((m, n + 1), init, dtype=dtype, device=dev)
+        values = values.to(dtype).expand(m, -1)
+        if reduce == "sum":
+            out.scatter_add_(1, idx, values)
+        else:
+            out.scatter_reduce_(1, idx, values, reduce)
+        return out[:, 1:n]
+
+    rows = torch.arange(h, device=dev).repeat_interleave(w)[None]
+    cols = torch.arange(w, device=dev).repeat(h)[None]
+    area = scatter(torch.ones_like(idx), "sum", 0, torch.int64)
+    prob_sum = scatter(probabilities.reshape(m, -1), "sum", 0, torch.float64)
+    interior = scatter(_interior(labels).reshape(m, -1), "sum", 0,
+                       torch.int64)
+    pmax = scatter(probabilities.reshape(m, -1), "amax", 0, torch.float32)
+    big = 1 << 30
+    rmin = scatter(rows, "amin", big, torch.int64)
+    rmax = scatter(rows, "amax", -1, torch.int64)
+    cmin = scatter(cols, "amin", big, torch.int64)
+    cmax = scatter(cols, "amax", -1, torch.int64)
+
+    nonempty = area > 0
+    area_f = area.to(torch.float32)
+    mean_prob = (prob_sum / torch.clamp(area, min=1)).to(torch.float32)
+    bh = torch.clamp(rmax + 1 - rmin, min=1).to(torch.float32)
+    bw = torch.clamp(cmax + 1 - cmin, min=1).to(torch.float32)
+    bbox_area = bh * bw
+    dists = torch.stack([rmin, h - (rmax + 1), cmin, w - (cmax + 1)],
+                        -1).to(torch.float32)
+    contour = (area - interior).to(torch.float32)
+    feats = torch.stack([area_f, mean_prob, pmax, bh / bw, bbox_area,
+                         area_f / bbox_area, dists.amin(-1), dists.amax(-1),
+                         contour], dim=-1)
+    return torch.where(nonempty[..., None], feats, 0.0)

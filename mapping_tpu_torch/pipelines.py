@@ -1,15 +1,16 @@
-"""The named pipelines: the `unet`/`unet_weighted` train and inference
-paths.
+"""The named pipelines: unet / unet_weighted (train and inference),
+unet_tta, unet_padded, scoring_model (train) and the three scoring
+inference pipelines.
 
-Counterpart of mapping_tpu/pipelines.py `UNetPipeline` and `PIPELINES`: a
-pipeline composes the loader's device preprocess, the trainer's BN-folded
-forward with a float32 softmax (`UNetTrainer.probs_apply_fn`) and the
-fused postprocess (`FusedServe`), with one batch in flight. Its weights
-live in the experiment's transformer cache: the port writes `unet.pt`
-(torch.save of the reference-named state_dict) beside where the JAX
-package writes `unet.msgpack`, and reads either, its own first; weights
-read from a cache are folded once and the float32 model is freed
-(`UNetTrainer.serve_only`).
+Counterpart of mapping_tpu/pipelines.py: a UNetPipeline composes the
+loader's device preprocess, the trainer's BN-folded forward with a float32
+softmax (`UNetTrainer.probs_apply_fn`) and the fused postprocess
+(`FusedServe`, with test-time augmentation for `tta` and the centre crop
+for `padded`), with one batch in flight. Its weights live in the
+experiment's transformer cache: the port writes `unet.pt` (torch.save of
+the reference-named state_dict) beside where the JAX package writes
+`unet.msgpack`, and reads either, its own first; weights read from a cache
+are folded once and the float32 model is freed (`UNetTrainer.serve_only`).
 
 `fit_transform(data)` (train mode) trains on the metadata rows' image and
 mask files with the callbacks of the config's `unet.callbacks`, writes the
@@ -18,12 +19,21 @@ package's) short-circuits it unless `overwrite` or `warm_start` is set.
 `warm_start` runs the next stage of the multistage recipe: the completed
 stage's checkpoint dir moves to `checkpoints/unet.stage{N}` and its cache
 is copied to `transformers/unet.stage{N}.pt` (`.msgpack` for a JAX
-cache), and the fit starts from those weights. `transform(data)` takes
-the manager's data dict, whose metadata rows name the image files;
+cache), and the fit starts from those weights. `transform(data,
+return_features)` takes the manager's data dict, whose metadata rows name
+the image files, and can also return each image's scoring feature tensor;
 `transform_arrays(images_u8)` serves uint8 tiles already in host memory
-through the same program. Not ported yet, and raising with their ROADMAP
-item: TTA and the padded centre crop (item 14), the scoring pipelines
-(item 15), int8 serving (item 21) and a device mesh (item 16).
+through the same program.
+
+The scoring pipelines (scoring.py) wrap a UNetPipeline as `base`:
+`ScoringModelPipeline` streams the training images through it with 19
+threshold layers, builds the feature tables with the ground-truth IoU and
+fits the GBM, written to `transformers/scoring_model.pkl` (the JAX
+package's `scoring_model.joblib` beside it is read, never written);
+`ScoringInferencePipeline` scores every instance with the GBM and
+suppresses overlaps across layers (NMS), one image at a time
+(`force_stream`). Not ported yet, and raising with their ROADMAP item:
+int8 serving (item 21) and a device mesh (item 16).
 """
 
 import logging
@@ -35,8 +45,11 @@ from functools import partial
 from mapping_tpu_torch.constants import (CATEGORY_IDS, CATEGORY_LAYERS, SEED,
                                          X_COLUMNS, Y_COLUMNS)
 from mapping_tpu_torch.data.loader import SegmentationLoader
+from mapping_tpu_torch.data.tta import tta_specs
 from mapping_tpu_torch.infer.postprocess import active_layers_for
 from mapping_tpu_torch.infer.serving import FusedServe
+from mapping_tpu_torch.scoring import (NonMaximumSupression, ScoringGBM,
+                                       features_from_tensor)
 from mapping_tpu_torch.train.trainer import UNetTrainer
 
 logger = logging.getLogger(__name__)
@@ -65,19 +78,27 @@ def _category_layers(config):
 
 
 class UNetPipeline:
-    """unet / unet_weighted training and inference on
-    `config.params.device`."""
+    """unet / unet_weighted / unet_tta / unet_padded training and inference
+    on `config.params.device`. `padded` switches the loader to
+    `crop_and_pad`; the predictions of padded inputs are cropped back to
+    the target size (always for `padded`, and for `tta` when the loader
+    pads)."""
 
-    def __init__(self, config, train_mode: bool, loss_name: str = "ce"):
+    def __init__(self, config, train_mode: bool, loss_name: str = "ce",
+                 tta: bool = False, padded: bool = False):
         for key, item in _NOT_PORTED.items():
             if config.params.get(key, 0):
                 raise _not_ported(f"{key}: {config.params[key]!r}", item)
         self.config = config
         self.cache_dir = config.env.cache_dirpath
+        self.tta = tta
+        self.padded = padded
         device = config.params.get("device", "cuda")
         loader = config.loader
+        mode = "crop_and_pad" if padded else loader.mode
+        self.crop_predictions = padded or (tta and mode == "crop_and_pad")
         self.loader = SegmentationLoader(
-            mode=loader.mode, size=loader.size, pad=loader.pad,
+            mode=mode, size=loader.size, pad=loader.pad,
             pad_method=loader.pad_method,
             batch_size_train=loader.batch_size_train,
             batch_size_inference=loader.batch_size_inference,
@@ -96,7 +117,7 @@ class UNetPipeline:
             pretrained_weights=config.unet.get("pretrained_weights", ""),
             device=device)
         self.category_layers = _category_layers(config)
-        self._serve = None
+        self._serve = {}
         self._weights_loaded = False
         #: host seconds spent in FusedServe.dispatch and .collect
         self.device_seconds = 0.0
@@ -260,38 +281,47 @@ class UNetPipeline:
         self.trainer.warm_start(cache)
 
     # -------------------------------------------------------- inference
-    def serve_program(self):
-        """The FusedServe this pipeline runs: forward + softmax + fused
-        postprocess per batch; only labels, scores and areas leave the
-        device."""
-        if self._serve is None:
+    def serve_program(self, return_features=False):
+        """The FusedServe this pipeline runs: forward (+TTA) + softmax +
+        fused postprocess per batch; only labels, scores and areas (and
+        with `return_features` the feature tensor) leave the device."""
+        key = bool(return_features)
+        if key not in self._serve:
             post = self.config.postprocessor
-            self._serve = FusedServe(
+            self._serve[key] = FusedServe(
                 self.trainer.probs_apply_fn(),
                 target_size=tuple(post.target_size),
                 category_layers=self.category_layers,
                 active_layers=active_layers_for(CATEGORY_IDS,
                                                 self.category_layers),
                 erode_size=int(post.erode_selem_size),
-                dilate_size=int(post.dilate_selem_size))
-        return self._serve
+                dilate_size=int(post.dilate_selem_size),
+                crop_size=(tuple(post.target_size) if self.crop_predictions
+                           else None),
+                tta_specs=(tta_specs(**dict(self.config.tta_generator))
+                           if self.tta else None),
+                tta_method=self.config.tta_aggregator.method,
+                compute_features=key)
+        return self._serve[key]
 
-    def _serve_flow(self, flow, steps):
-        """((labels, trimmed scores) per image) over the flow's batches,
-        one batch in flight: batch k+1 is dispatched before batch k is
-        collected. The padded tail's duplicates are not emitted."""
+    def _serve_flow(self, flow, steps, return_features=False):
+        """(((labels, trimmed scores), feature tensor or None) per image)
+        over the flow's batches, one batch in flight: batch k+1 is
+        dispatched before batch k is collected. The padded tail's
+        duplicates are not emitted."""
         n_images = getattr(flow, "n_images", None)
-        serve = self.serve_program()
+        serve = self.serve_program(return_features)
         emitted = 0
 
         def rows(outs):
             nonlocal emitted
-            for lab, sc in zip(outs[0], outs[1]):
+            for i, (lab, sc) in enumerate(zip(outs[0], outs[1])):
                 if n_images is not None and emitted >= n_images:
                     return
                 emitted += 1
-                yield lab, [list(sc[l][:int(lab[l].max())])
-                            for l in range(lab.shape[0])]
+                yield ((lab, [list(sc[l][:int(lab[l].max())])
+                              for l in range(lab.shape[0])]),
+                       outs[3][i] if return_features else None)
 
         def collect(handle):
             start = time.perf_counter()
@@ -312,34 +342,163 @@ class UNetPipeline:
         if pending is not None:
             yield from rows(collect(pending))
 
-    def _postprocessed_images(self, data):
+    def _postprocessed_images(self, data, return_features=False):
         self._ensure_weights()
         x = [row[X_COLUMNS[0]] for row in data["input"]["meta"]]
         flow, steps = self.loader.transform(x, None,
                                             train_mode=False)["datagen"]
-        yield from self._serve_flow(flow, steps)
+        yield from self._serve_flow(flow, steps, return_features)
 
-    def transform(self, data):
+    def transform(self, data, return_features=False):
         """{"y_pred": [(labels (L, th, tw) int16, one trimmed score list
-        per layer) per image]} for the metadata rows of `data`."""
-        return {"y_pred": list(self._postprocessed_images(data))}
+        per layer) per image]} for the metadata rows of `data`, and with
+        `return_features` "features_tensor": each image's (L,
+        max_instances, 9) feature tensor."""
+        y_pred, feats = [], []
+        for pred, f in self._postprocessed_images(data, return_features):
+            y_pred.append(pred)
+            feats.append(f)
+        out = {"y_pred": y_pred}
+        if return_features:
+            out["features_tensor"] = feats
+        return out
 
     def transform_stream(self, data):
         """{"y_pred": a generator of the same per-image results}: at most
         one postprocessed batch is held at a time."""
-        return {"y_pred": self._postprocessed_images(data)}
+        return {"y_pred": (pred for pred, _ in
+                           self._postprocessed_images(data))}
 
     def transform_arrays(self, images_u8):
         """The same per-image results for (N, H, W, 3) uint8 tiles in host
         memory."""
         self._ensure_weights()
-        yield from self._serve_flow(*self.loader.array_flow(images_u8))
+        for pred, _ in self._serve_flow(*self.loader.array_flow(images_u8)):
+            yield pred
 
 
-def _unported_factory(what, item):
-    def factory(config):
-        raise _not_ported(what, item)
-    return factory
+class ScoringModelPipeline:
+    """scoring_model training: the base unet's inference over the sampled
+    training images with the feature tensor, the feature tables with the
+    ground-truth IoU, and the regressor's fit, one image at a time."""
+
+    def __init__(self, config):
+        self.config = config
+        self.cache_dir = config.env.cache_dirpath
+        self.base = UNetPipeline(config, train_mode=False)
+        self.model = _make_scoring_model(config)
+        self.category_layers = _category_layers(config)
+
+    @property
+    def cache_path(self):
+        return _scoring_paths(self.cache_dir)[0]
+
+    def clean_cache(self):
+        pass
+
+    def fit_transform(self, data):
+        """data["input"]: "meta" rows and "annotations", one
+        {category_id: [annotation]} per row (none: no IoU targets)."""
+        meta = data["input"]["meta"]
+        annotations = data["input"].get("annotations")
+        if annotations is None:
+            annotations = [{}] * len(meta)
+        self.model.fit_stream(
+            features_from_tensor(feats, labels, anns,
+                                 category_layers=self.category_layers)
+            for ((labels, _), feats), anns in zip(
+                self.base._postprocessed_images(data, return_features=True),
+                annotations))
+        os.makedirs(os.path.dirname(self.cache_path), exist_ok=True)
+        self.model.save(self.cache_path)
+        logger.info("scoring model written to %s", self.cache_path)
+        return {"scoring_model": self.model}
+
+    def transform(self, data):
+        raise RuntimeError("scoring_model pipeline only supports training")
+
+
+class ScoringInferencePipeline:
+    """unet[_padded|_tta]_scoring_model: the base pipeline's inference with
+    the feature tensor, the regressor's predicted IoU as each instance's
+    score, then NMS across the threshold layers, per image. `force_stream`
+    makes the manager stream it: 19 layers of label maps per image are
+    never all held."""
+
+    force_stream = True
+
+    def __init__(self, config, base_factory):
+        self.config = config
+        self.cache_dir = config.env.cache_dirpath
+        self.base = base_factory(config)
+        self.model = _make_scoring_model(config)
+        self.category_layers = _category_layers(config)
+        self.nms = NonMaximumSupression(
+            iou_threshold=config.postprocessor.nms.iou_threshold)
+        #: host seconds of the feature tables and the regressor
+        self.scoring_seconds = 0.0
+        self._loaded = False
+
+    def clean_cache(self):
+        pass
+
+    def _load_model(self):
+        """The port's scoring model file, else the JAX package's."""
+        if self._loaded:
+            return
+        for path in _scoring_paths(self.cache_dir):
+            if os.path.exists(path):
+                self.model.load(path)
+                self._loaded = True
+                return
+        raise RuntimeError("no trained scoring model at {} or {}".format(
+            *_scoring_paths(self.cache_dir)))
+
+    def _score_one(self, labels, feats):
+        """features -> predicted-IoU scores -> NMS across layers, for one
+        image (NMS never looks across images)."""
+        start = time.perf_counter()
+        features = features_from_tensor(feats, labels,
+                                         category_layers=self.category_layers)
+        image_scores = self.model.transform([features])["scores"][0]
+        self.scoring_seconds += time.perf_counter() - start
+        (labels, image_scores), = self.nms.transform(
+            [(labels, image_scores)])["images_with_scores"]
+        return labels, image_scores
+
+    def transform(self, data):
+        return {"y_pred": list(self.transform_stream(data)["y_pred"])}
+
+    def transform_stream(self, data):
+        """{"y_pred": a generator of (labels, scores after NMS) per
+        image}: at most one postprocessed batch is held at a time."""
+        self._load_model()
+        return {"y_pred": (
+            self._score_one(pred[0], feats)
+            for pred, feats in self.base._postprocessed_images(
+                data, return_features=True))}
+
+    def fit_transform(self, data):
+        return self.transform(data)
+
+
+def _scoring_paths(cache_dir):
+    """(the port's scoring model file, the JAX package's)."""
+    stem = os.path.join(cache_dir, "transformers", "scoring_model")
+    return f"{stem}.pkl", f"{stem}.joblib"
+
+
+def _make_scoring_model(config):
+    post = config.postprocessor
+    if post.scoring_model != "lgbm":
+        raise NotImplementedError(
+            f"scoring_model: {post.scoring_model!r} is not ported: the JAX "
+            f"package's random forest is sklearn's, which the port does not "
+            f"import; use scoring_model: lgbm (the native GBM)")
+    cfg = post.lightGBM
+    return ScoringGBM(model_params=dict(cfg.model_params),
+                      training_params=dict(cfg.training_params),
+                      train_size=cfg.train_size, target=cfg.target)
 
 
 PIPELINES = {
@@ -352,10 +511,26 @@ PIPELINES = {
         "inference": partial(UNetPipeline, train_mode=False,
                              loss_name="weighted"),
     },
-    "unet_tta": {"inference": _unported_factory("unet_tta", "14")},
-    "unet_padded": {"inference": _unported_factory("unet_padded", "14")},
-    "scoring_model": {"train": _unported_factory("scoring_model", "15")},
-    **{name: {"inference": _unported_factory(name, "15")}
-       for name in ("unet_scoring_model", "unet_padded_scoring_model",
-                    "unet_tta_scoring_model")},
+    "unet_tta": {
+        "inference": partial(UNetPipeline, train_mode=False, tta=True),
+    },
+    "unet_padded": {
+        "inference": partial(UNetPipeline, train_mode=False, padded=True),
+    },
+    "scoring_model": {"train": ScoringModelPipeline},
+    "unet_scoring_model": {
+        "inference": partial(
+            ScoringInferencePipeline,
+            base_factory=partial(UNetPipeline, train_mode=False)),
+    },
+    "unet_padded_scoring_model": {
+        "inference": partial(
+            ScoringInferencePipeline,
+            base_factory=partial(UNetPipeline, train_mode=False, padded=True)),
+    },
+    "unet_tta_scoring_model": {
+        "inference": partial(
+            ScoringInferencePipeline,
+            base_factory=partial(UNetPipeline, train_mode=False, tta=True)),
+    },
 }

@@ -1,9 +1,11 @@
 """ctypes bindings to the C++ RLE library (cpp/rle.cpp).
 
 Counterpart of mapping_tpu/utils/native.py: the COCO counts codec, the
-run-space IoU of two RLEs and the single-pass extraction of every
-instance's RLE from a labelled map. The numpy code in ops/rle.py is the
-oracle and serves where this library does not build.
+run-space IoU of two RLEs (also over decoded `RleHandle`s, the scoring
+NMS's inner loop) and the single-pass extraction of every instance's RLE
+from a labelled map. The numpy code in ops/rle.py is the oracle and serves
+the COCO evaluator where this library does not build; the scoring path
+raises instead (scoring.py).
 """
 
 import ctypes
@@ -77,6 +79,28 @@ def rle_instances(labels, n_instances):
     return [(buf.raw[offsets[i]:offsets[i + 1]],
              [bbox[4 * i], bbox[4 * i + 1], bbox[4 * i + 2], bbox[4 * i + 3]])
             for i in range(n_instances)]
+
+
+class RleHandle:
+    """One RLE's counts decoded once into a ctypes array, for repeated
+    rle_iou_pair calls; `area` is its foreground pixel count (the sum of
+    the odd runs)."""
+
+    __slots__ = ("arr", "n", "area")
+
+    def __init__(self, counts_bytes):
+        nb = len(counts_bytes)
+        out = (ctypes.c_long * (nb + 1))()
+        self.n = load().rle_string_to_counts(counts_bytes, nb, out)
+        self.arr = out
+        runs = np.frombuffer(out, dtype=np.dtype(ctypes.c_long),
+                             count=self.n)
+        self.area = int(runs[1::2].sum())
+
+
+def rle_iou_pair(a: RleHandle, b: RleHandle) -> float:
+    """Exact (non-crowd) IoU of two RleHandles."""
+    return load().rle_iou_single(a.arr, a.n, b.arr, b.n, 0)
 
 
 def rle_iou(dt_rles, gt_rles, iscrowd):

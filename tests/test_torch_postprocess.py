@@ -96,7 +96,57 @@ def test_layer_helpers_match_jax():
             jax_post.active_layers_for(ids, layers)
 
 
-def test_unported_options_raise():
-    probs = torch.from_numpy(_probs(1, 64, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        port_post.fused_postprocess(probs, compute_features=True)
+INT_FEATURES = [0, 4, 6, 7, 8]  # area, bbox_area, distances, contour
+
+
+@pytest.mark.parametrize("layers,active,erode,dilate", [
+    ((1, 19), tuple(range(1, 20)), 0, 0),
+    ((1, 4), (1, 2, 3, 4), 3, 2),
+])
+def test_features_match_jax(layers, active, erode, dilate):
+    """compute_features: the (B, L, N, 9) feature tensor beside labels,
+    scores and areas; inactive layers all zero. Integer-valued features
+    exact, the others 2e-5 relative (float64 sums against JAX's bf16
+    hi/lo split)."""
+    probs = _probs(2, 48, seed=3)
+    kw = dict(target_size=(60, 60), category_layers=layers,
+              active_layers=active, erode_size=erode, dilate_size=dilate,
+              compute_features=True, max_instances=64)
+    want = [np.asarray(o) for o in
+            jax_post.fused_postprocess(jnp.asarray(probs), **kw)]
+    got = [o.numpy() for o in
+           port_post.fused_postprocess(torch.from_numpy(probs), **kw)]
+    assert len(got) == 4 and got[3].shape == want[3].shape == (
+        2, sum(layers), 64, 9)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype
+    same = [(i, l) for i in range(2) for l in range(sum(layers))
+            if np.array_equal(got[0][i, l], want[0][i, l])]
+    assert len(same) >= 2 * sum(layers) - 2  # threshold flips excused
+    for i, l in same:
+        np.testing.assert_array_equal(got[3][i, l][:, INT_FEATURES],
+                                      want[3][i, l][:, INT_FEATURES])
+        np.testing.assert_allclose(got[3][i, l], want[3][i, l], rtol=2e-5,
+                                   atol=0)
+    assert not got[3][:, 0].any() and (got[3][:, 1, 0, 0] > 0).all()
+
+
+def test_overflow_escalation_pads_the_features():
+    """The rerun at a doubled pad widens the feature tensor's instance
+    axis too, and its rows equal a direct run at the wider pad."""
+    rng = np.random.RandomState(4)
+    p1 = np.where(rng.rand(3, 48, 48) > 0.5, 0.9, 0.1).astype(np.float32)
+    p1[0, :, :] = 0.9
+    probs = np.stack([1.0 - p1, p1], axis=-1)
+    kw = dict(target_size=(48, 48), category_layers=(1, 1),
+              active_layers=(1,), compute_features=True)
+    got = port_post.postprocess_probabilities(torch.from_numpy(probs),
+                                              max_instances=64, **kw)
+    want = jax_post.postprocess_probabilities(probs, max_instances=64, **kw)
+    assert got[3].shape == want[3].shape and got[3].shape[2] > 64
+    wide = port_post.fused_postprocess(torch.from_numpy(probs),
+                                       max_instances=got[3].shape[2], **kw)
+    np.testing.assert_array_equal(got[3][1:], wide[3][1:].numpy())
+    np.testing.assert_array_equal(got[3][..., INT_FEATURES],
+                                  want[3][..., INT_FEATURES])
+    assert not got[3][0, 1, 1:].any()  # the padded slots of a small image

@@ -209,12 +209,6 @@ def test_unported_settings_raise():
         _pipeline({"quantized_serving": 1}, state)
     with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
         _pipeline({"data_parallel": 1}, state)
-    for name, item in (("unet_tta", 14), ("unet_padded", 14),
-                       ("unet_scoring_model", 15)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            PIPELINES[name]["inference"](build_config())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        PIPELINES["scoring_model"]["train"](build_config())
 
 
 def test_cuda_pipeline_without_card_raises():
@@ -226,13 +220,13 @@ def test_cuda_pipeline_without_card_raises():
 
 def test_port_imports_without_jax():
     """Every module of mapping_tpu_torch, the CLI included, imports with
-    jax, flax, pandas, yaml, click, PIL, msgpack, joblib and imageio
-    blocked, and none imports the JAX package: the port must run where
-    none is installed."""
+    jax, flax, pandas, yaml, click, PIL, msgpack, joblib, imageio and
+    sklearn blocked, and none imports the JAX package: the port must run
+    where none is installed."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('jax', 'flax', 'pandas', 'yaml', 'click', 'PIL', "
-        "'msgpack', 'joblib', 'imageio'):\n"
+        "'msgpack', 'joblib', 'imageio', 'sklearn'):\n"
         "    sys.modules[m] = None\n"
         "import mapping_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
@@ -255,10 +249,14 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.ops.edt',\n"
         "        'mapping_tpu_torch.utils.ndpickle',\n"
         "        'mapping_tpu_torch.train.callbacks',\n"
-        "        'mapping_tpu_torch.pipelines'} <= set(names)\n"
+        "        'mapping_tpu_torch.pipelines',\n"
+        "        'mapping_tpu_torch.scoring',\n"
+        "        'mapping_tpu_torch.data.tta',\n"
+        "        'mapping_tpu_torch.utils.native_gbm'} <= set(names)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'mapping_tpu', 'pandas', 'yaml', 'click', 'PIL', "
-        "'msgpack', 'joblib', 'imageio') and sys.modules[k] is not None]\n"
+        "'msgpack', 'joblib', 'imageio', 'sklearn') and sys.modules[k] is "
+        "not None]\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -401,14 +401,6 @@ def test_warm_start_flag_holds_for_one_call(tmp_path, monkeypatch):
         assert manager.config.params.get("warm_start", 0) == 0
 
 
-def test_scoring_model_training_is_not_ported(tmp_path):
-    manager = port_manager.PipelineManager(None, overrides={
-        "experiment_dir": str(tmp_path / "experiment"),
-        "category_layers": [1, 19]})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        manager.train("scoring_model", dev_mode=True)
-
-
 # ------------------------------------------------------------- the CLI
 
 TRAIN = {"epochs_nr": 2, "resume_every": 1, "best_write_every": 1,
