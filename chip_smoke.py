@@ -127,7 +127,32 @@ the JAX package is imported. Phases, each printing what it found:
      CCL (exact); (d) in float32, the served TTA (12 deduplicated
      forwards) equals the 16-spec stack within 1e-5; (e) K1 and `label`
      are timed on (c)'s 380 masks beside the plain CCL, saved under
-     build/ccl_masks/.
+     build/ccl_masks/;
+ 11. serving, under build/chip_smoke_serving/, on phase 9 (a)'s weights,
+     phase 10 (a)'s scoring model and phase 6's split: (a) `export -p
+     unet_weighted` (serve_batch_buckets "1,4": programs for batches 1, 4
+     and 20) and `export -p unet_scoring_model` at [1, 19] (batch 20) in
+     one child process: each bucket's export seconds and size, each
+     artifact's size; (b) `evaluate --artifact` of both artifacts beside
+     the live `evaluate` of the same pipeline on the 110 val tiles, in
+     this process: images/s, stage seconds, AP/AR, CCL launches above 0;
+     (c) one batch of 20 through the artifact and the live FusedServe:
+     the foregrounds may differ only where the live probability lies
+     within the measured max |replay - live| probability (an export of
+     the same forward) of the threshold, and images without such a pixel
+     must have equal labels and areas; each replay launches the CCL once
+     (LAUNCHES rises by one), its torch.profiler trace lists the fused
+     `label`'s kernels, and its labels equal the plain CCL on the CPU of
+     its masks; (d) `serve -p unet_weighted` and `serve --artifact` in
+     child processes on free ports: /v1/health within a deadline, the 110
+     val tiles POSTed as PNG bytes at concurrency 1 and 16 and one lone
+     request; every answer must equal (segmentation exact, scores 1e-5
+     relative) that tile's annotations from one of the exported batch
+     shapes (the artifact's or the live FusedServe's, on batches of
+     exactly that size), and predict_on_dir's must equal the batch-20
+     ones; requests/s, p50/p99 latency (client clock), mean batch
+     occupancy over each run (/v1/stats) and each child's CCL launches,
+     printed after SIGTERM (killed at a 60 s deadline).
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -211,6 +236,16 @@ SCORING_EVALS = (("unet_tta", [1, 1]), ("unet_padded", [1, 1]),
                  ("unet_scoring_model", [1, 19]),
                  ("unet_padded_scoring_model", [1, 19]),
                  ("unet_tta_scoring_model", [1, 19]))
+SERVE_DIR = ROOT / "build" / "chip_smoke_serving"
+#: phase 11's batch buckets besides batch_size_inference (20), and the
+#: client concurrencies its serve children are driven at
+SERVE_BUCKETS, SERVE_CONCURRENCY = "1,4", (1, 16)
+SERVE_DEADLINE = 300  # seconds a serve child gets to answer /v1/health
+#: parameters of phase 11 over the JAX config's defaults (ResNet101, bf16,
+#: batch 20, 300^2 -> 256^2 -> 300^2)
+SERVE_PARAMS = {}
+#: the CCL kernels of the fused `label` (csrc/ccl.cu), by name part
+CCL_KERNELS = ("tile_label", "merge_borders", "resolve", "scan", "gather")
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
 CLI_CHILD = ("import json, sys\n"
@@ -218,6 +253,24 @@ CLI_CHILD = ("import json, sys\n"
              "from mapping_tpu_torch.kernels import ccl\n"
              "main.main(sys.argv[1:])\n"
              "print('ccl launches ' + json.dumps(ccl.LAUNCHES))\n")
+#: the same for several commands, each argument one argv as JSON
+CLI_CHILDREN = ("import json, sys\n"
+                "from mapping_tpu_torch import main\n"
+                "from mapping_tpu_torch.kernels import ccl\n"
+                "for argv in sys.argv[1:]:\n"
+                "    main.main(json.loads(argv))\n"
+                "print('ccl launches ' + json.dumps(ccl.LAUNCHES))\n")
+#: the CLI's `serve` in a child process: SIGTERM ends it (the daemon
+#: closes its batcher), then it prints its CCL launch counts
+SERVE_CHILD = ("import json, signal, sys\n"
+               "from mapping_tpu_torch import main\n"
+               "from mapping_tpu_torch.kernels import ccl\n"
+               "signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))\n"
+               "try:\n"
+               "    main.main(sys.argv[1:])\n"
+               "finally:\n"
+               "    print('ccl launches ' + json.dumps(ccl.LAUNCHES), "
+               "flush=True)\n")
 
 
 def card():
@@ -1835,6 +1888,471 @@ def scoring_phase(smi, prepared):
     return launches
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_json(url, body=None, headers=None, timeout=120):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers=headers or {})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def start_serve(args, log):
+    """A SERVE_CHILD of the CLI arguments `args`, its output in `log`."""
+    out = open(log, "w")
+    try:
+        return subprocess.Popen([sys.executable, "-c", SERVE_CHILD, *args],
+                                cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT)
+    finally:
+        out.close()
+
+
+def wait_healthy(proc, port, log):
+    """/v1/health of a serve child, polled until SERVE_DEADLINE."""
+    import urllib.error
+
+    deadline = time.monotonic() + SERVE_DEADLINE
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"serve child exited {proc.returncode}:\n"
+                                 + log.read_text()[-3000:])
+        try:
+            return http_json(f"http://127.0.0.1:{port}/v1/health",
+                             timeout=5)
+        except (urllib.error.URLError, OSError):
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no /v1/health in {SERVE_DEADLINE} s")
+        time.sleep(0.25)
+
+
+def stop_serve(proc, log):
+    """SIGTERM, then a kill at a 60 s deadline; returns the CCL launch
+    counts the child printed."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("a serve child ignored SIGTERM for 60 s")
+    lines = [l for l in log.read_text().splitlines()
+             if l.startswith("ccl launches ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"serve child exited {proc.returncode}:\n"
+                             + log.read_text()[-3000:])
+    return json.loads(lines[-1][len("ccl launches "):])
+
+
+def drive_daemon(port, bodies, ids, concurrency):
+    """POST every body to /v1/predict from `concurrency` client threads:
+    (annotations per body, requests/s, p50 and p99 ms of the client's
+    latency, the daemon's mean batch occupancy over the run)."""
+    url = f"http://127.0.0.1:{port}"
+    before = http_json(url + "/v1/stats")
+
+    def post(i):
+        start = time.perf_counter()
+        got = http_json(url + "/v1/predict", bodies[i], {
+            "Content-Type": "image/png", "X-Image-Id": str(ids[i])})
+        return got["annotations"], time.perf_counter() - start
+
+    start = time.perf_counter()
+    with ThreadPoolExecutor(concurrency) as pool:
+        results = list(pool.map(post, range(len(bodies))))
+    wall = time.perf_counter() - start
+    after = http_json(url + "/v1/stats")
+    latency = np.asarray([t for _, t in results]) * 1e3
+    occupancy = ((after["requests"] - before["requests"])
+                 / max(after["batches"] - before["batches"], 1))
+    return ([a for a, _ in results], len(bodies) / wall,
+            float(np.percentile(latency, 50)),
+            float(np.percentile(latency, 99)), occupancy)
+
+
+def by_batch_shape(run, tiles, buckets):
+    """{bucket: [run's result per tile]}: each tile in batches of exactly
+    `bucket` tiles (the tail padded with the last tile); run(batch) ->
+    a list of per-tile results."""
+    out = {}
+    for b in buckets:
+        results = []
+        for start in range(0, len(tiles), b):
+            idx = np.minimum(np.arange(start, start + b), len(tiles) - 1)
+            results.extend(run(tiles[idx])[:min(b, len(tiles) - start)])
+        out[b] = results
+    return out
+
+
+def annotate(outs, ids):
+    """COCO annotations of each image of a collected batch, as the daemon
+    converts them."""
+    from mapping_tpu_torch.constants import CATEGORY_IDS
+    from mapping_tpu_torch.infer.annotations import labeled_to_annotations
+
+    return [labeled_to_annotations(i, outs[0][k], outs[1][k], CATEGORY_IDS,
+                                   [1, 1]) for k, i in enumerate(ids)]
+
+
+def same_annotations(got, want):
+    return len(got) == len(want) and all(
+        g["segmentation"] == w["segmentation"] and g["bbox"] == w["bbox"]
+        and g["image_id"] == w["image_id"]
+        and g["category_id"] == w["category_id"]
+        and abs(g["score"] - w["score"]) <= 1e-5 * abs(w["score"])
+        for g, w in zip(got, want))
+
+
+def near_threshold_difference(got, want, prob, band):
+    """Pixels where the foregrounds of two annotation lists differ, after
+    checking that each such pixel has a probability `prob` within `band`
+    of the 0.5 threshold, that every instance of one side that the other
+    lacks touches such a pixel, and that instances on both sides have
+    scores within band * sqrt(area); raises otherwise."""
+    from mapping_tpu_torch.ops.rle import decode
+
+    def instances(anns):
+        return {a["segmentation"]["counts"]: (decode(a["segmentation"])
+                                              .astype(bool), a["score"])
+                for a in anns}
+
+    near = np.abs(prob - 0.5) <= band
+    inst_g, inst_w = instances(got), instances(want)
+    fg = [np.zeros(prob.shape, bool), np.zeros(prob.shape, bool)]
+    for side, inst in zip(fg, (inst_g, inst_w)):
+        for mask, _ in inst.values():
+            side |= mask
+    differ = fg[0] != fg[1]
+    away = differ & ~near
+    if away.any():
+        raise AssertionError(
+            f"{int(differ.sum())} pixels differ, {int(away.sum())} of them "
+            f"farther than {band:.3g} from the threshold (the nearest at "
+            f"{float(np.abs(prob - 0.5)[away].min()):.3g})")
+    touching = near.copy()
+    touching[1:] |= near[:-1]
+    touching[:-1] |= near[1:]
+    touching[:, 1:] |= near[:, :-1]
+    touching[:, :-1] |= near[:, 1:]
+    for key in set(inst_g) ^ set(inst_w):
+        mask, _ = inst_g.get(key, inst_w.get(key))
+        if not (mask & touching).any():
+            raise AssertionError("an instance differs away from the "
+                                 "threshold")
+    for key in set(inst_g) & set(inst_w):
+        (mask, a), (_, b) = inst_g[key], inst_w[key]
+        if abs(a - b) > band * math.sqrt(mask.sum()) + 1e-6 * abs(b):
+            raise AssertionError(f"a score differs by {abs(a - b):.3g}")
+    return int(differ.sum())
+
+
+def serving_phase(smi, prepared):
+    from mapping_tpu_torch import main as cli
+    from mapping_tpu_torch.config import build_config
+    from mapping_tpu_torch.data.augment import resize_bilinear
+    from mapping_tpu_torch.data.loader import load_image
+    from mapping_tpu_torch.infer.artifact import load_artifact
+    from mapping_tpu_torch.kernels import ccl as K
+    from mapping_tpu_torch.ops.ccl import connected_components
+    from mapping_tpu_torch.pipelines import PIPELINES
+    from mapping_tpu_torch.tools.kernel_variants import (kernel_events,
+                                                          short_name)
+
+    phase_start = time.perf_counter()
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    experiment = SERVE_DIR / "experiment"
+    (experiment / "transformers").mkdir(parents=True)
+    # phase 9 (a)'s weights and phase 10 (a)'s scoring model
+    for name in ("unet.pt", "scoring_model.pkl"):
+        shutil.copy2(SCORING_DIR / "experiment" / "transformers" / name,
+                     experiment / "transformers" / name)
+    launches = {k: 0 for k in K.LAUNCHES}
+
+    def count(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    def config(name, layers, **extra):
+        return write_config(name, {
+            "data_dir": str(PREP_DIR / "data"),
+            "meta_dir": str(prepared["meta_dir"]),
+            "experiment_dir": str(experiment), "device": DEVICE,
+            "evaluation_data_sample": PREP_VAL, "category_layers": layers,
+            "serve_batch_buckets": SERVE_BUCKETS, **SERVE_PARAMS, **extra},
+            SERVE_DIR)
+
+    weighted = config("weighted", [1, 1])
+    scoring = config("scoring", [1, 19], serve_batch_buckets="")
+    artifacts = {"unet_weighted": SERVE_DIR / "artifact",
+                 "unet_scoring_model": SERVE_DIR / "artifact_scoring"}
+
+    # (a) export, from the CLI in a child process
+    log = SERVE_DIR / "export.log"
+    rc, seconds, _ = run_child(
+        [sys.executable, "-c", CLI_CHILDREN] + [json.dumps(
+            ["--config", cfg, "export", "-p", pipeline, "--dir_path",
+             str(artifacts[pipeline])])
+            for cfg, pipeline in ((weighted, "unet_weighted"),
+                                  (scoring, "unet_scoring_model"))], log)
+    text = log.read_text()
+    if rc != 0 or not text.strip().splitlines()[-1].startswith(
+            "ccl launches "):
+        raise AssertionError("export: " + text[-3000:])
+    exports = re.findall(r"exported \S+/(artifact\w*)/serve_b(\d+)\.pt2 "
+                         r"\([^)]*\) in ([\d.]+) s, ([\d.]+) MiB", text)
+    sizes = {p: sum(f.stat().st_size for f in d.iterdir()) / 2 ** 20
+             for p, d in artifacts.items()}
+    print(f"serving: (a) `export -p unet_weighted` (buckets "
+          f"{SERVE_BUCKETS} + 20) and `export -p unet_scoring_model` "
+          f"(bucket 20) exited 0 in {seconds:.2f} s of wall time (one child "
+          f"process): " + ", ".join(f"{d} b{b} {t} s {m} MiB"
+                                    for d, b, t, m in exports)
+          + "; artifact sizes " + ", ".join(f"{p} {m:.1f} MiB"
+                                            for p, m in sizes.items())
+          + f" on {smi}")
+    if len(exports) != 4:
+        raise AssertionError("export: " + text[-3000:])
+
+    # (b) evaluate --artifact beside the live evaluate, in this process
+    ids = set(range(1, PREP_VAL + 1))
+    for pipeline, cfg in (("unet_weighted", weighted),
+                          ("unet_scoring_model", scoring)):
+        for what, argv in (("--artifact", ["--artifact",
+                                           str(artifacts[pipeline])]),
+                           ("live", ["-p", pipeline])):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            manager = cli.main(["--config", cfg, "evaluate", *argv])
+            torch.cuda.synchronize()
+            got = dict(K.LAUNCHES)
+            count(got)
+            check_prediction(experiment / "prediction.json", ids,
+                             f"{pipeline} {what}")
+            ap, ar = last_scores(experiment)
+            t = manager.timings
+            print(f"serving: (b) `evaluate {' '.join(argv)}` ({pipeline}): "
+                  f"{t['images']} images in {t['total_s']:.4f} s, "
+                  f"{t['images'] / t['total_s']:.2f} images/s; "
+                  + (f"artifact load {t['load_s']:.4f} s, " if "load_s" in t
+                     else "")
+                  + f"decode {t['decode_s']:.4f} s, device "
+                  f"{t['device_s']:.4f} s, annotation + RLE "
+                  f"{t['annotation_s']:.4f} s"
+                  + (f", scoring {t['scoring_s']:.4f} s, NMS "
+                     f"{t['nms_s']:.4f} s" if "nms_s" in t else "")
+                  + f", COCOeval {t['cocoeval_s']:.4f} s (host clock); AP "
+                  f"{ap} AR {ar}; CCL launches {got}")
+            if t["images"] != PREP_VAL or min(got.values()) < 1:
+                raise AssertionError(f"{pipeline} {what}: {t['images']} "
+                                     f"images, launches {got}")
+
+    # (c) one batch through the artifact and the live FusedServe
+    paths = sorted((PREP_DIR / "data" / "val" / "images").iterdir())
+    tiles = np.stack([load_image(p) for p in paths])
+    batch = tiles[:BATCH]
+    art = load_artifact(str(artifacts["unet_weighted"]))
+    pipe = PIPELINES["unet_weighted"]["inference"](build_config(weighted))
+    pipe._ensure_weights()
+    live_serve = pipe.serve_program()
+    images = pipe.loader.infer_preprocess(batch)
+    with torch.inference_mode():
+        live_probs = resize_bilinear(live_serve._probs(images),
+                                     (TILE, TILE))[..., 1]
+    live = live_serve(images)
+    module = pipe.serve_module().eval()
+
+    class ResizedProbs(torch.nn.Module):
+        """The exported program's forward up to the probabilities the
+        postprocess thresholds."""
+
+        def __init__(self):
+            super().__init__()
+            self.program = module
+
+        def forward(self, u8):
+            return resize_bilinear(self.program.probs(
+                self.program.preprocess(u8)), (TILE, TILE))[..., 1]
+
+    u8 = torch.from_numpy(batch).to(DEVICE)
+    with torch.no_grad():
+        torch.export.save(torch.export.export(ResizedProbs(), (u8,)),
+                          str(SERVE_DIR / "probs.pt2"))
+        replay_probs = torch.export.load(
+            str(SERVE_DIR / "probs.pt2")).module()(u8)
+    band = float((replay_probs - live_probs).abs().max())
+    torch.cuda.synchronize()
+    K.reset_launches()
+    steps = []
+    for _ in range(2):
+        got = art(batch)
+        steps.append(K.LAUNCHES["ccl_label_raw"])
+    count(dict(K.LAUNCHES))
+    if steps != [1, 2] or K.LAUNCHES["ccl_renumber"] != 2:
+        raise AssertionError(f"replays launched {steps}, {K.LAUNCHES}")
+    K.reset_launches()
+    events = [short_name(k) for k, _ in
+              kernel_events(lambda: art.collect(art.dispatch(batch)))]
+    count(dict(K.LAUNCHES))
+    missing = [k for k in CCL_KERNELS if not any(k in e for e in events)]
+    if missing:
+        raise AssertionError(f"the replay's trace lacks {missing}: {events}")
+    near = (live_probs - 0.5).abs().cpu().numpy() <= band
+    exact, flipped = 0, 0
+    for i in range(BATCH):
+        differ = (got[0][i, 1] > 0) != (live[0][i, 1] > 0)
+        if (differ & ~near[i]).any():
+            raise AssertionError(f"image {i}: the replay's labels differ "
+                                 f"from the live serve away from the "
+                                 f"threshold (band {band:.3g})")
+        flipped += int(differ.sum())
+        if not differ.any():
+            if not (np.array_equal(got[0][i], live[0][i])
+                    and np.array_equal(got[2][i], live[2][i])):
+                raise AssertionError(f"image {i}: same foreground, other "
+                                     f"labels or areas")
+            exact += 1
+    plain = connected_components(torch.from_numpy(got[0][:, 1] > 0))
+    if not np.array_equal(plain.numpy(), got[0][:, 1]):
+        raise AssertionError("the replay's labels differ from the plain CCL "
+                             "on the CPU of the same masks")
+    print(f"serving: (c) one batch of {BATCH} through the artifact and the "
+          f"live FusedServe: max |replay - live| probability {band:.3e}; "
+          f"{exact} of {BATCH} images with equal labels and areas, "
+          f"{flipped} pixels on the other side of the threshold, all within "
+          f"that band of it; the replay's labels = the plain CCL on the CPU "
+          f"of its masks; CCL launches per replay {steps}; the replay's "
+          f"{len(events)} kernels under the profiler include "
+          f"{[e for e in events if any(k in e for k in CCL_KERNELS)]}")
+
+    # (d) the serve children: a pipeline and the artifact. A daemon's
+    # answer comes from a batch of one of the bucket shapes, composed as
+    # the requests arrived: it must equal that tile's answer from a batch
+    # of that shape here, or differ from the batch-20 one only where the
+    # probability lies within the largest difference between the batch
+    # shapes' probabilities of the threshold
+    bodies = [p.read_bytes() for p in paths]
+    image_ids = list(range(1, len(paths) + 1))
+    buckets = art.manifest["batch_buckets"]
+    top = buckets[-1]
+    refs = {"pipeline": by_batch_shape(
+                lambda b: annotate(live_serve(pipe.loader.infer_preprocess(
+                    b)), [0] * len(b)), tiles, buckets),
+            "artifact": by_batch_shape(
+                lambda b: annotate(art.collect(art.dispatch(b)),
+                                   [0] * len(b)), tiles, buckets)}
+    for per_shape in refs.values():
+        for anns in per_shape.values():
+            for i, image_anns in enumerate(anns):
+                for a in image_anns:
+                    a["image_id"] = image_ids[i]
+
+    def probs_at(b):
+        with torch.inference_mode():
+            p = resize_bilinear(live_serve._probs(
+                pipe.loader.infer_preprocess(b)), (TILE, TILE))[..., 1]
+        return list(p.float().cpu().numpy())
+
+    probs = by_batch_shape(probs_at, tiles, buckets)
+    band = max(float(np.abs(np.stack(probs[b]) - np.stack(probs[top])).max())
+               for b in buckets)
+    print(f"serving: (d) max |probability| difference between batch shapes "
+          f"{buckets} on the {len(tiles)} val tiles: {band:.3e}")
+
+    def check(name, i, answer, shapes=buckets):
+        """(the first of `shapes` whose answer it equals, or None, and the
+        pixels excused near the threshold)."""
+        for b in shapes:
+            if same_annotations(answer, refs[name][b][i]):
+                return b, 0
+        try:
+            return None, near_threshold_difference(
+                answer, refs[name][top][i], probs[top][i], band)
+        except AssertionError as e:
+            raise AssertionError(f"serve {name}: image {image_ids[i]}: {e}")
+
+    children = {}
+    try:
+        for name, args in (("pipeline", ["-p", "unet_weighted"]),
+                           ("artifact", ["--artifact",
+                                         str(artifacts["unet_weighted"])])):
+            port = free_port()
+            log = SERVE_DIR / f"serve_{name}.log"
+            children[name] = (start_serve(
+                ["--config", weighted, "serve", *args, "--port", str(port)],
+                log), port, log)
+        for name, (proc, port, log) in children.items():
+            start = time.perf_counter()
+            health = wait_healthy(proc, port, log)
+            print(f"serving: (d) `serve` over the {name} answered /v1/health "
+                  f"after {time.perf_counter() - start:.2f} s more: {health}")
+            for concurrency in SERVE_CONCURRENCY:
+                answers, rps, p50, p99, occupancy = drive_daemon(
+                    port, bodies, image_ids, concurrency)
+                matched = {b: 0 for b in buckets + [None]}
+                pixels = 0
+                for i, answer in enumerate(answers):
+                    b, n = check(name, i, answer)
+                    matched[b] += 1
+                    pixels += n
+                print(f"serving: (d) serve {name}, concurrency "
+                      f"{concurrency}: {len(bodies)} PNG requests, "
+                      f"{rps:.2f} requests/s, latency p50 {p50:.2f} ms p99 "
+                      f"{p99:.2f} ms (client clock), mean batch occupancy "
+                      f"{occupancy:.2f}; answers equal to the one at batch "
+                      f"shape {matched} (None: {pixels} pixels on the other "
+                      f"side of the threshold, all within the band) on "
+                      f"{smi}")
+            start = time.perf_counter()
+            answer = http_json(f"http://127.0.0.1:{port}/v1/predict",
+                               bodies[0], {"Content-Type": "image/png",
+                                           "X-Image-Id": "1"})["annotations"]
+            lone = (time.perf_counter() - start) * 1e3
+            lone_shape = check(name, 0, answer)
+            stats = http_json(f"http://127.0.0.1:{port}/v1/stats")
+            print(f"serving: (d) serve {name}: a lone request in "
+                  f"{lone:.2f} ms (batch shape / excused pixels "
+                  f"{lone_shape}); /v1/stats {stats}")
+        # predict_on_dir's answers are the batch-20 references
+        prediction = SERVE_DIR / "predict_on_dir.json"
+        cli.main(["--config", weighted, "predict_on_dir", "-p",
+                  "unet_weighted", "--dir_path",
+                  str(PREP_DIR / "data" / "val" / "images"),
+                  "--prediction_path", str(prediction)])
+        got_dir = [[] for _ in image_ids]
+        for a in json.loads(prediction.read_text()):
+            got_dir[a["image_id"]].append({**a, "image_id":
+                                           a["image_id"] + 1})
+        shapes = [check("pipeline", i, anns, [top])[0]
+                  for i, anns in enumerate(got_dir)]
+        print(f"serving: (d) predict_on_dir: {shapes.count(top)} of "
+              f"{len(shapes)} images equal to the batch-{top} answers, the "
+              f"rest within the band")
+    finally:
+        for name, (proc, port, log) in children.items():
+            if proc.poll() is None:
+                try:
+                    got = stop_serve(proc, log)
+                except AssertionError:
+                    raise
+                count(got)
+                print(f"serving: (d) serve {name} stopped; its CCL launches "
+                      f"{got}")
+    print(f"serving: phase 11 took {time.perf_counter() - phase_start:.2f} s "
+          f"(host clock)")
+    return launches
+
+
 def main():
     smi = card()
     from mapping_tpu_torch.kernels import bounds
@@ -1848,7 +2366,8 @@ def main():
     launches["conv_dw"] = train_phase(gen, smi, prepared)["conv_dw"]
     for phase in (prepared["launches"], evaluate_phase(gen, smi),
                   train_cli_phase(smi, prepared),
-                  scoring_phase(smi, prepared)):
+                  scoring_phase(smi, prepared),
+                  serving_phase(smi, prepared)):
         for name, n in phase.items():
             launches[name] += n
     n, c, h, w = DW_TIMED[DW_MAIN]

@@ -354,10 +354,15 @@ class SegmentationLoader:
     def infer_preprocess(self, image_u8_batch):
         """(B, H, W, 3) uint8 (numpy or tensor) -> normalised float32
         images on the loader's device, by the loader mode."""
-        image = torch.as_tensor(image_u8_batch).to(self.device)
+        return self.device_preprocess(
+            torch.as_tensor(image_u8_batch).to(self.device))
+
+    def device_preprocess(self, image_u8):
+        """The same on a uint8 tensor, on its own device (the preprocess
+        of an exported serve program, infer/serving.ServeProgram)."""
         if self.mode == "resize":
-            return infer_batch_resize(image, self.size)
-        return infer_batch_pad(image, self.pad, self.pad_method)
+            return infer_batch_resize(image_u8, self.size)
+        return infer_batch_pad(image_u8, self.pad, self.pad_method)
 
     def eval_preprocess(self, image_u8_batch, target_batch=None):
         """{"image": ..., "target": ...} of a validation batch on the

@@ -4,13 +4,18 @@ device.
 Counterpart of mapping_tpu/infer/serving.py `FusedServe` on one device:
 images -> [TTA expand -> forward -> inverse -> aggregate | forward] ->
 softmax -> [centre crop] -> resize -> threshold -> erode/restore -> CCL ->
-dilate -> scores [-> the per-instance feature tensor]. `dispatch` enqueues
-all of it on the current CUDA stream and returns without waiting;
-`collect` copies the compact outputs to the host, which waits for them,
-and runs the overflow escalation (the rerun repeats the TTA on the images
-it reruns). A serving loop that dispatches batch k+1 before it collects
-batch k keeps the device busy while the host handles batch k. Mesh and
-spatial serving (ROADMAP item 16) are not ported yet.
+dilate -> scores [-> the per-instance feature tensor]. `ServeProgram` is
+that chain as one module, the counterpart of the JAX `FusedServe._body`;
+with a `preprocess` it also takes the loader mode's device preprocess
+(uint8 tiles in, as the JAX `loader.infer_preprocess` inside an exported
+program), and its `forward` at the base instance pad is what
+infer/artifact.py exports with torch.export. `FusedServe` runs the same
+module: `dispatch` enqueues all of it on the current CUDA stream and
+returns without waiting; `collect` copies the compact outputs to the host,
+which waits for them, and runs the overflow escalation (the rerun repeats
+the TTA on the images it reruns). A serving loop that dispatches batch k+1
+before it collects batch k keeps the device busy while the host handles
+batch k. Mesh and spatial serving (ROADMAP item 16) are not ported yet.
 """
 
 from typing import Callable, Optional, Sequence, Tuple
@@ -24,15 +29,21 @@ from mapping_tpu_torch.infer.postprocess import (MAX_INSTANCES,
                                                  fused_postprocess)
 
 
-class FusedServe:
-    """images (B, H, W, 3) normalised float -> numpy labels (B, L, th, tw)
-    int16, scores (B, L, N) float32, areas (B, L, N) int32 [, features
-    (B, L, N, 9) float32 with `compute_features`].
+class ServeProgram(torch.nn.Module):
+    """One batch through the serving chain, on the inputs' device.
 
-    probs_fn(images) -> (B, H, W, C) softmax probabilities, float32.
-    `tta_specs` (data/tta.py) serve every batch through test-time
-    augmentation aggregated by `tta_method`; `crop_size` cuts the centre
-    of the probabilities (the padded loader's undo) before the resize.
+    `forward(images_u8)`: (B, H, W, 3) uint8 -> labels (B, L, th, tw)
+    int16, scores (B, L, N) float32, areas (B, L, N) int32 [, features
+    (B, L, N, 9) float32 with `compute_features`], N = `max_instances`;
+    it needs `preprocess` (uint8 -> normalised float32). `run(images,
+    max_instances)` takes images already normalised and any pad.
+
+    probs_fn(images) -> (B, H, W, C) softmax probabilities, float32; a
+    module (trainer.SoftmaxProbs) is registered as a submodule, so that an
+    export holds its weights. `tta_specs` (data/tta.py) serve every batch
+    through test-time augmentation aggregated by `tta_method`; `crop_size`
+    cuts the centre of the probabilities (the padded loader's undo) before
+    the resize.
     """
 
     def __init__(self, probs_fn: Callable, *, target_size: Tuple[int, int],
@@ -43,31 +54,57 @@ class FusedServe:
                  tta_specs: Optional[Sequence] = None,
                  tta_method: str = "gmean",
                  compute_features: bool = False,
-                 max_instances: int = MAX_INSTANCES):
-        self._probs_fn = probs_fn
-        if tta_specs:
-            self._probs_fn = tta_wrap_predict(probs_fn, list(tta_specs),
-                                              tta_method)
-        self._post = dict(target_size=tuple(target_size),
-                          category_layers=tuple(category_layers),
-                          active_layers=active_layers,
-                          erode_size=int(erode_size),
-                          dilate_size=int(dilate_size),
-                          compute_features=bool(compute_features))
-        self._crop_size = tuple(crop_size) if crop_size else None
-        self._base_max_instances = int(max_instances)
+                 max_instances: int = MAX_INSTANCES,
+                 preprocess: Optional[Callable] = None):
+        super().__init__()
+        self.model_probs = probs_fn
+        self._probs_fn = (tta_wrap_predict(probs_fn, list(tta_specs),
+                                           tta_method)
+                          if tta_specs else probs_fn)
+        self.tta_variants = len(tta_specs) if tta_specs else 0
+        self.post = dict(target_size=tuple(target_size),
+                         category_layers=tuple(category_layers),
+                         active_layers=active_layers,
+                         erode_size=int(erode_size),
+                         dilate_size=int(dilate_size),
+                         compute_features=bool(compute_features))
+        self.crop_size = tuple(crop_size) if crop_size else None
+        self.max_instances = int(max_instances)
+        self.preprocess = preprocess
+
+    def probs(self, images):
+        probs = self._probs_fn(images)
+        if self.crop_size is not None:
+            probs = center_crop(probs, self.crop_size)
+        return probs
+
+    def run(self, images, max_instances: int):
+        outs = fused_postprocess(self.probs(images),
+                                 max_instances=max_instances, **self.post)
+        return (labels_i16(outs[0]),) + tuple(outs[1:])
+
+    def forward(self, images_u8):
+        return self.run(self.preprocess(images_u8), self.max_instances)
+
+
+class FusedServe:
+    """images (B, H, W, 3) normalised float -> numpy labels (B, L, th, tw)
+    int16, scores (B, L, N) float32, areas (B, L, N) int32 [, features
+    (B, L, N, 9) float32 with `compute_features`], through a ServeProgram
+    (same arguments) in inference mode."""
+
+    def __init__(self, probs_fn: Callable, **kwargs):
+        self.program = ServeProgram(probs_fn, **kwargs)
+        self._post = self.program.post
+        self._crop_size = self.program.crop_size
+        self._base_max_instances = self.program.max_instances
 
     def _probs(self, images):
-        probs = self._probs_fn(images)
-        if self._crop_size is not None:
-            probs = center_crop(probs, self._crop_size)
-        return probs
+        return self.program.probs(images)
 
     @torch.inference_mode()
     def _run(self, images, max_instances):
-        outs = fused_postprocess(self._probs(images),
-                                 max_instances=max_instances, **self._post)
-        return (labels_i16(outs[0]),) + tuple(outs[1:])
+        return self.program.run(images, max_instances)
 
     def dispatch(self, images):
         """Enqueue one batch; returns a handle for `collect`. Does not

@@ -22,8 +22,12 @@ Each evaluate and predict_on_dir leaves the host seconds of its stages in
 FusedServe.dispatch and .collect), annotation + RLE, COCOeval, and the
 whole call; a scoring pipeline adds its feature tables and regressor
 (`scoring_s`), its NMS (`nms_s`) and the instances NMS suppressed. Not
-ported yet, and raising with their ROADMAP item: artifacts (item 18) and
-the parity drill (item 23).
+ported yet, and raising with its ROADMAP item: the parity drill (item
+23).
+
+`evaluate_artifact` (`evaluate --artifact DIR`) scores an exported serving
+artifact (infer/artifact.py) on the same validation sample with the same
+COCOeval, and leaves the same stage seconds in `manager.timings`.
 """
 
 import json
@@ -39,7 +43,7 @@ import numpy as np
 
 from mapping_tpu_torch.config import build_config
 from mapping_tpu_torch.constants import (CATEGORY_IDS, CATEGORY_LAYERS, SEED,
-                                         Y_COLUMNS_SCORING)
+                                         X_COLUMNS, Y_COLUMNS_SCORING)
 from mapping_tpu_torch.data.coco import COCOIndex
 from mapping_tpu_torch.data.metadata import (generate_inference_metadata,
                                              generate_metadata, read_metadata,
@@ -132,7 +136,12 @@ class PipelineManager:
 
     def evaluate_artifact(self, artifact_dir, dev_mode=False,
                           chunk_size=None):
-        raise _not_ported("evaluate --artifact", "18")
+        self.timings = {}
+        ap, ar = evaluate_with_artifact(artifact_dir, dev_mode, chunk_size,
+                                        self.config, self.timings)
+        self.sink.send_metric("Precision", ap)
+        self.sink.send_metric("Recall", ar)
+        return ap, ar
 
     def import_checkpoint(self, path, pipeline_name="unet"):
         """A complete reference torch checkpoint into the experiment's
@@ -285,6 +294,54 @@ def evaluate(pipeline_name, dev_mode, chunk_size, config, timings=None):
     timings["total_s"] = time.perf_counter() - start
     logger.info("validation precision (AP@0.5) = %.4f", ap)
     logger.info("validation recall    (AR@0.5) = %.4f", ar)
+    logger.info("host seconds: %s", json.dumps(timings))
+    return ap, ar
+
+
+def evaluate_with_artifact(artifact_dir, dev_mode, chunk_size, config,
+                           timings=None):
+    """`evaluate --artifact DIR`: the exported programs over the same
+    validation sample as `evaluate`, scored by the same COCOeval, so an
+    artifact's AP/AR can be held against the live pipeline's before it is
+    deployed. Needs the config's data and metadata dirs and its `device`,
+    but no checkpoint or model code. Fills `timings` as `evaluate` does,
+    and with the seconds of the artifact's load (`load_s`)."""
+    from mapping_tpu_torch.infer.artifact import (load_artifact,
+                                                  predict_paths_with_artifact)
+
+    params = config.params
+    timings = {} if timings is None else timings
+    start = time.perf_counter()
+    logger.info("evaluating artifact %s", artifact_dir)
+    meta_valid = _validation_rows(params, dev_mode)
+    load_start = time.perf_counter()
+    art = load_artifact(artifact_dir, device=params.get("device", "cuda"))
+    timings["load_s"] = time.perf_counter() - load_start
+    if params.get("data_parallel", 0):
+        art.replicate()  # one replica, with a warning, on a single card
+    prediction = predict_paths_with_artifact(
+        art, [row[Y_COLUMNS_SCORING[0]] for row in meta_valid],
+        [row[X_COLUMNS[0]] for row in meta_valid],
+        chunk_images=int(chunk_size or 0), timings=timings)
+
+    prediction_filepath = os.path.join(params.experiment_dir,
+                                       "prediction.json")
+    os.makedirs(params.experiment_dir, exist_ok=True)
+    with open(prediction_filepath, "w") as f:
+        json.dump(prediction, f)
+
+    eval_start = time.perf_counter()
+    ap, ar = coco_evaluation(
+        gt_filepath=os.path.join(params.data_dir, "val", "annotation.json"),
+        prediction_filepath=prediction_filepath,
+        image_ids=[row[Y_COLUMNS_SCORING[0]] for row in meta_valid],
+        category_ids=[c for c in CATEGORY_IDS if c is not None],
+        small_annotations_size=params.small_annotations_size,
+    )
+    timings["cocoeval_s"] = time.perf_counter() - eval_start
+    timings["total_s"] = time.perf_counter() - start
+    logger.info("artifact validation precision (AP@0.5) = %.4f", ap)
+    logger.info("artifact validation recall    (AR@0.5) = %.4f", ar)
     logger.info("host seconds: %s", json.dumps(timings))
     return ap, ar
 

@@ -9,6 +9,16 @@ count fused into the resolve, then the rank scan and gather: five
 launches), and a raw call is `kernels.ccl.label_raw` (three). The plain
 versions run on any device: the tests hold them against the JAX package,
 and the chip check holds the kernels against them.
+
+A renumbered call goes through the registered op
+`torch.ops.mapping_tpu_torch.ccl_label` on both devices: its CUDA
+implementation is `kernels.ccl.label` on the current stream, its CPU
+implementation the plain `_renumber(_label_raw(...))`, and its fake
+implementation gives int32 of the mask's shape. So `torch.export` records
+one op where the plain version's data-dependent `nonzero` could not be
+traced, and an exported serve program (infer/artifact.py) launches the
+CUDA kernels when it is replayed on the card. Loading such a program
+needs this module imported first.
 """
 
 import torch
@@ -89,6 +99,25 @@ def _renumber(labels):
     return out.reshape(shape).to(torch.int32)
 
 
+@torch.library.custom_op("mapping_tpu_torch::ccl_label", mutates_args=(),
+                         device_types="cpu")
+def ccl_label(mask: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) bool/uint8 contiguous mask -> int32 labels numbered 1..K
+    per image in scipy.ndimage.label order, background 0. CPU: the plain
+    version; CUDA: `kernels.ccl.label`."""
+    return _renumber(_label_raw(mask != 0, mask.shape[-2] + mask.shape[-1]))
+
+
+@ccl_label.register_kernel("cuda")
+def _ccl_label_cuda(mask):
+    return ccl_kernels.label(mask)
+
+
+@ccl_label.register_fake
+def _ccl_label_fake(mask):
+    return torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+
+
 def connected_components(mask, max_iters=None, renumber=True):
     """Label 4-connected components of a (..., H, W) mask batch.
 
@@ -104,21 +133,22 @@ def connected_components(mask, max_iters=None, renumber=True):
         int32 labels of the mask's shape, on the mask's device.
     """
     h, w = mask.shape[-2], mask.shape[-1]
-    if mask.device.type == "cuda":
-        if max_iters is not None:
-            raise ValueError("the CUDA union-find converges exactly and "
-                             "takes no max_iters")
-        flat = mask.reshape(-1, h, w)
-        if flat.dtype not in (torch.bool, torch.uint8):
-            flat = flat != 0  # the kernels read any nonzero byte as foreground
-        flat = flat.contiguous()
-        if renumber:
-            labels = ccl_kernels.label(flat)
-        else:
-            labels = ccl_kernels.label_raw(flat)
-        return labels.reshape(mask.shape)
-    if mask.device.type != "cpu":
+    if mask.device.type not in ("cuda", "cpu"):
         raise ValueError(f"connected_components: no CCL for {mask.device}")
-    mask = mask != 0
-    labels = _label_raw(mask, h + w if max_iters is None else max_iters)
-    return _renumber(labels) if renumber else labels
+    if mask.device.type == "cuda" and max_iters is not None:
+        raise ValueError("the CUDA union-find converges exactly and takes no "
+                         "max_iters")
+    if max_iters is not None:
+        labels = _label_raw(mask != 0, max_iters)
+        return _renumber(labels) if renumber else labels
+    flat = mask.reshape(-1, h, w)
+    if flat.dtype not in (torch.bool, torch.uint8):
+        flat = flat != 0  # the kernels read any nonzero byte as foreground
+    flat = flat.contiguous()
+    if renumber:
+        labels = ccl_label(flat)
+    elif flat.device.type == "cuda":
+        labels = ccl_kernels.label_raw(flat)
+    else:
+        labels = _label_raw(flat != 0, h + w)
+    return labels.reshape(mask.shape)

@@ -47,7 +47,7 @@ from mapping_tpu_torch.constants import (CATEGORY_IDS, CATEGORY_LAYERS, SEED,
 from mapping_tpu_torch.data.loader import SegmentationLoader
 from mapping_tpu_torch.data.tta import tta_specs
 from mapping_tpu_torch.infer.postprocess import active_layers_for
-from mapping_tpu_torch.infer.serving import FusedServe
+from mapping_tpu_torch.infer.serving import FusedServe, ServeProgram
 from mapping_tpu_torch.scoring import (NonMaximumSupression, ScoringGBM,
                                        features_from_tensor)
 from mapping_tpu_torch.train.trainer import UNetTrainer
@@ -287,22 +287,34 @@ class UNetPipeline:
         with `return_features` the feature tensor) leave the device."""
         key = bool(return_features)
         if key not in self._serve:
-            post = self.config.postprocessor
-            self._serve[key] = FusedServe(
-                self.trainer.probs_apply_fn(),
-                target_size=tuple(post.target_size),
-                category_layers=self.category_layers,
-                active_layers=active_layers_for(CATEGORY_IDS,
-                                                self.category_layers),
-                erode_size=int(post.erode_selem_size),
-                dilate_size=int(post.dilate_selem_size),
-                crop_size=(tuple(post.target_size) if self.crop_predictions
-                           else None),
-                tta_specs=(tta_specs(**dict(self.config.tta_generator))
-                           if self.tta else None),
-                tta_method=self.config.tta_aggregator.method,
-                compute_features=key)
+            self._serve[key] = FusedServe(self.trainer.probs_apply_fn(),
+                                          **self._serve_args(key))
         return self._serve[key]
+
+    def serve_module(self, return_features=False):
+        """The ServeProgram of `serve_program` with the loader's device
+        preprocess in front (uint8 tiles in) over the current weights, for
+        export (infer/artifact.py)."""
+        self._ensure_weights()
+        return ServeProgram(self.trainer.probs_module(),
+                            preprocess=self.loader.device_preprocess,
+                            **self._serve_args(return_features))
+
+    def _serve_args(self, return_features):
+        post = self.config.postprocessor
+        return dict(
+            target_size=tuple(post.target_size),
+            category_layers=self.category_layers,
+            active_layers=active_layers_for(CATEGORY_IDS,
+                                            self.category_layers),
+            erode_size=int(post.erode_selem_size),
+            dilate_size=int(post.dilate_selem_size),
+            crop_size=(tuple(post.target_size) if self.crop_predictions
+                       else None),
+            tta_specs=(tta_specs(**dict(self.config.tta_generator))
+                       if self.tta else None),
+            tta_method=self.config.tta_aggregator.method,
+            compute_features=bool(return_features))
 
     def _serve_flow(self, flow, steps, return_features=False):
         """(((labels, trimmed scores), feature tensor or None) per image)

@@ -71,6 +71,24 @@ def _not_ported(what: str, item: int):
         f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
 
 
+class SoftmaxProbs(torch.nn.Module):
+    """images (B, H, W, 3) normalised float -> (B, H, W, C) float32
+    softmax of `model` run in `compute_dtype` (float32 with TF32 off for
+    the call only)."""
+
+    def __init__(self, model, compute_dtype):
+        super().__init__()
+        self.model = model
+        self.compute_dtype = compute_dtype
+
+    def forward(self, images):
+        x = images.permute(0, 3, 1, 2).to(self.compute_dtype)
+        with _no_tf32(self.compute_dtype == torch.float32):
+            logits = self.model(x)
+        return torch.softmax(logits.to(torch.float32), dim=1).permute(
+            0, 2, 3, 1)
+
+
 class UNetTrainer:
     """Holds the model, its optimizer and schedule; fit/score/state_dict."""
 
@@ -308,14 +326,15 @@ class UNetTrainer:
 
         @torch.inference_mode()
         def probs(images):
-            model = self.serving_model()
-            x = images.permute(0, 3, 1, 2).to(self.dtype)
-            with _no_tf32(self.dtype == torch.float32):
-                logits = model(x)
-            return torch.softmax(logits.to(torch.float32), dim=1).permute(
-                0, 2, 3, 1)
+            return SoftmaxProbs(self.serving_model(), self.dtype)(images)
 
         return probs
+
+    def probs_module(self):
+        """The same function as `probs_apply_fn` as a module over the
+        current BN-folded copy, outside inference mode, for torch.export
+        (infer/artifact.py); it does not follow later weight changes."""
+        return SoftmaxProbs(self.serving_model(), self.dtype)
 
     # --------------------------------------------------------------- fit
     def fit(self, datagen, validation_datagen=None, meta_valid=None):

@@ -9,10 +9,15 @@ model_dtype float32, the port on the CPU.
 
 Tolerances: prediction.json holds the same instances, image by image
 (image id, category, counts string and bbox equal, scores 1e-4
-relative), and AP/AR are equal. An image may differ only if some pixel's
-resized probability lies within 1e-4 of the 0.5 threshold, where the two
-frameworks' float32 rounding may fall on either side (at most one image);
-AP/AR then agree to 0.05.
+relative), and AP/AR are equal. An image may differ only where the two
+frameworks' float32 rounding may put a pixel on either side of the 0.5
+threshold: the band is the largest |port - JAX| of the resized building
+probability over the batches as they were served (`served_probabilities`,
+at most 1e-4), and every pixel where the two decoded label maps disagree
+must have a JAX probability within that band of the threshold (within the
+erosion + dilation reach of such a pixel when the postprocess erodes or
+dilates), and every instance of one side that the other lacks must touch
+such a pixel. AP/AR then agree to 0.05.
 """
 
 import json
@@ -28,7 +33,6 @@ import numpy as np
 import pandas as pd
 import pytest
 import torch
-import yaml
 
 from mapping_tpu.manager import PipelineManager as JaxManager
 from mapping_tpu.manager import _sample as jax_sample
@@ -107,7 +111,10 @@ def write_config(ws, name, extra):
               "meta_dir": str(ws["root"] / "meta"),
               "experiment_dir": str(exp), **extra}
     path = ws["root"] / f"{name}.yaml"
-    path.write_text(yaml.safe_dump({"parameters": params}))
+    # JSON scalars and flow lists ([1, 19]), which both packages' readers
+    # take (the port's refuses block lists)
+    path.write_text("parameters:\n" + "".join(
+        f"  {k}: {json.dumps(v)}\n" for k, v in params.items()))
     return str(path)
 
 
@@ -128,20 +135,70 @@ def _prediction(ws, name):
     return json.loads((ws["root"] / name / "prediction.json").read_text())
 
 
-def near_threshold(ws, extra):
-    """Pixels per image whose resized probability lies within 1e-4 of the
-    threshold, from the port's float32 forward."""
-    config = build_config(overrides={**PARAMS, **extra})
-    pipe = PIPELINES[PIPELINE]["inference"](config).set_weights(ws["state"])
-    probs = pipe.trainer.probs_apply_fn()(
-        pipe.loader.infer_preprocess(ws["tiles"]))
-    p = resize_bilinear(probs, (300, 300))[..., 1].numpy()
-    return (np.abs(p - 0.5) < 1e-4).sum(axis=(1, 2))
+def served_probabilities(ws, pipeline, extra):
+    """(port, JAX) resized building probability (N, 300, 300) of the
+    fixture's tiles, computed by each framework's serve program on the
+    batches of `batch_size_inference` that evaluate serves (the ragged
+    tail padded with the last tile), from the experiment's unet.msgpack."""
+    import jax
+
+    from mapping_tpu.config import build_config as jax_build_config
+    from mapping_tpu.data.augment import resize_bilinear as jax_resize
+    from mapping_tpu.pipelines import PIPELINES as JAX_PIPELINES
+
+    config = write_config(ws, f"probe_{pipeline}_{len(extra)}", extra)
+    pipe = PIPELINES[pipeline]["inference"](build_config(config))
+    pipe._ensure_weights()
+    port_serve = pipe.serve_program()
+    jpipe = JAX_PIPELINES[pipeline]["inference"](jax_build_config(config))
+    jpipe.trainer.load(jpipe.trainer_cache_path)
+    jax_serve = jpipe.serve_program()
+    jax_probs = jax.jit(jax_serve._probs)
+    tiles = ws["tiles"]
+    bs = int(build_config(config).params.batch_size_inference)
+    port, want = [], []
+    for start in range(0, len(tiles), bs):
+        idx = np.minimum(np.arange(start, start + bs), len(tiles) - 1)
+        n = min(bs, len(tiles) - start)
+        with torch.no_grad():
+            p = resize_bilinear(port_serve._probs(
+                pipe.loader.infer_preprocess(tiles[idx])), (300, 300))
+        j = jax_resize(jax_probs(jax_serve._get_params(),
+                                 jpipe.loader.infer_preprocess(tiles[idx])),
+                       (300, 300))
+        port.append(p[:n, ..., 1].numpy())
+        want.append(np.asarray(j)[:n, ..., 1])
+    return np.concatenate(port), np.concatenate(want)
 
 
-def assert_same_instances(got, want, near, image_ids):
-    """Instances equal image by image (scores 1e-4 relative); returns the
-    images excused by a near-threshold pixel."""
+def _label_map(preds, shape):
+    """The decoded instances of one image: foreground (H, W) bool and the
+    instance masks, keyed by counts string."""
+    from mapping_tpu_torch.ops.rle import decode
+
+    fg = np.zeros(shape, bool)
+    masks = {}
+    for p in preds:
+        mask = decode(p["segmentation"]).astype(bool)
+        fg |= mask
+        masks[p["segmentation"]["counts"]] = mask
+    return fg, masks
+
+
+def assert_same_instances(got, want, probs, image_ids, reach=0,
+                          threshold=0.5):
+    """Instances equal image by image (scores 1e-4 relative). An image
+    that differs is decoded on both sides: every pixel where the two label
+    maps disagree must lie within `reach` pixels of one whose JAX
+    probability is within the band (max |port - JAX| of `probs`, the
+    (port, JAX) maps of `served_probabilities`) of the threshold, and every
+    instance of one side that the other lacks must touch such a pixel.
+    Returns the excused images."""
+    from scipy import ndimage
+
+    port, jax_maps = probs
+    band = float(np.abs(port - jax_maps).max())
+    assert band < 1e-4, band
     by_image = [defaultdict(list), defaultdict(list)]
     for side, preds in zip(by_image, (got, want)):
         for p in preds:
@@ -155,12 +212,30 @@ def assert_same_instances(got, want, near, image_ids):
             and a["bbox"] == b["bbox"]
             and abs(a["score"] - b["score"]) <= 1e-4 * abs(b["score"])
             for a, b in zip(g, w))
-        if not same:
-            assert near[i] > 0, f"image {image_id} differs away from the " \
-                f"threshold"
-            excused.append(image_id)
-    assert len(excused) <= 1, excused
-    assert len(got) > 0
+        if same:
+            continue
+        near = np.abs(jax_maps[i] - threshold) <= band
+        if reach:
+            near = ndimage.binary_dilation(
+                near, np.ones((2 * reach + 1,) * 2, bool))
+        fg_g, masks_g = _label_map(g, near.shape)
+        fg_w, masks_w = _label_map(w, near.shape)
+        away = (fg_g != fg_w) & ~near
+        assert not away.any(), (
+            f"image {image_id}: {int(away.sum())} pixels differ away from "
+            f"the threshold (band {band:.3g})")
+        touching = ndimage.binary_dilation(near)
+        for key in set(masks_g) ^ set(masks_w):
+            mask = masks_g.get(key, masks_w.get(key))
+            assert (mask & touching).any(), (
+                f"image {image_id}: an instance differs away from the "
+                f"threshold (band {band:.3g})")
+        for key in set(masks_g) & set(masks_w):
+            a = next(p for p in g if p["segmentation"]["counts"] == key)
+            b = next(p for p in w if p["segmentation"]["counts"] == key)
+            assert abs(a["score"] - b["score"]) <= 1e-4 * abs(b["score"])
+        excused.append(image_id)
+    assert len(excused) < len(image_ids) and len(got) > 0
     return excused
 
 
@@ -193,7 +268,8 @@ def test_cli_evaluate_matches_jax(workspace):
     got = _prediction(ws, "port_resize")
     ids = sorted({p["image_id"] for p in want})
     assert ids == list(range(1, 7))
-    excused = assert_same_instances(got, want, near_threshold(ws, {}), ids)
+    excused = assert_same_instances(
+        got, want, served_probabilities(ws, PIPELINE, {}), ids)
     metrics = [json.loads(l) for l in (ws["root"] / "port_resize"
                                        / "metrics.jsonl").open()]
     assert [m["channel"] for m in metrics] == ["Precision", "Recall"]
@@ -211,7 +287,8 @@ def test_predict_on_dir_matches_jax(workspace, tmp_path):
     want = json.loads((tmp_path / "jax.json").read_text())
     got = json.loads((tmp_path / "port.json").read_text())
     assert sorted({p["image_id"] for p in want}) == list(range(6))
-    assert_same_instances(got, want, near_threshold(ws, {}), range(6))
+    assert_same_instances(got, want,
+                          served_probabilities(ws, PIPELINE, {}), range(6))
     t = manager.timings
     assert t["images"] == 6 and t["decode_s"] > 0 and t["device_s"] > 0
 
@@ -329,19 +406,10 @@ def test_manager_evaluate_scores_ground_truth_as_one(workspace, monkeypatch):
                 }) == 4
 
 
-@pytest.mark.parametrize("command,item", [("serve", "17"),
-                                          ("export", "18"),
-                                          ("visualize", "23"),
+@pytest.mark.parametrize("command,item", [("visualize", "23"),
                                           ("parity_drill", "23")])
 def test_cli_unported_commands_exit_naming_their_item(command, item):
     from mapping_tpu_torch import main
 
     with pytest.raises(SystemExit, match=f"ROADMAP item {item}"):
         main.main([command])
-
-
-def test_cli_artifact_refused():
-    from mapping_tpu_torch import main
-
-    with pytest.raises(SystemExit, match="ROADMAP item 18"):
-        main.main(["evaluate", "--artifact", "somewhere"])

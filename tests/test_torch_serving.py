@@ -252,7 +252,10 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.pipelines',\n"
         "        'mapping_tpu_torch.scoring',\n"
         "        'mapping_tpu_torch.data.tta',\n"
-        "        'mapping_tpu_torch.utils.native_gbm'} <= set(names)\n"
+        "        'mapping_tpu_torch.utils.native_gbm',\n"
+        "        'mapping_tpu_torch.infer.daemon',\n"
+        "        'mapping_tpu_torch.infer.artifact',\n"
+        "        'mapping_tpu_torch.utils.resize'} <= set(names)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'mapping_tpu', 'pandas', 'yaml', 'click', 'PIL', "
         "'msgpack', 'joblib', 'imageio', 'sklearn') and sys.modules[k] is "
@@ -266,12 +269,12 @@ def test_port_imports_without_jax():
 
 
 def test_chip_smoke_imports_without_jax_and_refuses_without_a_card(tmp_path):
-    """chip_smoke.py imports nothing of jax, flax or the JAX package, and
-    run without a CUDA card (as here), or from a directory that holds it
-    alone, exits non-zero before printing any result."""
+    """chip_smoke.py imports nothing of jax, flax, PIL or the JAX package,
+    and run without a CUDA card (as here), or from a directory that holds
+    it alone, exits non-zero before printing any result."""
     root = Path(__file__).resolve().parents[1]
     block = ("import sys, runpy\n"
-             "for m in ('jax', 'flax', 'mapping_tpu'):\n"
+             "for m in ('jax', 'flax', 'mapping_tpu', 'PIL'):\n"
              "    sys.modules[m] = None\n"
              "import torch\n"
              "torch.cuda.is_available = lambda: {card}\n"
