@@ -152,7 +152,29 @@ the JAX package is imported. Phases, each printing what it found:
      exactly that size), and predict_on_dir's must equal the batch-20
      ones; requests/s, p50/p99 latency (client clock), mean batch
      occupancy over each run (/v1/stats) and each child's CCL launches,
-     printed after SIGTERM (killed at a 60 s deadline).
+     printed after SIGTERM (killed at a 60 s deadline);
+ 12. the model zoo, under build/chip_smoke_zoo/, on phase 6's split
+     (phase 9's metadata cut to its first 200 train tiles, the crowded
+     and the empty one among them, and the 110 val tiles), seeded random
+     weights, the JAX config's defaults (bf16, batch 20, 256^2 in, 300^2
+     out): (a) for each of VGG11, VGG16, from_scratch and UNetPlusPlus a
+     child process (ZOO_CHILD) runs `train -p unet_weighted` for 1 epoch
+     with validation mAP through the CUDA `label`, then `evaluate` of
+     that experiment: each must write a prediction.json that
+     check_prediction accepts and launch the CCL kernels in both
+     commands; prints the parameter count, ms/step, peak device memory,
+     the evaluate's images/s and stage seconds, AP/AR; in this process
+     the family's served masks of 20 val tiles (and the same
+     probabilities thresholded at their median) go through `label` and
+     the plain CCL, which must be equal; (b) UNetMultitask with
+     nr_outputs 2 takes 3 train steps with finite losses, and its
+     validation, serving and export refuse with MULTI_HEAD; (c) `export`
+     of the VGG11 experiment, then `evaluate --artifact`, whose AP/AR
+     must equal the live evaluate's; (d) `visualize` of VGG16's
+     prediction.json must write 4 overlays of 300^2, and `parity_drill`
+     with a module.-prefixed .pth of VGG16's weights (in a fresh
+     meta_dir, so it scans the val split) must report the AP/AR of (a)'s
+     evaluate of those weights.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -244,6 +266,15 @@ SERVE_DEADLINE = 300  # seconds a serve child gets to answer /v1/health
 #: parameters of phase 11 over the JAX config's defaults (ResNet101, bf16,
 #: batch 20, 300^2 -> 256^2 -> 300^2)
 SERVE_PARAMS = {}
+ZOO_DIR = ROOT / "build" / "chip_smoke_zoo"
+#: phase 12's families (the config's `encoder`), the tiles of its train
+#: sub-split (phase 6's train split holds 1,002), and the train steps of its
+#: multi-head leg
+ZOO_FAMILIES = ("VGG11", "VGG16", "from_scratch", "UNetPlusPlus")
+ZOO_TRAIN, ZOO_MULTI_STEPS = 200, 3
+#: parameters of phase 12 over the JAX config's defaults (bf16, batch 20,
+#: 256^2 in, 300^2 out): one epoch, validated on every val tile
+ZOO_PARAMS = {"epochs_nr": 1, "evaluation_data_sample": PREP_VAL}
 #: the CCL kernels of the fused `label` (csrc/ccl.cu), by name part
 CCL_KERNELS = ("tile_label", "merge_borders", "resolve", "scan", "gather")
 #: a child process that runs the CLI's entry point on its arguments and
@@ -271,6 +302,28 @@ SERVE_CHILD = ("import json, signal, sys\n"
                "finally:\n"
                "    print('ccl launches ' + json.dumps(ccl.LAUNCHES), "
                "flush=True)\n")
+
+
+#: one family of phase 12 in a child process: the CLI's `train -p
+#: unet_weighted`, then its `evaluate` of that experiment; prints the CCL
+#: launch counts, the peak device memory of each command and the
+#: evaluate's stage seconds as one JSON line
+ZOO_CHILD = ("import json, sys, torch\n"
+             "from mapping_tpu_torch import main\n"
+             "from mapping_tpu_torch.kernels import ccl\n"
+             "config = sys.argv[1]\n"
+             "main.main(['--config', config, 'train', '-p', "
+             "'unet_weighted'])\n"
+             "out = {'train_peak_mib': torch.cuda.max_memory_allocated() "
+             "/ 2 ** 20, 'train_launches': dict(ccl.LAUNCHES)}\n"
+             "torch.cuda.reset_peak_memory_stats()\n"
+             "manager = main.main(['--config', config, 'evaluate', '-p', "
+             "'unet_weighted'])\n"
+             "out['evaluate_peak_mib'] = torch.cuda.max_memory_allocated() "
+             "/ 2 ** 20\n"
+             "out['timings'] = manager.timings\n"
+             "out['launches'] = dict(ccl.LAUNCHES)\n"
+             "print('zoo ' + json.dumps(out))\n")
 
 
 def card():
@@ -2352,6 +2405,234 @@ def serving_phase(smi, prepared):
           f"(host clock)")
     return launches
 
+def zoo_phase(smi, prepared):
+    import contextlib
+    import io
+
+    from mapping_tpu_torch import main as cli
+    from mapping_tpu_torch.config import build_config
+    from mapping_tpu_torch.data.augment import resize_bilinear
+    from mapping_tpu_torch.data.loader import (in_memory_train_flow,
+                                               load_image, load_target)
+    from mapping_tpu_torch.data.metadata import read_metadata, write_metadata
+    from mapping_tpu_torch.infer.artifact import export_serving_artifact
+    from mapping_tpu_torch.kernels import ccl as K
+    from mapping_tpu_torch.models.registry import build_network
+    from mapping_tpu_torch.ops.ccl import _label_raw, _renumber
+    from mapping_tpu_torch.pipelines import PIPELINES
+    from mapping_tpu_torch.train.step import MULTI_HEAD
+    from mapping_tpu_torch.train.trainer import UNetTrainer
+    from mapping_tpu_torch.utils.png import read_png_rgb
+
+    phase_start = time.perf_counter()
+    shutil.rmtree(ZOO_DIR, ignore_errors=True)
+    meta = ZOO_DIR / "meta"
+    meta.mkdir(parents=True)
+    # phase 9's metadata of phase 6's split: the first ZOO_TRAIN train
+    # rows (the crowded and the empty tile among them) and every val row
+    rows = read_metadata(Path(prepared["meta_dir"]) / "metadata.csv")
+    train_rows = [r for r in rows if r["is_train"] == 1][:ZOO_TRAIN]
+    val_rows = [r for r in rows if r["is_valid"] == 1]
+    write_metadata(train_rows + val_rows, str(meta / "metadata.csv"))
+    ids = set(range(1, PREP_VAL + 1))
+    steps = -(-ZOO_TRAIN // BATCH)
+    launches = {k: 0 for k in K.LAUNCHES}
+
+    def count(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    def config(name, **extra):
+        return write_config(name, {
+            "data_dir": str(PREP_DIR / "data"), "meta_dir": str(meta),
+            "experiment_dir": str(ZOO_DIR / name), "device": DEVICE,
+            **ZOO_PARAMS, **extra}, ZOO_DIR)
+
+    # (a) each family: train 1 epoch and evaluate, in a child process
+    paths = [r["file_path_image"] for r in val_rows[:BATCH]]
+    tiles = np.stack([load_image(p) for p in paths])
+    scores = {}
+    for family in ZOO_FAMILIES:
+        cfg = config(family, encoder=family)
+        experiment = ZOO_DIR / family
+        log = ZOO_DIR / f"{family}.log"
+        rc, seconds, rss = run_child(
+            [sys.executable, "-c", ZOO_CHILD, cfg], log)
+        text = log.read_text()
+        last = text.strip().splitlines()[-1] if text.strip() else ""
+        if rc != 0 or not last.startswith("zoo "):
+            raise AssertionError(f"{family}: exited {rc}:\n" + text[-3000:])
+        child = json.loads(last[len("zoo "):])
+        count(child["launches"])
+        took = [float(t) for t in re.findall(r"epoch \d+ took ([\d.]+)s",
+                                             text)]
+        maps = re.findall(r"epoch \d+ validation mAP = ([\d.]+) in "
+                          r"([\d.]+) s", text)
+        check_prediction(experiment / "prediction.json", ids,
+                         f"zoo {family}", allow_empty=True)
+        ap, ar = last_scores(experiment)
+        scores[family] = (ap, ar)
+        mp = build_config(cfg).unet["model_params"]
+        n_params = sum(p.numel() for p in build_network(mp).parameters())
+        t = child["timings"]
+        print(f"zoo: (a) {family}: {n_params:,} parameters; `train -p "
+              f"unet_weighted` 1 epoch of {steps} steps of {BATCH} tiles "
+              f"({ZOO_TRAIN} train tiles read from files) "
+              + ", ".join(f"{1e3 * x / steps:.2f} ms/step" for x in took)
+              + " (first epoch: cuDNN's first calls included), validation "
+              f"mAP {maps[0][0] if maps else None} in "
+              f"{maps[0][1] if maps else None} s on {PREP_VAL} tiles, peak "
+              f"device memory {child['train_peak_mib']:.1f} MiB; `evaluate` "
+              f"{t['images']} images in {t['total_s']:.4f} s, "
+              f"{t['images'] / t['total_s']:.2f} images/s: decode "
+              f"{t['decode_s']:.4f} s, device {t['device_s']:.4f} s, "
+              f"annotation + RLE {t['annotation_s']:.4f} s, COCOeval "
+              f"{t['cocoeval_s']:.4f} s (host clock), peak device memory "
+              f"{child['evaluate_peak_mib']:.1f} MiB; AP {ap} AR {ar}; child "
+              f"{seconds:.2f} s, peak RSS {rss:.0f} MiB; CCL launches train "
+              f"{child['train_launches']}, train + evaluate "
+              f"{child['launches']} on {smi}")
+        if len(took) != 1 or len(maps) != 1 or t["images"] != PREP_VAL \
+                or min(child["train_launches"].values()) < 1 \
+                or min(child["launches"].values()) \
+                <= min(child["train_launches"].values()):
+            raise AssertionError(f"{family}: epochs {took}, mAP {maps}, "
+                                 f"timings {t}, launches {child}")
+        # the family's served masks: the CUDA label = the plain CCL
+        pipe = PIPELINES["unet_weighted"]["inference"](build_config(cfg))
+        pipe._ensure_weights()
+        serve = pipe.serve_program()
+        with torch.inference_mode():
+            probs = resize_bilinear(serve._probs(
+                pipe.loader.infer_preprocess(tiles)), (TILE, TILE))[..., 1]
+        for what, masks in (("served", probs > 0.5),
+                            ("at the median", probs > probs.median())):
+            kernel, plain = K.label(masks), _renumber(_label_raw(masks,
+                                                                 2 * TILE))
+            if not torch.equal(kernel, plain):
+                raise AssertionError(f"{family}: label != plain CCL on the "
+                                     f"{what} masks")
+            print(f"zoo: (a) {family}: CUDA label = plain CCL on the {what} "
+                  f"masks of {BATCH} val tiles ({int(plain.amax())} "
+                  f"components max per image)")
+        del pipe, serve, probs
+
+    # (b) the multi-head model trains, and refuses validation and serving
+    rows20 = train_rows[:BATCH]
+    images_u8 = np.stack([load_image(r["file_path_image"]) for r in rows20])
+    targets = np.stack([load_target(r["file_path_mask_eroded_0_dilated_0"])
+                        for r in rows20])
+
+    def flow():
+        return in_memory_train_flow(images_u8, targets, BATCH, TRAIN_SIZE,
+                                    torch.Generator().manual_seed(0),
+                                    device=DEVICE)
+
+    multi_cfg = build_config(config("multitask", encoder="from_scratch",
+                                    nr_unet_outputs=2))
+    unet = multi_cfg.unet
+    trainer = UNetTrainer(
+        unet["model_params"], unet["optimizer_params"], unet["loss"],
+        {"epochs": ZOO_MULTI_STEPS}, loss_name="weighted",
+        input_size=TRAIN_SIZE, device=DEVICE)
+    start = time.perf_counter()
+    trainer.fit(flow())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    losses = trainer.train_losses
+    refused = []
+    for what, call in (
+            ("validation", lambda: trainer.score_validation(flow())),
+            ("serving", trainer.probs_apply_fn),
+            ("export", lambda: export_serving_artifact(
+                PIPELINES["unet_weighted"]["inference"](multi_cfg)
+                .set_weights(trainer.state_dict()), multi_cfg,
+                str(ZOO_DIR / "multitask_artifact")))):
+        try:
+            call()
+        except TypeError as err:
+            if str(err) == MULTI_HEAD:
+                refused.append(what)
+    print(f"zoo: (b) UNetMultitask (nr_outputs 2): {len(losses)} train "
+          f"steps in {seconds:.2f} s, losses {losses}; refused: {refused}")
+    if len(losses) != ZOO_MULTI_STEPS or not np.isfinite(losses).all() \
+            or refused != ["validation", "serving", "export"]:
+        raise AssertionError("the multi-head leg did not train and refuse")
+    del trainer
+
+    # (c) VGG11's artifact: export, then evaluate --artifact = the live AP/AR
+    vgg11 = config("VGG11", encoder="VGG11")
+    artifact = ZOO_DIR / "VGG11_artifact"
+    torch.cuda.synchronize()
+    K.reset_launches()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # the manifest
+        cli.main(["--config", vgg11, "export", "-p", "unet_weighted",
+                  "--dir_path", str(artifact)])
+    export_s = time.perf_counter() - start
+    manager = cli.main(["--config", vgg11, "evaluate", "--artifact",
+                        str(artifact)])
+    torch.cuda.synchronize()
+    got = dict(K.LAUNCHES)
+    count(got)
+    check_prediction(ZOO_DIR / "VGG11" / "prediction.json", ids,
+                     "zoo VGG11 --artifact", allow_empty=True)
+    art_scores = last_scores(ZOO_DIR / "VGG11")
+    t = manager.timings
+    print(f"zoo: (c) VGG11 `export` in {export_s:.2f} s ("
+          f"{sum(f.stat().st_size for f in artifact.iterdir()) / 2 ** 20:.1f}"
+          f" MiB), `evaluate --artifact` {t['images'] / t['total_s']:.2f} "
+          f"images/s (load {t['load_s']:.4f} s): AP/AR {art_scores} against "
+          f"the live {scores['VGG11']}; CCL launches {got}")
+    if art_scores != scores["VGG11"] or min(got.values()) < 1:
+        raise AssertionError("the VGG11 artifact's AP/AR differ from the "
+                             "live evaluate's")
+
+    # (d) visualize VGG16's prediction.json; the parity drill on its weights
+    vgg16 = config("VGG16", encoder="VGG16")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--config", vgg16, "visualize", "--prediction_path",
+                  str(ZOO_DIR / "VGG16" / "prediction.json"), "--out_dir",
+                  str(ZOO_DIR / "overlays"), "-n", "4"])
+    written = json.loads(out.getvalue().strip().splitlines()[-1])["written"]
+    shapes = {read_png_rgb(p).shape for p in written}
+    print(f"zoo: (d) `visualize` of VGG16's prediction.json wrote "
+          f"{len(written)} overlays {sorted(Path(p).name for p in written)} "
+          f"of shapes {shapes}")
+    if len(written) != 4 or shapes != {(TILE, TILE, 3)}:
+        raise AssertionError(f"visualize wrote {written}")
+    reference = ZOO_DIR / "vgg16_reference.pth"
+    state = torch.load(ZOO_DIR / "VGG16" / "transformers" / "unet.pt",
+                       map_location="cpu", weights_only=True)
+    torch.save({"module." + k: v for k, v in state.items()}, reference)
+    drill = write_config("drill", {
+        "meta_dir": str(ZOO_DIR / "drill_meta"),
+        "experiment_dir": str(ZOO_DIR / "drill"), "device": DEVICE,
+        "encoder": "VGG16", **ZOO_PARAMS}, ZOO_DIR)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--config", drill, "parity_drill", "-p", "unet_weighted",
+                  "--checkpoint", str(reference), "--data_dir",
+                  str(PREP_DIR / "data")])
+    torch.cuda.synchronize()
+    got = dict(K.LAUNCHES)
+    count(got)
+    text = out.getvalue()
+    report = json.loads(text[text.index("{\n"):])
+    print(f"zoo: (d) `parity_drill` on VGG16's weights (a module.-prefixed "
+          f".pth): {json.dumps(report)}; CCL launches {got}")
+    if (report["ap"], report["ar"]) != scores["VGG16"] \
+            or not (ZOO_DIR / "drill_meta" / "metadata.csv").exists() \
+            or min(got.values()) < 1:
+        raise AssertionError(f"the drill's AP/AR {report} differ from "
+                             f"VGG16's evaluate {scores['VGG16']}")
+    print(f"zoo: phase 12 took {time.perf_counter() - phase_start:.2f} s; "
+          f"CCL launches {launches}")
+    return launches
+
 
 def main():
     smi = card()
@@ -2367,7 +2648,7 @@ def main():
     for phase in (prepared["launches"], evaluate_phase(gen, smi),
                   train_cli_phase(smi, prepared),
                   scoring_phase(smi, prepared),
-                  serving_phase(smi, prepared)):
+                  serving_phase(smi, prepared), zoo_phase(smi, prepared)):
         for name, n in phase.items():
             launches[name] += n
     n, c, h, w = DW_TIMED[DW_MAIN]

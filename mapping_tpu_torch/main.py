@@ -7,12 +7,15 @@ same command names, flags and --config (default $CONFIG_PATH). Commands:
 prepare_masks, prepare_metadata, train, train_evaluate, evaluate
 (`--artifact DIR` scores an exported artifact), predict_on_dir (also
 `--artifact DIR`), import_checkpoint, serve (the HTTP daemon,
-infer/daemon.py, over a pipeline or `--artifact DIR`) and export (the
+infer/daemon.py, over a pipeline or `--artifact DIR`), export (the
 serve program per batch bucket with torch.export, infer/artifact.py; prints
-the manifest). The parameter `device` (default cuda) says where the model,
-the target preparation and an artifact run; a CUDA device needs a card.
-The other commands of the JAX CLI exit non-zero, naming the ROADMAP item
-that ports them.
+the manifest), visualize (ground-truth-vs-prediction overlay PNGs of a
+prediction.json, utils/visualize.py; prints {"written": [...]}; needs no
+card) and parity_drill (import a reference checkpoint, evaluate, print
+the report against the reference's AP 0.943 / AR 0.954; `--checkpoint`
+defaults to $CHECKPOINT, `--data_dir` to $DATA_DIR, then the config's).
+The parameter `device` (default cuda) says where the model, the target
+preparation and an artifact run; a CUDA device needs a card.
 
     python3 -m mapping_tpu_torch.main --config config.yaml train -p unet_weighted
     python3 -m mapping_tpu_torch.main --config config.yaml evaluate -p unet_tta
@@ -22,6 +25,10 @@ that ports them.
         --artifact artifact
     python3 -m mapping_tpu_torch.main --config config.yaml serve \
         --artifact artifact --port 8000
+    python3 -m mapping_tpu_torch.main --config config.yaml visualize \
+        --prediction_path experiment/prediction.json --out_dir overlays
+    DATA_DIR=... CHECKPOINT=ref.pth python3 -m mapping_tpu_torch.main \
+        --config config.yaml parity_drill
     # with `category_layers: [1, 19]` in scoring.yaml:
     python3 -m mapping_tpu_torch.main --config scoring.yaml train -p scoring_model
     python3 -m mapping_tpu_torch.main --config scoring.yaml evaluate \
@@ -31,12 +38,12 @@ that ports them.
 import argparse
 import json
 import logging
+import os
 import sys
 
-from mapping_tpu_torch.manager import PipelineManager
+from mapping_tpu_torch.manager import PipelineManager, parity_drill
+from mapping_tpu_torch.utils.visualize import visualize_predictions
 
-#: commands of the JAX CLI not ported yet -> ROADMAP item
-NOT_PORTED = {"visualize": "23", "parity_drill": "23"}
 _WARM_START_HELP = ("continue training from the cached transformer under the "
                     "current yaml (stage 2+ of the multistage recipe); the "
                     "completed previous stage is archived, not overwritten")
@@ -114,9 +121,38 @@ def _parser():
                    help="the device class to export for (cpu or cuda); it "
                         "must be the config's device")
 
-    for name in NOT_PORTED:
-        p = sub.add_parser(name, help="not ported")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
+    p = sub.add_parser("visualize")
+    p.add_argument("--prediction_path", required=True,
+                   help="a COCO results json (what evaluate/predict_on_dir "
+                        "write)")
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("-n", "--n_images", type=int, default=8)
+    p.add_argument("--dataset", default="val",
+                   help="GT split under data_dir (annotation.json + "
+                        "images/)")
+    p.add_argument("--score_threshold", type=float, default=0.0)
+    p.add_argument("--max_dets", type=int, default=100,
+                   help="draw at most the top-K detections per image by "
+                        "score; 0 = unlimited")
+    p.add_argument("--hide_suppressed", dest="hide_suppressed",
+                   action="store_true", default=True,
+                   help="hide score 0 instances (NMS-suppressed markers of "
+                        "a scoring pipeline's emit_suppressed output)")
+    p.add_argument("--show_suppressed", dest="hide_suppressed",
+                   action="store_false")
+
+    p = sub.add_parser("parity_drill")
+    p.add_argument("-p", "--pipeline_name", default="unet")
+    p.add_argument("--checkpoint", dest="checkpoint_path",
+                   default=os.environ.get("CHECKPOINT"),
+                   help="reference trained checkpoint (torch state_dict); "
+                        "defaults to $CHECKPOINT")
+    p.add_argument("--data_dir", default=os.environ.get("DATA_DIR"),
+                   help="CrowdAI dataset root (train/ + val/ with "
+                        "annotation.json); defaults to $DATA_DIR, else the "
+                        "config's data_dir")
+    p.add_argument("-c", "--chunk_size", type=int, default=None)
+    p.add_argument("-d", "--dev_mode", action="store_true")
     return ap
 
 
@@ -134,10 +170,10 @@ def _init_logger():
 
 def main(argv=None) -> PipelineManager:
     """Run one command; returns the PipelineManager that ran it."""
-    args = _parser().parse_args(argv)
-    if args.command in NOT_PORTED:
-        raise SystemExit(f"{args.command} is not ported to PyTorch yet "
-                         f"(ROADMAP item {NOT_PORTED[args.command]})")
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.command == "parity_drill" and not args.checkpoint_path:
+        ap.error("no checkpoint: pass --checkpoint or set $CHECKPOINT")
     _init_logger()
     manager = PipelineManager(args.config_path)
     if args.command == "prepare_masks":
@@ -154,6 +190,21 @@ def main(argv=None) -> PipelineManager:
         return manager
     if args.command == "export":
         _export(manager, args)
+        return manager
+    if args.command == "visualize":
+        written = visualize_predictions(
+            args.prediction_path, manager.params.data_dir, args.out_dir,
+            dataset=args.dataset, n_images=args.n_images,
+            score_threshold=args.score_threshold, max_dets=args.max_dets,
+            hide_suppressed=args.hide_suppressed)
+        print(json.dumps({"written": written}))
+        return manager
+    if args.command == "parity_drill":
+        report = parity_drill(manager, args.pipeline_name,
+                              args.checkpoint_path, data_dir=args.data_dir,
+                              chunk_size=args.chunk_size,
+                              dev_mode=args.dev_mode)
+        print(json.dumps(report, indent=1))
         return manager
     device = manager.params.get("device", "cuda")
     if args.command == "predict_on_dir" and args.artifact_dir:

@@ -21,9 +21,11 @@ Each evaluate and predict_on_dir leaves the host seconds of its stages in
 `manager.timings`: decode (on the loader's threads), device (in
 FusedServe.dispatch and .collect), annotation + RLE, COCOeval, and the
 whole call; a scoring pipeline adds its feature tables and regressor
-(`scoring_s`), its NMS (`nms_s`) and the instances NMS suppressed. Not
-ported yet, and raising with its ROADMAP item: the parity drill (item
-23).
+(`scoring_s`), its NMS (`nms_s`) and the instances NMS suppressed.
+
+`parity_drill` imports a reference checkpoint, scans the val split's
+metadata when there is none, evaluates, and reports AP/AR beside the
+reference's published 0.943 / 0.954 (the CLI's `parity_drill`).
 
 `evaluate_artifact` (`evaluate --artifact DIR`) scores an exported serving
 artifact (infer/artifact.py) on the same validation sample with the same
@@ -55,11 +57,6 @@ from mapping_tpu_torch.prep.targets import overlay_masks
 from mapping_tpu_torch.train.callbacks import MetricSink
 
 logger = logging.getLogger(__name__)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
 
 
 def _seed_everything(seed):
@@ -170,8 +167,51 @@ class PipelineManager:
                        self.config, self.timings)
 
 
-def parity_drill(*args, **kwargs):
-    raise _not_ported("parity_drill", "23")
+#: the reference's published stage-1 validation result and the agreed
+#: tolerance (the JAX package's mapping_tpu/manager.py keeps the same)
+REFERENCE_AP = 0.943
+REFERENCE_AR = 0.954
+PARITY_TOLERANCE = 0.002
+
+
+def parity_drill(manager, pipeline_name, checkpoint_path, data_dir=None,
+                 chunk_size=None, dev_mode=False):
+    """import_checkpoint -> prepare_metadata of the val split when
+    meta_dir has no metadata.csv -> evaluate -> the report (a dict with
+    the JAX drill's keys): AP/AR, the reference's, their deltas, the
+    tolerance and whether both deltas are within it. `data_dir` replaces
+    the config's for this manager."""
+    if data_dir:
+        manager.params["data_dir"] = str(data_dir)
+    if not os.path.exists(checkpoint_path):
+        raise FileNotFoundError(f"no checkpoint at {checkpoint_path}")
+    manager.start_experiment()
+    meta_path = os.path.join(manager.params.meta_dir, "metadata.csv")
+    if not os.path.exists(meta_path):
+        logger.info("parity drill: no metadata.csv; scanning the val split")
+        manager.prepare_metadata(train_data=False, valid_data=True)
+    manager.import_checkpoint(checkpoint_path, pipeline_name)
+    ap, ar = manager.evaluate(pipeline_name, dev_mode=dev_mode,
+                              chunk_size=chunk_size)
+    report = {
+        "pipeline": pipeline_name,
+        "checkpoint": str(checkpoint_path),
+        "ap": float(ap),
+        "ar": float(ar),
+        "reference_ap": REFERENCE_AP,
+        "reference_ar": REFERENCE_AR,
+        "delta_ap": round(float(ap) - REFERENCE_AP, 6),
+        "delta_ar": round(float(ar) - REFERENCE_AR, 6),
+        "tolerance": PARITY_TOLERANCE,
+        "parity": bool(abs(float(ap) - REFERENCE_AP) <= PARITY_TOLERANCE
+                       and abs(float(ar) - REFERENCE_AR) <= PARITY_TOLERANCE),
+    }
+    logger.info("parity drill: AP %.4f (ref %.3f, delta %+.4f)  AR %.4f "
+                "(ref %.3f, delta %+.4f)  parity=%s",
+                report["ap"], REFERENCE_AP, report["delta_ap"],
+                report["ar"], REFERENCE_AR, report["delta_ar"],
+                report["parity"])
+    return report
 
 
 # ---------------------------------------------------------------------------

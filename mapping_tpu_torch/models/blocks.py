@@ -32,6 +32,26 @@ class Upsample2x(nn.Module):
         return upsample2x(x)
 
 
+class DecoderBlock(nn.Module):
+    """TernausNet V1 (UNet11): ConvRelu(mid) -> ConvTranspose2d(3x3, stride
+    2, pad 1, output_pad 1) -> ReLU.
+
+    That torch deconv is the Flax ConvTranspose with explicit padding
+    ((1, 2), (1, 2)) and a spatially flipped kernel
+    (mapping_tpu/models/torch_convert.py `_decoder_block_v1`)."""
+
+    def __init__(self, cin, mid, cout):
+        super().__init__()
+        self.block = nn.Sequential(
+            ConvRelu(cin, mid),
+            nn.ConvTranspose2d(mid, cout, 3, stride=2, padding=1,
+                               output_padding=1),
+            nn.ReLU(inplace=True))
+
+    def forward(self, x):
+        return self.block(x)
+
+
 class DecoderBlockV2(nn.Module):
     """is_deconv: ConvRelu(mid) -> ConvTranspose2d(4x4, stride 2, pad 1) ->
     ReLU; otherwise bilinear 2x upsample -> ConvRelu(mid) -> ConvRelu(out).

@@ -9,6 +9,12 @@ only (full float32, as the JAX package computes it). The filter gradients
 come from autograd (cuDNN on a card), as the JAX step takes them from XLA's
 vjp; the dW kernel (kernels/conv_dw.py) runs through tools/dw_probe.py.
 
+A multi-head model (UNetMultitask) returns a list of logits: the train
+step averages the heads' losses, each head on its own target where the
+batch gives a list of targets, else all on the one target (the JAX
+step). The eval and predict steps take one map and refuse a list
+(`single_logits`), where the JAX package's fail on it.
+
 `remat` re-runs the forward in the backward pass
 (torch.utils.checkpoint), like jax.checkpoint in the JAX step. A re-run
 forward would update the BatchNorm running statistics a second time, so
@@ -69,6 +75,35 @@ def _eval_mode(model: nn.Module):
         model.train(was_training)
 
 
+MULTI_HEAD = ("a multi-head model (UNetMultitask, nr_outputs > 1) returns "
+              "one logits map per head: it trains on the mean of the heads' "
+              "losses, but validation and serving take one map (the JAX "
+              "package's eval and predict steps fail on a list of logits)")
+
+
+def single_logits(logits):
+    """`logits` of a one-head model; a list of them raises (MULTI_HEAD)."""
+    if isinstance(logits, (list, tuple)):
+        raise TypeError(MULTI_HEAD)
+    return logits
+
+
+def _nhwc_logits(logits):
+    return logits.float().permute(0, 2, 3, 1)
+
+
+def heads_loss(loss_fn: Callable, logits, target):
+    """loss_fn of one logits map, or the mean over the heads of a list of
+    maps, each against its own entry of a list `target` or all against
+    the one `target`."""
+    if not isinstance(logits, (list, tuple)):
+        return loss_fn(_nhwc_logits(logits), target)
+    targets = (target if isinstance(target, (list, tuple))
+               else [target] * len(logits))
+    return sum(loss_fn(_nhwc_logits(lg), tg)
+               for lg, tg in zip(logits, targets)) / len(logits)
+
+
 def _nchw(images):
     return images.permute(0, 3, 1, 2)
 
@@ -102,8 +137,7 @@ def make_train_step(loss_fn: Callable, model: nn.Module,
         with _no_tf32(dtype == torch.float32):
             with _autocast(device, dtype):
                 logits = _forward(model, batch["image"], remat)
-            loss = loss_fn(logits.float().permute(0, 2, 3, 1),
-                           batch["target"])
+            loss = heads_loss(loss_fn, logits, batch["target"])
             loss.backward()
         optimizer.step()
         if scheduler is not None:
@@ -139,8 +173,8 @@ def make_eval_step(loss_fn: Callable, model: nn.Module,
     def eval_step(batch):
         with _eval_mode(model), _no_tf32(dtype == torch.float32), \
                 _autocast(device, dtype):
-            logits = model(_nchw(batch["image"]))
-        return loss_fn(logits.float().permute(0, 2, 3, 1), batch["target"])
+            logits = single_logits(model(_nchw(batch["image"])))
+        return loss_fn(_nhwc_logits(logits), batch["target"])
 
     return eval_step
 
@@ -154,7 +188,7 @@ def make_predict_step(model: nn.Module, dtype: torch.dtype = torch.bfloat16):
     def predict_step(images):
         with _eval_mode(model), _no_tf32(dtype == torch.float32), \
                 _autocast(device, dtype):
-            logits = model(_nchw(images))
+            logits = single_logits(model(_nchw(images)))
         return torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)
 
     return predict_step

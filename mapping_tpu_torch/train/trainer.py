@@ -22,12 +22,13 @@ for a trainer that only serves.
 
 Weights come and go as the reference-named state_dict: `save` writes the
 port's transformer cache (torch.save, `unet.pt`), `load` reads it, a best
-or resume file, or a JAX experiment's flax `unet.msgpack` (UNetResNet or
-AlbuNet), and `import_torch_checkpoint` takes a reference torch
-checkpoint; each checks every key and shape. `save_train_state` and
-`load_train_state` write and read the whole training state (the resume
-file). `warm_start(path)` starts the next fit from the weights in `path`
-with a fresh optimizer, step 0 and a fresh schedule. `pretrained_weights`
+or resume file, or a JAX experiment's flax `unet.msgpack` (every family
+of the registry), and `import_torch_checkpoint` takes a reference torch
+checkpoint (ResNet, AlbuNet and VGG U-Nets); each checks every key and
+shape. `save_train_state` and `load_train_state` write and read the
+whole training state (the resume file). `warm_start(path)` starts the
+next fit from the weights in `path` with a fresh optimizer, step 0 and a
+fresh schedule. `pretrained_weights`
 names a local torchvision encoder file (.pth or .npz), grafted onto the
 encoder the first time the float32 model is used, as the JAX package
 grafts it when it creates its state: fit, save, serving, and before any
@@ -44,10 +45,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from mapping_tpu_torch.models.convert import (albunet_state_dict_from_flax,
-                                              state_dict_from_flax)
+from mapping_tpu_torch.models.convert import state_dict_for_encoder
 from mapping_tpu_torch.models.fold_bn import fold_batch_stats
 from mapping_tpu_torch.models.registry import build_network
+from mapping_tpu_torch.models.scratch import UNetMultitask
 from mapping_tpu_torch.train.callbacks import (CallbackList,
                                                default_unet_callbacks)
 from mapping_tpu_torch.train.checkpoint import (load_flax_weights,
@@ -57,8 +58,8 @@ from mapping_tpu_torch.train.checkpoint import (load_flax_weights,
                                                 save_train_state)
 from mapping_tpu_torch.train.losses import make_loss_fn
 from mapping_tpu_torch.train.state import make_optimizer
-from mapping_tpu_torch.train.step import (_no_tf32, make_eval_step,
-                                          make_predict_step,
+from mapping_tpu_torch.train.step import (MULTI_HEAD, _no_tf32,
+                                          make_eval_step, make_predict_step,
                                           make_train_step_multi)
 
 logger = logging.getLogger(__name__)
@@ -156,20 +157,36 @@ class UNetTrainer:
         return self.model
 
     def _graft_pretrained(self, path):
-        """The encoder's weights and BatchNorm statistics from a torchvision
-        ResNet state_dict file, by the reference's names (its `fc.` head
-        aside; `num_batches_tracked` may be absent): any other missing or
-        extra key, or another shape, raises."""
+        """The encoder's weights (and BatchNorm statistics) from a local
+        torchvision file, as the JAX trainer grafts them. ResNet / AlbuNet:
+        by the reference's names (its `fc.` head aside;
+        `num_batches_tracked` may be absent), any other missing or extra
+        key, or another shape, raises. VGG: `features.N.{weight,bias}`
+        become `encoder.N` where the model has that conv (the classifier
+        and other indices are dropped); another shape raises. The other
+        families raise, as in the JAX trainer."""
         encoder = self.model_params.get("encoder", "ResNet101")
-        state = {k: v for k, v in load_torch_state_dict(path).items()
-                 if not k.startswith("fc.")}
-        own = self.model.encoder.state_dict()
-        optional = {k for k in own if k.endswith("num_batches_tracked")}
-        missing = sorted(set(own) - set(state) - optional)
-        extra = sorted(set(state) - set(own))
-        if missing or extra:
-            raise ValueError(f"{path}: encoder keys do not match {encoder}: "
-                             f"missing {missing[:5]}, unexpected {extra[:5]}")
+        own = self.model.encoder.state_dict() if hasattr(
+            self.model, "encoder") else {}
+        if encoder.startswith("ResNet") or encoder == "AlbuNet":
+            state = {k: v for k, v in load_torch_state_dict(path).items()
+                     if not k.startswith("fc.")}
+            optional = {k for k in own if k.endswith("num_batches_tracked")}
+            missing = sorted(set(own) - set(state) - optional)
+            extra = sorted(set(state) - set(own))
+            if missing or extra:
+                raise ValueError(
+                    f"{path}: encoder keys do not match {encoder}: missing "
+                    f"{missing[:5]}, unexpected {extra[:5]}")
+        elif encoder.startswith("VGG"):
+            state = {k[len("features."):]: v
+                     for k, v in load_torch_state_dict(path).items()
+                     if k.startswith("features.")
+                     and k.endswith((".weight", ".bias"))}
+            state = {k: v for k, v in state.items() if k in own}
+        else:
+            raise ValueError(
+                f"pretrained weights unsupported for encoder {encoder!r}")
         for k, v in state.items():
             if tuple(v.shape) != tuple(own[k].shape):
                 raise ValueError(f"{path}: shape mismatch at {k}: "
@@ -267,7 +284,17 @@ class UNetTrainer:
 
     def import_torch_checkpoint(self, path):
         """A reference torch checkpoint (plain state_dict,
-        {"state_dict": ...}-wrapped or "module."-prefixed) into the model."""
+        {"state_dict": ...}-wrapped or "module."-prefixed) into the model:
+        the ResNet, AlbuNet and VGG U-Nets, whose names are the
+        reference's; the other families raise, as the JAX package's
+        `convert_full_checkpoint` does."""
+        encoder = self.model_params.get("encoder", "ResNet101")
+        if not (encoder.startswith(("ResNet", "VGG"))
+                or encoder == "AlbuNet"):
+            raise ValueError(
+                f"checkpoint import unsupported for encoder {encoder!r} "
+                f"(supported: ResNet34/ResNet101/ResNet152/AlbuNet/VGG11/"
+                f"VGG16)")
         return self.load_state_dict(load_torch_state_dict(path))
 
     def save(self, filepath):
@@ -279,28 +306,21 @@ class UNetTrainer:
         optimizer state is not read) or, for a path ending in .msgpack,
         from the JAX package's flax checkpoint (params and batch_stats)."""
         if str(filepath).endswith(".msgpack"):
-            encoder = self.model_params.get("encoder", "ResNet101")
-            is_deconv = bool(self.model_params.get("is_deconv", True))
-            params, batch_stats = load_flax_weights(filepath)
-            if encoder.startswith("ResNet"):
-                state = state_dict_from_flax(
-                    params, batch_stats, int(encoder[len("ResNet"):]),
-                    is_deconv)
-            elif encoder == "AlbuNet":
-                state = albunet_state_dict_from_flax(params, batch_stats,
-                                                     is_deconv)
-            else:
-                raise NotImplementedError(
-                    f"reading a flax checkpoint of {encoder!r} is not "
-                    f"ported yet (ROADMAP item 20)")
+            state = state_dict_for_encoder(self.model_params,
+                                           *load_flax_weights(filepath))
         else:
             state = load_weights(filepath)
         return self.load_state_dict(state)
 
     # ------------------------------------------------------------ serve
+    def _refuse_multi_head(self):
+        if isinstance(self.model, UNetMultitask):
+            raise TypeError(MULTI_HEAD)
+
     def serving_model(self):
         """The BN-folded copy of the model in the compute dtype that
         `probs_apply_fn` runs, re-made when the weights changed."""
+        self._refuse_multi_head()
         if self.model is not None:
             self._master()  # a pending encoder graft changes the weights
         if self._folded_version != self._state_version:
@@ -323,6 +343,7 @@ class UNetTrainer:
         softmax probabilities, from a BN-folded copy of the model in the
         compute dtype (float32 runs with TF32 off for the call only). The
         copy is re-folded when the weights change."""
+        self._refuse_multi_head()
 
         @torch.inference_mode()
         def probs(images):

@@ -6,8 +6,9 @@ filters. Anything else (palettes, 16-bit samples, Adam7) raises. The
 loader uses it for PNG files when the native decoder (cpp/decode.cpp,
 which needs the libpng and libjpeg headers) did not build, and for the
 target masks. The writer writes the 8-bit greyscale masks of
-`prep.targets` (the JAX package writes them with imageio): no row
-filters, zlib level 6.
+`prep.targets` (the JAX package writes them with imageio) and the RGB
+overlays of `utils.visualize` (the JAX package writes them with Pillow):
+no row filters, zlib level 6.
 """
 
 import struct
@@ -164,3 +165,13 @@ def write_png_gray(path, mask: np.ndarray):
         raise ValueError(f"write_png_gray: needs (H, W), got {mask.shape}")
     with open(path, "wb") as f:
         f.write(encode_png(np.asarray(mask)))
+
+
+def write_png_rgb(path, pixels: np.ndarray):
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG file."""
+    pixels = np.asarray(pixels)
+    if pixels.ndim != 3:
+        raise ValueError(f"write_png_rgb: needs (H, W, 3), got "
+                         f"{pixels.shape}")
+    with open(path, "wb") as f:
+        f.write(encode_png(pixels))

@@ -404,12 +404,3 @@ def test_manager_evaluate_scores_ground_truth_as_one(workspace, monkeypatch):
     assert oracle.seen == [int(i) for i in want]
     assert len({p["image_id"] for p in _prediction(ws, "port_ground_truth")
                 }) == 4
-
-
-@pytest.mark.parametrize("command,item", [("visualize", "23"),
-                                          ("parity_drill", "23")])
-def test_cli_unported_commands_exit_naming_their_item(command, item):
-    from mapping_tpu_torch import main
-
-    with pytest.raises(SystemExit, match=f"ROADMAP item {item}"):
-        main.main([command])

@@ -255,7 +255,11 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.utils.native_gbm',\n"
         "        'mapping_tpu_torch.infer.daemon',\n"
         "        'mapping_tpu_torch.infer.artifact',\n"
-        "        'mapping_tpu_torch.utils.resize'} <= set(names)\n"
+        "        'mapping_tpu_torch.utils.resize',\n"
+        "        'mapping_tpu_torch.models.vgg',\n"
+        "        'mapping_tpu_torch.models.scratch',\n"
+        "        'mapping_tpu_torch.models.unetpp',\n"
+        "        'mapping_tpu_torch.utils.visualize'} <= set(names)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'mapping_tpu', 'pandas', 'yaml', 'click', 'PIL', "
         "'msgpack', 'joblib', 'imageio', 'sklearn') and sys.modules[k] is "
@@ -289,6 +293,24 @@ def test_chip_smoke_imports_without_jax_and_refuses_without_a_card(tmp_path):
             capture_output=True, text=True, timeout=120, cwd=tmp_path)
         assert out.returncode != 0 and reason in out.stderr, out.stderr
         assert out.stdout == ""
+    # the modules phase 12 (the zoo, visualize, parity_drill) drives
+    # import with the same packages blocked
+    zoo = ("import sys, importlib\n"
+           "for m in ('jax', 'flax', 'mapping_tpu', 'PIL'):\n"
+           "    sys.modules[m] = None\n"
+           f"sys.path.insert(0, {str(root)!r})\n"
+           "import runpy\n"
+           f"runpy.run_path({str(root / 'chip_smoke.py')!r})\n"
+           "for n in ('models.vgg', 'models.scratch', 'models.unetpp',\n"
+           "          'models.registry', 'utils.visualize', 'manager',\n"
+           "          'main'):\n"
+           "    importlib.import_module('mapping_tpu_torch.' + n)\n"
+           "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', "
+           "'flax', 'mapping_tpu', 'PIL') and sys.modules[k] is not None]\n"
+           "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", zoo], capture_output=True,
+                         text=True, timeout=120, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
 
 
 def test_constants_equal_jax_package():
