@@ -175,6 +175,26 @@ the JAX package is imported. Phases, each printing what it found:
      with a module.-prefixed .pth of VGG16's weights (in a fresh
      meta_dir, so it scans the val split) must report the AP/AR of (a)'s
      evaluate of those weights.
+ 13. int8 serving, under build/chip_smoke_quantize/, on phase 9 (a)'s
+     weights and phase 6's split: (a) the int8 conv of models/quantize.py
+     (im2col + torch._int_mm) in the six geometries of
+     tests/test_quantize.py at c_in = c_out = 256, and the ResNet stem at
+     c_in = 3, on random int8 inputs and kernels: its int32 accumulator
+     must equal a float64 conv of the same integers on the card, exactly;
+     its ms per call beside the bf16 cuDNN conv's (CUDA events, in turns)
+     and its bound; (b) `evaluate -p unet_weighted` with
+     `quantized_serving: 1` (QUANT_CHILD, a child process, twice: the
+     first run pays the process's first int8 calls): images/s and stage
+     seconds of both, the calibration's seconds, the convs in the qtable
+     and the _int_mm calls, AP/AR beside the float evaluate's of the same
+     weights (in process), CCL launches above 0; in process the int8
+     probabilities of 20 val tiles against the float ones: argmax
+     agreement on confident pixels (|p - 0.5| > 0.1) above 0.98, the
+     _int_mm calls per batch; (c) `export` of the int8 program (bucket
+     20) in a child, then `evaluate --artifact`, whose prediction.json
+     must equal (b)'s byte for byte; (d) `dense_crf` in window and grid
+     mode on one 300^2 tile and its float probabilities, the card
+     against the CPU within 1e-4.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -276,6 +296,16 @@ ZOO_TRAIN, ZOO_MULTI_STEPS = 200, 3
 #: 256^2 in, 300^2 out): one epoch, validated on every val tile
 ZOO_PARAMS = {"epochs_nr": 1, "evaluation_data_sample": PREP_VAL}
 #: the CCL kernels of the fused `label` (csrc/ccl.cu), by name part
+QUANT_DIR = ROOT / "build" / "chip_smoke_quantize"
+#: phase 13's settings over the JAX config's defaults: int8 serving
+#: calibrated on the first 32 metadata images (the JAX default)
+QUANT_PARAMS = {"quantized_serving": 1, "quant_calib_images": 32}
+QUANT_WIDTH = 256  # c_in = c_out of phase 13 (a)'s conv geometries
+#: model parameters of phase 13 over the JAX config's defaults (ResNet101,
+#: bf16, batch 20, 256^2 in, 300^2 out)
+QUANT_MODEL = {}
+QUANT_AGREEMENT = 0.98  # tests/test_quantize.py's confident-pixel gate
+CRF_TOL = 1e-4  # dense_crf on the card against the CPU, absolute
 CCL_KERNELS = ("tile_label", "merge_borders", "resolve", "scan", "gather")
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
@@ -304,6 +334,20 @@ SERVE_CHILD = ("import json, signal, sys\n"
                "flush=True)\n")
 
 
+#: phase 13 (b): the CLI in a child process, twice (the first run pays
+#: the process's first int8 calls); prints both runs' stage seconds, the
+#: second run's int8 matrix products and CCL launch counts as one line
+QUANT_CHILD = ("import json, sys\n"
+               "from mapping_tpu_torch import main\n"
+               "from mapping_tpu_torch.kernels import ccl\n"
+               "from mapping_tpu_torch.models import quantize\n"
+               "cold = main.main(sys.argv[1:]).timings\n"
+               "quantize.MATMULS['int_mm'] = 0\n"
+               "ccl.reset_launches()\n"
+               "manager = main.main(sys.argv[1:])\n"
+               "print('quantized ' + json.dumps({'cold': cold, 'timings': "
+               "manager.timings, 'int_mm': quantize.MATMULS['int_mm'], "
+               "'launches': dict(ccl.LAUNCHES)}))\n")
 #: one family of phase 12 in a child process: the CLI's `train -p
 #: unet_weighted`, then its `evaluate` of that experiment; prints the CCL
 #: launch counts, the peak device memory of each command and the
@@ -2634,6 +2678,248 @@ def zoo_phase(smi, prepared):
     return launches
 
 
+def int8_conv_cases():
+    """Phase 13 (a): the six conv geometries of tests/test_quantize.py
+    (CONV_VARIANTS) at c_in = c_out = QUANT_WIDTH, and the ResNet stem at
+    c_in = 3: name -> (the port's module, NCHW input shape)."""
+    from torch import nn
+
+    c = QUANT_WIDTH
+    return {
+        "same3": (nn.Conv2d(c, c, 3, padding=1), (BATCH, c, 64, 64)),
+        "strided": (nn.Conv2d(c, c, 3, stride=2, padding=1),
+                    (BATCH, c, 64, 64)),
+        "stem": (nn.Conv2d(c, c, 7, stride=2, padding=3), (BATCH, c, 64, 64)),
+        "deconv_same": (nn.ConvTranspose2d(c, c, 4, stride=2, padding=1),
+                        (BATCH, c, 32, 32)),
+        "deconv_v1": (nn.ConvTranspose2d(c, c, 3, stride=2, padding=1,
+                                         output_padding=1),
+                      (BATCH, c, 32, 32)),
+        "one_by_one": (nn.Conv2d(c, c, 1), (BATCH, c, 64, 64)),
+        "stem c_in=3": (nn.Conv2d(3, 64, 7, stride=2, padding=3),
+                        (BATCH, 3, 256, 256)),
+    }
+
+
+def quantize_phase(gen, smi, prepared):
+    from mapping_tpu_torch import main as cli
+    from mapping_tpu_torch.config import build_config
+    from mapping_tpu_torch.data.augment import resize_bilinear
+    from mapping_tpu_torch.data.loader import load_image
+    from mapping_tpu_torch.kernels import bounds
+    from mapping_tpu_torch.kernels import ccl as K
+    from mapping_tpu_torch.models import quantize as Q
+    from mapping_tpu_torch.ops.crf import dense_crf
+    from mapping_tpu_torch.pipelines import PIPELINES
+
+    phase_start = time.perf_counter()
+    shutil.rmtree(QUANT_DIR, ignore_errors=True)
+    experiment = QUANT_DIR / "experiment"
+    (experiment / "transformers").mkdir(parents=True)
+    # phase 9 (a)'s weights: random ones find no building
+    shutil.copy2(TRAIN_DIR / "full" / "transformers" / "unet.pt",
+                 experiment / "transformers" / "unet.pt")
+    launches = {k: 0 for k in K.LAUNCHES}
+
+    def count(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    def config(name, **extra):
+        return write_config(name, {
+            "data_dir": str(PREP_DIR / "data"),
+            "meta_dir": str(prepared["meta_dir"]),
+            "experiment_dir": str(experiment), "device": DEVICE,
+            "evaluation_data_sample": PREP_VAL, **QUANT_MODEL, **extra},
+            QUANT_DIR)
+
+    # (a) the int8 accumulator = a float64 conv of the same integers
+    rows_a = []
+    for name, (mod, shape) in int8_conv_cases().items():
+        mod = mod.to(DEVICE)
+        w = torch.randint(-127, 128, tuple(mod.weight.shape), generator=gen,
+                          dtype=torch.int8).to(DEVICE)
+        qx = torch.randint(-127, 128, shape, generator=gen,
+                           dtype=torch.int8).to(DEVICE)
+        port = Q.QuantizedConv(mod, {
+            "w": w, "w_scale": torch.ones(w.shape[1 if isinstance(
+                mod, torch.nn.ConvTranspose2d) else 0], device=DEVICE),
+            "x_scale": torch.tensor(1.0, device=DEVICE)})
+        nhwc = qx.permute(0, 2, 3, 1).contiguous()
+
+        def run():
+            return Q.int8_conv(nhwc, port.w_mat, port.kernel_size,
+                               port.c_out, **port.geometry)
+
+        acc = run()
+        mod64 = mod.double()
+        with torch.no_grad():
+            mod64.weight.copy_(w.double())
+            mod64.bias.zero_()
+            want = mod64(qx.double())
+        got = acc.permute(0, 3, 1, 2).double()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"int8 conv {name}: the int32 accumulator "
+                                 f"differs from the float64 conv")
+        modbf = mod.to(torch.bfloat16).to(memory_format=torch.channels_last)
+        xbf = qx.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        with torch.no_grad():
+            times = in_turns({"int8": run, "bf16": lambda: modbf(xbf)},
+                             {"int8": cuda_ms, "bf16": cuda_ms},
+                             {"int8": 5, "bf16": 5})
+        int8_ms, bf16_ms = min(times["int8"]), min(times["bf16"])
+        k = port.w_mat.shape[1]
+        bound = bounds.int8_conv(acc.shape[0] * acc.shape[1] * acc.shape[2],
+                                 k, port.c_out, qx.numel())
+        rows_a.append(name)
+        print(f"quantize: (a) int8 conv {name} {tuple(shape)} -> "
+              f"{tuple(got.shape)}: int32 accumulator = float64 conv, "
+              f"exactly; {int8_ms:.4f} ms per call (im2col + _int_mm, "
+              f"CUDA events, readings {times['int8']}), bf16 cuDNN conv "
+              f"{bf16_ms:.4f} ms ({times['bf16']}), bound "
+              f"{bound[0]:.4f} ms ({bound[1]}) on {smi}")
+        del mod, mod64, modbf, acc, want, got
+    torch.cuda.empty_cache()
+
+    # (b) evaluate with quantized_serving: 1, the CLI in a child process
+    quant = config("quantized", **QUANT_PARAMS)
+    log = QUANT_DIR / "evaluate.log"
+    rc, seconds, _ = run_child([sys.executable, "-c", QUANT_CHILD,
+                                "--config", quant, "evaluate", "-p",
+                                "unet_weighted"], log)
+    text = log.read_text()
+    last = text.strip().splitlines()[-1] if text.strip() else ""
+    calib = re.search(r"quantized serving: (\d+) conv\(s\) int8, "
+                      r"calibrated on (\d+) image\(s\) in ([\d.]+) s",
+                      text)
+    if rc != 0 or not last.startswith("quantized ") or not calib:
+        raise AssertionError("quantized evaluate: " + text[-3000:])
+    child = json.loads(last[len("quantized "):])
+    count(child["launches"])
+    prediction = check_prediction(experiment / "prediction.json",
+                                  set(range(1, PREP_VAL + 1)),
+                                  "quantized evaluate")
+    live = QUANT_DIR / "live_prediction.json"
+    shutil.copy2(experiment / "prediction.json", live)
+    q_scores = last_scores(experiment)
+    t, c = child["timings"], child["cold"]
+    batches = -(-PREP_VAL // BATCH)
+    print(f"quantize: (b) `evaluate -p unet_weighted` with "
+          f"quantized_serving: 1, twice in one child process, exited 0 in "
+          f"{seconds:.2f} s of wall time: the first run {c['images']} images "
+          f"in {c['total_s']:.4f} s, {c['images'] / c['total_s']:.2f} "
+          f"images/s, device {c['device_s']:.4f} s; the second "
+          f"{t['images']} images in {t['total_s']:.4f} s, "
+          f"{t['images'] / t['total_s']:.2f} images/s; calibration "
+          f"{calib.group(3)} s on {calib.group(2)} images; {calib.group(1)} "
+          f"convs int8 (the first run's log); the second run's _int_mm calls "
+          f"{child['int_mm']} over {batches} batches, device "
+          f"{t['device_s']:.4f} "
+          f"s, decode {t['decode_s']:.4f} s, annotation + RLE "
+          f"{t['annotation_s']:.4f} s, COCOeval {t['cocoeval_s']:.4f} s "
+          f"(host clock); AP/AR {q_scores}; {len(prediction)} instances; "
+          f"CCL launches {child['launches']}")
+    if int(calib.group(1)) < 1 or child["int_mm"] < 1 \
+            or min(child["launches"].values()) < 1:
+        raise AssertionError(f"quantized evaluate ran no int8 conv or no "
+                             f"CCL kernel: {child}")
+    K.reset_launches()
+    flt = cli.main(["--config", config("float"), "evaluate", "-p",
+                    "unet_weighted"])
+    torch.cuda.synchronize()
+    count(dict(K.LAUNCHES))
+    f_scores = last_scores(experiment)
+    ft = flt.timings
+    print(f"quantize: (b) the float evaluate of the same weights and tiles "
+          f"(in process): {ft['images'] / ft['total_s']:.2f} images/s, "
+          f"device {ft['device_s']:.4f} s, AP/AR {f_scores}; int8 - float "
+          f"AP {q_scores[0] - f_scores[0]:+.4f}, AR "
+          f"{q_scores[1] - f_scores[1]:+.4f}")
+
+    # (b) in process: the int8 probabilities against the float ones
+    pipe = PIPELINES["unet_weighted"]["inference"](build_config(quant))
+    pipe._ensure_weights()
+    start = time.perf_counter()
+    probs_q = pipe._probs_fn()
+    calib_s = time.perf_counter() - start
+    paths = sorted((PREP_DIR / "data" / "val" / "images").iterdir())[:BATCH]
+    tiles = np.stack([load_image(str(p)) for p in paths])
+    images = pipe.loader.infer_preprocess(tiles)
+    before = Q.MATMULS["int_mm"]
+    got = probs_q(images)
+    torch.cuda.synchronize()
+    per_batch = Q.MATMULS["int_mm"] - before
+    want = pipe.trainer.probs_apply_fn()(images)
+    confident = (want[..., 1] - 0.5).abs() > 0.1
+    agree = ((got[..., 1] > 0.5) == (want[..., 1] > 0.5))[confident]
+    share = agree.float().mean().item()
+    mean_dp = (got - want).abs().mean().item()
+    qtable = probs_q.get_packed()["qtable"]
+    print(f"quantize: (b) int8 against float probabilities on {BATCH} val "
+          f"tiles: argmax agreement {share:.6f} on "
+          f"{int(confident.sum())} confident pixels (|p - 0.5| > 0.1), mean "
+          f"|dp| {mean_dp:.6f}; {len(qtable)} convs in the qtable; "
+          f"{per_batch} _int_mm calls per batch of {BATCH}; calibration "
+          f"{calib_s:.3f} s in process")
+    if not share > QUANT_AGREEMENT or not int(confident.sum()) \
+            or not len(qtable) or per_batch < 1:
+        raise AssertionError(f"int8 serving agrees with float on {share} of "
+                             f"the confident pixels")
+
+    # (c) the exported int8 program: its evaluate = (b)'s, bit for bit
+    artifact = QUANT_DIR / "artifact"
+    export_cfg = config("export", serve_batch_buckets="", **QUANT_PARAMS)
+    seconds, got_l = run_cli(export_cfg, QUANT_DIR / "export.log", "export",
+                             "-p", "unet_weighted", "--dir_path",
+                             str(artifact))
+    count(got_l)
+    manifest = json.loads((artifact / "manifest.json").read_text())
+    K.reset_launches()
+    replay = cli.main(["--config", quant, "evaluate", "--artifact",
+                       str(artifact)])
+    torch.cuda.synchronize()
+    count(dict(K.LAUNCHES))
+    same = json.loads((experiment / "prediction.json").read_text()) == \
+        json.loads(live.read_text())
+    rt = replay.timings
+    print(f"quantize: (c) `export` of the int8 program (bucket "
+          f"{manifest['batch_buckets']}, quantized {manifest['quantized']}) "
+          f"in {seconds:.2f} s (child process), then `evaluate --artifact`: "
+          f"{rt['images'] / rt['total_s']:.2f} images/s, load "
+          f"{rt.get('load_s', 0):.4f} s, AP/AR {last_scores(experiment)}; "
+          f"annotations bit-equal to (b)'s: {same}; CCL launches "
+          f"{dict(K.LAUNCHES)}")
+    if not same or manifest["quantized"] is not True:
+        raise AssertionError("the int8 artifact's annotations differ from "
+                             "the live int8 evaluate's")
+
+    # (d) dense_crf on one 300^2 tile, the card against the CPU
+    image = torch.from_numpy(tiles[0]).to(torch.float32) / 255.0
+    probs = resize_bilinear(want[:1], (TILE, TILE))[0]
+    for mode, kw in (("window", {}), ("grid", dict(
+            iterations=3, sxy_bilateral=8.0, srgb=40.0,
+            compat_bilateral=6.0))):
+        on_card = dense_crf(image.to(DEVICE), probs, **kw)
+        on_cpu = dense_crf(image, probs.cpu(), **kw)
+        err = (on_card.cpu() - on_cpu).abs().max().item()
+        card_ms = cuda_ms(lambda: dense_crf(image.to(DEVICE), probs, **kw),
+                          3)
+        start = time.perf_counter()
+        dense_crf(image, probs.cpu(), **kw)
+        cpu_ms = 1e3 * (time.perf_counter() - start)
+        print(f"quantize: (d) dense_crf {mode} mode on a {TILE}^2 tile: "
+              f"card vs CPU max |dq| {err:.3e} (tolerance {CRF_TOL}); card "
+              f"{card_ms:.3f} ms (CUDA events), CPU {cpu_ms:.1f} ms (host "
+              f"clock)")
+        if not err <= CRF_TOL:
+            raise AssertionError(f"dense_crf {mode}: card and CPU differ by "
+                                 f"{err}")
+    print(f"quantize: phase 13 took {time.perf_counter() - phase_start:.2f} "
+          f"s; CCL launches {launches}")
+    return launches
+
+
 def main():
     smi = card()
     from mapping_tpu_torch.kernels import bounds
@@ -2648,7 +2934,8 @@ def main():
     for phase in (prepared["launches"], evaluate_phase(gen, smi),
                   train_cli_phase(smi, prepared),
                   scoring_phase(smi, prepared),
-                  serving_phase(smi, prepared), zoo_phase(smi, prepared)):
+                  serving_phase(smi, prepared), zoo_phase(smi, prepared),
+                  quantize_phase(gen, smi, prepared)):
         for name, n in phase.items():
             launches[name] += n
     n, c, h, w = DW_TIMED[DW_MAIN]

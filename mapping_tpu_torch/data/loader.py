@@ -21,8 +21,12 @@ Counterpart of mapping_tpu/data/loader.py:
 Targets are (B, H, W, 3) [mask, distance, sqrt(size)], uint16 on the host
 (the JAX loader's format), cast to float32 on the device. The random
 draws (augmentation, crops) come from a host torch.Generator seeded with
-`seed`. Batches of tiles of mixed sizes raise: the JAX package resizes them
-on the host through PIL and gives float32 targets (ROADMAP item 12).
+`seed`. A batch of tiles of mixed sizes is resized on the host to `size`,
+as the JAX loader does through Pillow: the images by Pillow's bilinear
+(`utils/resize.resize_bilinear_u8`), the targets per channel in float32,
+nearest for the mask and size channels and bilinear for the distance
+(`resize_nearest_f32`, `resize_bilinear_f32`); such a batch's targets
+are float32, a batch of one size keeps uint16.
 """
 
 import os
@@ -42,6 +46,9 @@ from mapping_tpu_torch.data.augment import (PAD_FUNCTION, apply_fast_augment,
                                             sample_fast_augment,
                                             sample_random_crop)
 from mapping_tpu_torch.utils import native_decode, ndpickle, png
+from mapping_tpu_torch.utils.resize import (resize_bilinear_f32,
+                                            resize_bilinear_u8,
+                                            resize_nearest_f32)
 
 
 def load_image(path) -> np.ndarray:
@@ -86,6 +93,17 @@ def infer_batch_pad(image_u8: torch.Tensor, pad: Tuple[int, int],
     /255, `pad_fixed` by `method`, ImageNet normalisation."""
     return normalize_image(pad_fixed(image_u8.to(torch.float32) / 255.0,
                                      pad, method))
+
+
+def resize_target_f32(target: np.ndarray, size: Tuple[int, int]
+                      ) -> np.ndarray:
+    """(H, W, C) target -> (size, C) float32 on the host, channel by
+    channel as Pillow's mode "F" resizes it in the JAX loader: nearest for
+    the mask (0) and the size (2 and on), bilinear for the distance (1)."""
+    return np.dstack([
+        (resize_bilinear_f32 if c == 1 else resize_nearest_f32)(
+            target[..., c].astype(np.float32), size)
+        for c in range(target.shape[-1])])
 
 
 def _resize_target(target, size: Tuple[int, int]):
@@ -334,18 +352,21 @@ class SegmentationLoader:
             return list(ex.map(lambda p: self._cached(load, p), paths))
 
     def _assemble(self, image_paths, target_paths, idxs):
-        """(images (B, H, W, 3) uint8, targets (B, H, W, 3) uint16 or
-        None) of the files at `idxs`."""
+        """(images (B, H, W, 3) uint8, targets (B, H, W, 3) or None) of
+        the files at `idxs`; targets uint16, or float32 for a batch of
+        mixed sizes, which is resized to `size` on the host."""
         start = time.perf_counter()
         images = self._decode_many(load_image, np.asarray(image_paths)[idxs])
-        if len({im.shape for im in images}) > 1:
-            raise NotImplementedError(
-                "a batch of tiles of mixed sizes is not ported to PyTorch "
-                "yet (ROADMAP item 12)")
+        mixed = len({im.shape for im in images}) > 1
+        if mixed:
+            images = [resize_bilinear_u8(im, self.size) for im in images]
         targets = None
         if target_paths is not None:
-            targets = np.stack(self._decode_many(
-                load_target, np.asarray(target_paths)[idxs]))
+            targets = self._decode_many(load_target,
+                                        np.asarray(target_paths)[idxs])
+            if mixed:
+                targets = [resize_target_f32(t, self.size) for t in targets]
+            targets = np.stack(targets)
         batch = np.stack(images)
         with self._lock:
             self.decode_seconds += time.perf_counter() - start

@@ -6,7 +6,8 @@ bbox taken from the RLE and its score attached; the layer maps to its
 category by searchsorted(cumsum(category_layers)), and layers whose
 category id is None (the background) are skipped. The C++ library
 (utils/native.py `rle_instances`) extracts every instance of a layer in
-one pass where it builds; the numpy RLE code does otherwise.
+one pass where it builds; the numpy RLE code does otherwise, and writes
+the same strings (`_instance_rle`).
 """
 
 import logging
@@ -57,11 +58,8 @@ def labeled_to_annotations(
             instances = [(counts.decode("utf-8"), bbox) for counts, bbox in
                          _native.rle_instances(layer, n_instances)]
         else:
-            instances = []
-            for label_nr in range(1, n_instances + 1):
-                rle = rle_ops.encode((layer == label_nr).astype(np.uint8))
-                instances.append((rle["counts"].decode("utf-8"),
-                                  rle_ops.to_bbox(rle)))
+            instances = [_instance_rle(layer == label_nr)
+                         for label_nr in range(1, n_instances + 1)]
         for label_nr, (counts, bbox) in enumerate(instances, start=1):
             score = float(layer_scores[label_nr - 1])
             if not emit_suppressed and score == 0.0:
@@ -74,6 +72,21 @@ def labeled_to_annotations(
                 "bbox": bbox,
             })
     return annotations
+
+
+def _instance_rle(mask):
+    """(counts string, bbox) of one instance mask in the C++ library's
+    form: its run list ends with an empty 0-run when the last pixel in
+    column-major order is set, where `ops/rle.encode` (pycocotools) ends
+    with the 1-run. Both decode to the same mask; this keeps the string
+    the same whether or not the library builds."""
+    mask = np.asarray(mask, np.uint8)
+    runs = rle_ops._runs_from_flat(mask.flatten(order="F") != 0)
+    if mask.size and mask[-1, -1]:
+        runs.append(0)
+    rle = {"size": list(mask.shape),
+           "counts": rle_ops.counts_to_string(runs)}
+    return rle["counts"].decode("utf-8"), rle_ops.to_bbox(rle)
 
 
 def create_annotations(

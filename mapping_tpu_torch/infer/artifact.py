@@ -13,7 +13,9 @@ Artifact directory layout (the port's own; a JAX artifact is refused):
     manifest.json       the JAX manifest's geometry, buckets, outputs and
                         pipeline fields, with `torch_version` and
                         `exported_on_device` in place of `jax_version` and
-                        `platforms`; `quantized` is always false
+                        `platforms`; `quantized` says whether the
+                        program holds the int8 forward (its qtable
+                        snapshot at export)
     serve_b{B}.pt2      torch.export.save of one bucket's program; each
                         holds its own copy of the weights (torch.export
                         lifts them into the program's state dict), so an
@@ -51,6 +53,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from mapping_tpu_torch.models.quantize import QuantizedConv
 from mapping_tpu_torch.train.step import _no_tf32
 
 logger = logging.getLogger(__name__)
@@ -126,7 +129,8 @@ def export_serving_artifact(pipeline, config, out_dir: str,
         "category_layers": list(module.post["category_layers"]),
         "max_instances": module.max_instances,
         "tta_variants": module.tta_variants,
-        "quantized": False,
+        "quantized": any(isinstance(m, QuantizedConv)
+                         for m in module.modules()),
         "loader_mode": pipeline.loader.mode,
         "pipeline": (type(scoring).__name__ if scoring is not None
                      else type(pipeline).__name__),

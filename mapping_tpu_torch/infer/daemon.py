@@ -28,9 +28,11 @@ Endpoints:
 
 Transport is the standard library's ThreadingHTTPServer; a handler thread
 does one queue put and one event wait and never touches the device. Start
-it with `python3 -m mapping_tpu_torch.main serve -p unet`. Quantized
-serving and its background recalibration (ROADMAP item 21) and the mesh
-bucket filter (item 16) are not ported: `param_source_stats` is empty.
+it with `python3 -m mapping_tpu_torch.main serve -p unet`. With
+`quantized_serving: 1` a weight change rebuilds the int8 tables in the
+background while the previous snapshot serves; `param_source_stats`
+(in /v1/stats) counts those rebuilds. The mesh bucket filter (ROADMAP
+item 16) is not ported.
 """
 
 import io
@@ -171,9 +173,11 @@ class Microbatcher:
             self.stats[counter] += 1
 
     def param_source_stats(self):
-        """Recalibration counters of a quantized serve program: none in
-        the port (quantized serving, ROADMAP item 21)."""
-        return {}
+        """Recalibration counters of an int8 serve program
+        (FusedServe.recalibration_stats); {} for a float or an artifact
+        serve."""
+        fn = getattr(self._serve, "recalibration_stats", None)
+        return fn() if fn is not None else {}
 
     def latency_quantiles(self):
         """{p50, p95, p99} in ms over the recent served-request window."""
@@ -534,6 +538,10 @@ def daemon_from_pipeline(pipeline, config, host="127.0.0.1", port=8000,
     scoring, pipeline = unwrap_scoring_pipeline(pipeline, entry="serve")
     pipeline._ensure_weights()
     serve = pipeline.serve_program(return_features=scoring is not None)
+    if serve.enable_async_recalibration():
+        logger.info("quantized serving: weight-change recalibration runs in "
+                    "the background (the previous snapshot serves until the "
+                    "swap)")
     convert = None
     if scoring is not None:
         convert = scoring_convert_fn(

@@ -15,7 +15,10 @@ returns without waiting; `collect` copies the compact outputs to the host,
 which waits for them, and runs the overflow escalation (the rerun repeats
 the TTA on the images it reruns). A serving loop that dispatches batch k+1
 before it collects batch k keeps the device busy while the host handles
-batch k. Mesh and spatial serving (ROADMAP item 16) are not ported yet.
+batch k. An int8 forward (models/quantize.py `QuantizedProbs`) serves as
+any other; `enable_async_recalibration` and `recalibration_stats` reach
+its recalibration. Mesh and spatial serving (ROADMAP item 16) are not
+ported yet.
 """
 
 from typing import Callable, Optional, Sequence, Tuple
@@ -105,6 +108,22 @@ class FusedServe:
     @torch.inference_mode()
     def _run(self, images, max_instances):
         return self.program.run(images, max_instances)
+
+    def enable_async_recalibration(self) -> bool:
+        """Online mode for an int8 forward (models/quantize.py): on a
+        weight change, serve the previous int8 snapshot while the qtable
+        rebuilds on a background thread. False (nothing done) for a float
+        forward."""
+        hook = getattr(self.program.model_probs, "set_async", None)
+        if hook is None:
+            return False
+        hook(True)
+        return True
+
+    def recalibration_stats(self):
+        """{"recalibrations", "serving_stale_batches"} of an int8 forward;
+        {} for a float one."""
+        return dict(getattr(self.program.model_probs, "stats", {}) or {})
 
     def dispatch(self, images):
         """Enqueue one batch; returns a handle for `collect`. Does not

@@ -45,3 +45,19 @@ def ccl_label(n, h, w):
     """K1 with K2 fused (`kernels.ccl.label`): a (n, h, w) uint8 mask in,
     consecutive int32 labels out."""
     return bound_ms(0, n * h * w * (1 + 4))
+
+
+INT8_OPS = 1979e12  # dense tensor-core rate
+
+
+def int8_conv(rows, k, n, in_bytes):
+    """The int8 conv of models/quantize.py (not a kernel of this repo:
+    `torch._int_mm` over an im2col): `in_bytes` of int8 input and a
+    (k, n) int8 kernel read, a (rows, n) int32 accumulator written, and
+    one int8 multiply-add per output per contraction element."""
+    ops = 2 * rows * k * n
+    n_bytes = in_bytes + k * n + rows * n * 4
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, ops / INT8_OPS
+    if by_ops > by_bytes:
+        return 1e3 * by_ops, "operations"
+    return 1e3 * by_bytes, "bytes"

@@ -5,7 +5,8 @@ for the families the JAX package has no converter for (the from-scratch
 UNet / UNetMultitask and UNet++).
 
 This carries a network of any family trained by the JAX package into the
-port (`state_dict_for_encoder`). Numpy only: the trees may hold numpy or
+port (`state_dict_for_encoder`), and its int8 serving table with it
+(`qtable_from_flax`). Numpy only: the trees may hold numpy or
 JAX arrays, and neither framework is imported here.
 
 Layouts: a Flax conv kernel (kH, kW, I, O) is a torch weight (O, I, kH, kW).
@@ -15,7 +16,8 @@ flip is undone here. BatchNorm scale/bias (params) and mean/var
 (batch_stats) become weight/bias/running_mean/running_var.
 """
 
-from typing import Any, Dict
+from collections.abc import Mapping
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -189,3 +191,60 @@ def state_dict_for_encoder(model_params: Dict[str, Any],
     if encoder in ("from_scratch", "UNetPlusPlus"):
         return named_state_dict_from_flax(params, batch_stats)
     raise KeyError(f"unknown encoder {encoder!r}")
+
+
+_TAG = 2.0 ** 32
+
+
+def qtable_from_flax(model_params: Dict[str, Any], qtable: Dict[str, Any],
+                     params: Dict[str, Any],
+                     batch_stats: Optional[Dict[str, Any]] = None
+                     ) -> Dict[str, Dict[str, np.ndarray]]:
+    """A JAX qtable (mapping_tpu/models/quantize.py `build_qtable`: Flax
+    path -> {"w": int8 HWIO kernel, "w_scale", "x_scale"[, "bias"]}) of
+    the network that `model_params` builds -> the port's
+    (models/quantize.py: module name -> the same, "w" in the module's
+    weight layout).
+
+    `params` / `batch_stats` are that network's trees (unfolded: a folded
+    model keeps its conv paths). Each 4-D kernel is replaced by a tag, its
+    id times 2^32 plus each element's flat index, and the trees go
+    through `state_dict_for_encoder`: a weight's tag names the path it
+    came from, and its indices say where each int8 value lands (the
+    transpose, and the flip of a ConvTranspose). A qtable path that no
+    module receives raises KeyError."""
+    paths = {}
+
+    def tag(tree, prefix):
+        out = {}
+        for key, value in tree.items():
+            if isinstance(value, Mapping):
+                out[key] = tag(value, prefix + (key,))
+            elif key == "kernel" and np.ndim(value) == 4:
+                paths[len(paths) + 1] = "/".join(prefix)
+                out[key] = len(paths) * _TAG + np.arange(
+                    np.size(value), dtype=np.float64).reshape(np.shape(value))
+            else:
+                out[key] = value
+        return out
+
+    state = state_dict_for_encoder(model_params, tag(params, ()),
+                                   batch_stats or {})
+    port = {}
+    for key, value in state.items():
+        if not key.endswith(".weight") or np.ndim(value) != 4:
+            continue
+        ids = np.floor(value / _TAG)
+        path = paths.get(int(ids.flat[0]))
+        if path not in qtable:
+            continue
+        entry = {k: np.asarray(v) for k, v in qtable[path].items()}
+        index = (value - ids * _TAG).astype(np.int64)
+        entry["w"] = entry["w"].reshape(-1)[index].astype(np.int8)
+        port[key[:-len(".weight")]] = entry
+    found = {paths[int(np.floor(state[m + ".weight"].flat[0] / _TAG))]
+             for m in port}
+    missing = set(qtable) - found
+    if missing:
+        raise KeyError(f"qtable paths with no port module: {sorted(missing)}")
+    return port

@@ -32,8 +32,10 @@ fits the GBM, written to `transformers/scoring_model.pkl` (the JAX
 package's `scoring_model.joblib` beside it is read, never written);
 `ScoringInferencePipeline` scores every instance with the GBM and
 suppresses overlaps across layers (NMS), one image at a time
-(`force_stream`). Not ported yet, and raising with their ROADMAP item:
-int8 serving (item 21) and a device mesh (item 16).
+(`force_stream`). With `quantized_serving: 1` every pipeline serves the
+int8 forward of models/quantize.py, calibrated on the first
+`quant_calib_images` metadata images. Not ported yet, and raising with its
+ROADMAP item: a device mesh (item 16).
 """
 
 import logging
@@ -42,12 +44,17 @@ import shutil
 import time
 from functools import partial
 
+import torch
+
 from mapping_tpu_torch.constants import (CATEGORY_IDS, CATEGORY_LAYERS, SEED,
                                          X_COLUMNS, Y_COLUMNS)
 from mapping_tpu_torch.data.loader import SegmentationLoader
 from mapping_tpu_torch.data.tta import tta_specs
 from mapping_tpu_torch.infer.postprocess import active_layers_for
+from mapping_tpu_torch.data.metadata import read_metadata
 from mapping_tpu_torch.infer.serving import FusedServe, ServeProgram
+from mapping_tpu_torch.models.quantize import (QuantizedProbs,
+                                               quantized_probs_fn)
 from mapping_tpu_torch.scoring import (NonMaximumSupression, ScoringGBM,
                                        features_from_tensor)
 from mapping_tpu_torch.train.trainer import UNetTrainer
@@ -55,8 +62,7 @@ from mapping_tpu_torch.train.trainer import UNetTrainer
 logger = logging.getLogger(__name__)
 
 # settings of the JAX package this port does not run yet -> ROADMAP item
-_NOT_PORTED = {"quantized_serving": 21, "data_parallel": 16,
-               "spatial_serving": 16}
+_NOT_PORTED = {"data_parallel": 16, "spatial_serving": 16}
 
 
 def _not_ported(what: str, item: str):
@@ -117,6 +123,8 @@ class UNetPipeline:
             pretrained_weights=config.unet.get("pretrained_weights", ""),
             device=device)
         self.category_layers = _category_layers(config)
+        self.quantized = bool(config.params.get("quantized_serving", 0))
+        self._quantized = None
         self._serve = {}
         self._weights_loaded = False
         #: host seconds spent in FusedServe.dispatch and .collect
@@ -164,7 +172,9 @@ class UNetPipeline:
             return
         cache = self._cache()
         if cache is not None:
-            self.trainer.load(cache).serve_only()
+            self.trainer.load(cache)
+            if not self.quantized:  # int8 serving quantises the float32 fold
+                self.trainer.serve_only()
             self._weights_loaded = True
             return
         raise RuntimeError(
@@ -287,17 +297,61 @@ class UNetPipeline:
         with `return_features` the feature tensor) leave the device."""
         key = bool(return_features)
         if key not in self._serve:
-            self._serve[key] = FusedServe(self.trainer.probs_apply_fn(),
+            self._serve[key] = FusedServe(self._probs_fn(),
                                           **self._serve_args(key))
         return self._serve[key]
+
+    def _probs_fn(self):
+        """The forward this pipeline serves: the trainer's float one, or
+        with `quantized_serving: 1` the int8 one (models/quantize.py),
+        recalibrated when the trainer's weights change. Float, with a
+        warning, when there is no metadata to calibrate on."""
+        if not self.quantized:
+            return self.trainer.probs_apply_fn()
+        if self._quantized is None:
+            calib = self._calibration_images()
+            if calib is None:
+                logger.warning("quantized_serving: no metadata to calibrate "
+                               "on; serving float")
+                return self.trainer.probs_apply_fn()
+            self._quantized = QuantizedProbs(*quantized_probs_fn(
+                self.trainer.folded_float32, calib,
+                compute_dtype=self.trainer.dtype,
+                calib_batch_size=int(
+                    self.config.params.batch_size_inference),
+                version_fn=lambda: self.trainer._state_version))
+        return self._quantized
+
+    def _calibration_images(self):
+        """The first `quant_calib_images` metadata images, preprocessed as
+        the serve program sees them, on the loader's device; None when
+        the metadata file does not exist yet."""
+        path = os.path.join(self.config.params.meta_dir, "metadata.csv")
+        if not os.path.exists(path):
+            return None
+        n = max(int(self.config.params.get("quant_calib_images", 32)), 1)
+        x, _ = _xy(read_metadata(path)[:n])
+        flow, steps = self.loader.transform(x, None,
+                                            train_mode=False)["datagen"]
+        chunks, total = [], 0
+        for batch_id, batch in enumerate(flow):
+            chunks.append(batch["image"])
+            total += batch["image"].shape[0]
+            if total >= n or batch_id + 1 >= steps:
+                break
+        if hasattr(flow, "close"):
+            flow.close()
+        return torch.cat(chunks)[:n]
 
     def serve_module(self, return_features=False):
         """The ServeProgram of `serve_program` with the loader's device
         preprocess in front (uint8 tiles in) over the current weights, for
         export (infer/artifact.py)."""
         self._ensure_weights()
-        return ServeProgram(self.trainer.probs_module(),
-                            preprocess=self.loader.device_preprocess,
+        probs = self._probs_fn()
+        module = (probs.module() if isinstance(probs, QuantizedProbs)
+                  else self.trainer.probs_module())
+        return ServeProgram(module, preprocess=self.loader.device_preprocess,
                             **self._serve_args(return_features))
 
     def _serve_args(self, return_features):

@@ -330,6 +330,15 @@ class UNetTrainer:
             self._folded_version = self._state_version
         return self._folded
 
+    def folded_float32(self):
+        """A BN-folded float32 copy of the current weights in eval mode,
+        made anew on each call: the weights that int8 serving quantises
+        (models/quantize.py), as the JAX package quantises its folded
+        float32 params. Raises after `serve_only()`."""
+        self._refuse_multi_head()
+        model = copy.deepcopy(self._master()).eval()
+        return fold_batch_stats(model).to(memory_format=torch.channels_last)
+
     def serve_only(self):
         """Fold the serving copy now and free the float32 model, so that a
         trainer that only serves holds one copy of the weights on its

@@ -15,6 +15,11 @@ joblib:
   0xff bytes, then the data (joblib's `write_array`/`read_array`). The
   unpickler resolves only numpy's ndarray reconstruction and that wrapper;
   any other class, an object dtype and joblib's compressed files raise.
+- `load_object` / `dump_object` do the same for any object (step outputs
+  and estimators of `graph.py` and `sklearn_models.py`): arrays inside a
+  joblib file are read as above, other globals resolve as pickle resolves
+  them, and a class of the JAX package maps onto the port's class of the
+  same module path and name.
 """
 
 import importlib
@@ -35,13 +40,18 @@ class _ArrayWrapper:
     """Stands in for joblib.numpy_pickle.NumpyArrayWrapper while loading:
     its state arrives through BUILD; the array bytes follow in the file."""
 
-    def read(self, file):
+    def read(self, file, unpickler=None):
+        """The array whose bytes follow in `file`; an array of Python
+        objects (a nested pickle) only with an object `unpickler`."""
         if getattr(self, "subclass", None) is not np.ndarray:
             raise ValueError("ndpickle: only plain ndarrays are read, not "
                              f"{getattr(self, 'subclass', None)!r}")
         dtype = np.dtype(self.dtype)
         if dtype.hasobject:
-            raise ValueError("ndpickle: arrays of Python objects are refused")
+            if unpickler is None:
+                raise ValueError(
+                    "ndpickle: arrays of Python objects are refused")
+            return unpickler(file).load()
         if getattr(self, "numpy_array_alignment_bytes", None) is not None:
             file.read(file.read(1)[0])  # the padding length, then padding
         count = int(np.prod(self.shape, dtype=np.int64))
@@ -95,10 +105,14 @@ class _Unpickler(pickle._Unpickler):
                 f"ndpickle: refusing to load {module}.{name}")
         return make()
 
+    #: the unpickler of a nested object-array pickle; None refuses one
+    objects = None
+
     def load_build(self):
         pickle._Unpickler.load_build(self)
         if isinstance(self.stack[-1], _ArrayWrapper):
-            self.stack.append(self.stack.pop().read(self._file))
+            self.stack.append(self.stack.pop().read(self._file,
+                                                    self.objects))
 
     dispatch[pickle.BUILD[0]] = load_build
 
@@ -117,3 +131,47 @@ def load(path) -> np.ndarray:
         raise ValueError(f"{path}: holds a {type(out).__name__}, not an "
                          f"ndarray")
     return out
+
+
+class _ObjectUnpickler(_Unpickler):
+    """`_Unpickler` for any pickled object: globals resolve as pickle
+    resolves them, except that a class of the JAX package
+    (`mapping_tpu.<module>`) maps onto the port's class of the same name
+    in `mapping_tpu_torch.<module>`, which reads the same state (the port
+    imports nothing of the JAX package)."""
+
+    def find_class(self, module, name):
+        make = _GLOBALS.get((module, name))
+        if make is not None:
+            return make()
+        if module == "mapping_tpu" or module.startswith("mapping_tpu."):
+            port = "mapping_tpu_torch" + module[len("mapping_tpu"):]
+            try:
+                return getattr(importlib.import_module(port), name)
+            except (ImportError, AttributeError):
+                raise pickle.UnpicklingError(
+                    f"ndpickle: {module}.{name} of the JAX package has no "
+                    f"counterpart {port}.{name} in the port") from None
+        return pickle._Unpickler.find_class(self, module, name)
+
+
+_ObjectUnpickler.objects = _ObjectUnpickler
+
+
+def load_object(path):
+    """The object in `path`: a plain pickle, or an uncompressed joblib
+    file (its arrays read as `load` reads them), with the JAX package's
+    classes mapped onto the port's."""
+    with open(path, "rb") as f:
+        if f.read(1) != pickle.PROTO:
+            raise ValueError(
+                f"{path}: not an uncompressed pickle (compressed joblib "
+                f"files are not read)")
+        f.seek(0)
+        return _ObjectUnpickler(f).load()
+
+
+def dump_object(obj, path):
+    """Write `obj` to `path` as a plain pickle (which joblib reads)."""
+    with open(path, "wb") as f:
+        pickle.dump(obj, f, protocol=_PROTOCOL)

@@ -1,4 +1,5 @@
-"""Host bilinear resize of uint8 images, byte-exact with Pillow's.
+"""Host resizes byte-exact with Pillow's: bilinear for uint8 RGB images,
+bilinear and nearest for float32 (mode "F") planes.
 
 The JAX package resizes a request tile or an artifact's input on the host
 with `Image.fromarray(arr).resize((w, h), Image.BILINEAR)`
@@ -10,6 +11,12 @@ weights normalised per output pixel and rounded to 22-bit fixed point,
 a horizontal pass rounded to uint8, then a vertical pass over the rows
 the horizontal pass kept. Only the image's own box is resampled (no
 `box`, no `reducing_gap`), as `Image.resize` does by default.
+
+The JAX loader resizes the targets of a batch of mixed tile sizes through
+Pillow's mode "F" (mapping_tpu/data/loader.py `_assemble`):
+`resize_bilinear_f32` is that filter in floating point (float64 weights
+normalised by their sequential sum, a float64 sum per output stored as
+float32, per pass) and `resize_nearest_f32` Pillow's nearest scale.
 """
 
 import math
@@ -93,3 +100,82 @@ def resize_bilinear_u8(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     if out_h != in_h:
         out = _resample(out, bounds_v, weights_v, axis=0)
     return np.ascontiguousarray(out)
+
+
+def _float_weights(in_size: int, out_size: int):
+    """(bounds, float64 weights) of `precompute_coeffs` for the 32-bit
+    float passes: the weights normalised by their sequential sum, not
+    rounded to fixed point."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    bounds = np.zeros((out_size, 2), np.int64)
+    weights = np.zeros((out_size, ksize), np.float64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        ss = 1.0 / filterscale
+        w = [max(1.0 - abs((x + xmin - center + 0.5) * ss), 0.0)
+             for x in range(xmax)]
+        total = 0.0
+        for v in w:
+            total += v
+        weights[xx, :xmax] = [v / total for v in w] if total != 0.0 else w
+        bounds[xx] = xmin, xmax
+    return bounds, weights
+
+
+def _resample_f32(image, bounds, weights, axis):
+    """One float pass along `axis` of an (H, W) float32 image: each
+    output is the sequential float64 sum over its taps, stored as
+    float32, as Resample.c's 32bpc passes do."""
+    n_in = image.shape[axis]
+    idx = np.minimum(bounds[:, :1] + np.arange(weights.shape[1]), n_in - 1)
+    acc = 0.0
+    for j in range(weights.shape[1]):
+        taps = np.take(image, idx[:, j], axis=axis).astype(np.float64)
+        w = weights[:, j][:, None] if axis == 0 else weights[:, j][None, :]
+        acc = acc + taps * w
+    return np.asarray(acc, np.float32)
+
+
+def resize_bilinear_f32(image: np.ndarray, size: Tuple[int, int]
+                        ) -> np.ndarray:
+    """(H, W) float32 -> size, equal to `Image.fromarray(image, "F")
+    .resize((size[1], size[0]), Image.BILINEAR)`: the triangle filter of
+    `resize_bilinear_u8` in floating point, horizontal pass first."""
+    image = np.asarray(image, np.float32)
+    out_h, out_w = int(size[0]), int(size[1])
+    in_h, in_w = image.shape
+    out = image
+    bounds_v, weights_v = _float_weights(in_h, out_h)
+    if out_w != in_w:
+        first = int(bounds_v[0, 0])
+        last = int(bounds_v[-1, 0] + bounds_v[-1, 1])
+        out = _resample_f32(image[first:last], *_float_weights(in_w, out_w),
+                            axis=1)
+        bounds_v = bounds_v.copy()
+        bounds_v[:, 0] -= first
+    if out_h != in_h:
+        out = _resample_f32(out, bounds_v, weights_v, axis=0)
+    return np.ascontiguousarray(out, np.float32)
+
+
+def resize_nearest_f32(image: np.ndarray, size: Tuple[int, int]
+                       ) -> np.ndarray:
+    """(H, W) -> size, equal to Pillow's NEAREST resize of a mode "F"
+    image (Geometry.c `ImagingScaleAffine`): per axis the source position
+    starts at scale / 2 and grows by scale = in / out, summed in float64
+    one step at a time, and is truncated to an index."""
+    image = np.asarray(image)
+
+    def index(n_in, n_out):
+        scale = n_in / n_out
+        pos = np.cumsum(np.concatenate([[scale * 0.5],
+                                        np.full(n_out - 1, scale)]))
+        return np.minimum(pos.astype(np.int64), n_in - 1)
+
+    return image[index(image.shape[0], int(size[0]))][
+        :, index(image.shape[1], int(size[1]))]

@@ -478,7 +478,10 @@ def test_cli_serve_artifact_in_a_subprocess(workspace, exported):
     proc = subprocess.Popen(
         [sys.executable, "-m", "mapping_tpu_torch.main", "--config", config,
          "serve", "--artifact", str(out), "--port", str(port)],
-        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT),
+                       # the thread count of this process (set above): a
+                       # float sum split over other threads rounds apart
+                       "OMP_NUM_THREADS": str(torch.get_num_threads())},
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
     try:
         deadline = time.monotonic() + 120

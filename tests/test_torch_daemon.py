@@ -9,8 +9,12 @@ probabilities come from uint8 values without a resize, so none lies
 within float rounding of the threshold, and the annotations must agree:
 segmentation, bbox, category and image id exact, scores within 1e-5
 relative (JAX sums the probabilities through a bf16 hi/lo split, the port
-in float64). Every socket binds 127.0.0.1:0, and every wait, join and
-request carries its own timeout.
+in float64). A segmentation is compared with a trailing empty 0-run
+dropped on both sides, and its decoded masks must be equal: the JAX
+package's C++ and numpy RLE writers differ by that run alone, and which
+one it takes depends on whether its library built in the process. Every
+socket binds 127.0.0.1:0, and every wait, join and request carries its
+own timeout.
 """
 
 import functools
@@ -40,6 +44,7 @@ from mapping_tpu_torch.infer.daemon import (Microbatcher, OverloadedError,
                                             RequestError, ServingDaemon,
                                             decode_request_image)
 from mapping_tpu_torch.infer.serving import FusedServe
+from mapping_tpu_torch.ops import rle as rle_ops
 
 torch.set_num_threads(2)
 
@@ -84,18 +89,43 @@ def _jax_serve():
                          **POST)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_rle_library():
+    """Build the JAX package's RLE library in this worker, which may have
+    lost its build race to another process."""
+    from mapping_tpu.utils import native as jax_native
+
+    for _ in range(3):
+        if jax_native._lib.build():
+            break
+    assert jax_native._lib.available()
+
+
 def _expected(img_u8, image_id=0):
     """The JAX daemon's offline oracle: its FusedServe on one image."""
+    _jax_rle_library()
     outs = _jax_serve()(_jax_preprocess(img_u8[None]))
     return jax_labeled_to_annotations(image_id, np.asarray(outs[0][0]),
                                       np.asarray(outs[1][0]), CAT_IDS,
                                       CAT_LAYERS)
 
 
+def _canonical_counts(segmentation):
+    """The run list of a compressed RLE without a trailing empty 0-run."""
+    counts = list(rle_ops.string_to_counts(segmentation["counts"]))
+    if len(counts) > 1 and counts[-1] == 0:
+        counts.pop()
+    return counts
+
+
 def _assert_same_annotations(got, want):
     assert len(got) == len(want)
     for g, w in zip(got, want):
-        assert g["segmentation"] == w["segmentation"]
+        assert g["segmentation"]["size"] == w["segmentation"]["size"]
+        assert _canonical_counts(g["segmentation"]) == \
+            _canonical_counts(w["segmentation"])
+        np.testing.assert_array_equal(rle_ops.decode(g["segmentation"]),
+                                      rle_ops.decode(w["segmentation"]))
         assert g["category_id"] == w["category_id"]
         assert g["image_id"] == w["image_id"]
         np.testing.assert_allclose(g["bbox"], w["bbox"])

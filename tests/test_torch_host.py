@@ -559,3 +559,46 @@ def test_import_torch_checkpoint_refuses_other_keys(tmp_path):
     with pytest.raises(ValueError, match="final.bias"):
         _port_trainer().import_torch_checkpoint(str(tmp_path / "bad.pth"))
     (tmp_path / "bad.pth").unlink()
+
+
+def test_annotations_are_the_same_with_and_without_the_native_library(
+        monkeypatch):
+    """The port's RLE strings and bboxes do not depend on whether
+    cpp/rle.cpp builds: the numpy writer ends a mask whose last pixel (in
+    column-major order) is set with the library's empty 0-run. Label maps
+    with instances on the last pixel, on the borders, a full layer and an
+    empty one; the strings also equal the JAX package's with its library
+    built."""
+    from mapping_tpu_torch.utils import native
+
+    for _ in range(3):  # a worker that lost the JAX package's build race
+        if jax_native._lib.build():
+            break
+    assert jax_native._lib.available() and native.available()
+    rng = np.random.RandomState(0)
+    maps = []
+    for seed in range(40):
+        labels, _ = ndimage.label(ndimage.gaussian_filter(
+            rng.rand(37, 29), 1.5) > 0.5)
+        if seed % 2:
+            labels[-1, -1] = max(labels[-1, -1], 1)
+        maps.append(labels)
+    maps += [np.ones((5, 4), np.int32), np.zeros((6, 6), np.int32)]
+    labels = np.stack([np.stack([m, m]) for m in maps[:-2]])
+    cases = [(labels[i], np.linspace(0.1, 1, 128)[None].repeat(2, 0))
+             for i in range(len(labels))]
+    cases += [(m[None].repeat(2, 0), np.full((2, 3), 0.5)) for m in maps[-2:]]
+
+    def run():
+        return [annotations.labeled_to_annotations(
+            i, lab, sc, [None, 100], [1, 1]) for i, (lab, sc) in
+            enumerate(cases)]
+
+    built = run()
+    monkeypatch.setattr(native, "available", lambda: False)
+    assert run() == built
+    assert sum(len(a) for a in built) > 100
+    want = [jax_annotations.labeled_to_annotations(
+        i, lab, sc, [None, 100], [1, 1]) for i, (lab, sc) in
+        enumerate(cases)]
+    assert built == want

@@ -241,13 +241,71 @@ def test_load_in_memory_caches_targets(files, monkeypatch):
     assert sorted(calls) == sorted(files[1])
 
 
-def test_mixed_tile_sizes_raise(files, tmp_path):
-    from mapping_tpu_torch.utils.png import encode_png
+def _mixed_files(root):
+    """Three tiles of 300^2, 256^2 and 320^2 (random PNG images, masks of
+    a few rectangles, distances up to ~500 and sizes as the JAX package
+    writes them) -> (image paths, mask paths)."""
+    from mapping_tpu_torch.utils import ndpickle
+    from mapping_tpu_torch.utils.png import encode_png, write_png_gray
 
-    odd = tmp_path / "odd.png"
-    odd.write_bytes(encode_png(np.zeros((40, 50, 3), np.uint8)))
-    _, loader = _loaders("resize")
-    flow, _ = loader.transform([files[0][0], str(odd)], None,
-                               train_mode=False)["datagen"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        list(flow)
+    rng = np.random.RandomState(5)
+    images, masks = [], []
+    for i, side in enumerate((300, 256, 320)):
+        for sub in ("images", "masks", "distances", "sizes"):
+            (root / sub).mkdir(exist_ok=True)
+        image = root / "images" / f"t{i}.png"
+        image.write_bytes(encode_png(rng.randint(
+            0, 256, (side, side, 3)).astype(np.uint8)))
+        mask = np.zeros((side, side), np.uint8)
+        for _ in range(4):
+            y, x = rng.randint(0, side - 40, 2)
+            mask[y:y + rng.randint(5, 40), x:x + rng.randint(5, 40)] = 1
+        write_png_gray(str(root / "masks" / f"t{i}.png"), mask)
+        ndpickle.dump((rng.rand(side, side) * 500).astype(np.float32),
+                      str(root / "distances" / f"t{i}"))
+        ndpickle.dump(rng.randint(1, 3000, (side, side)).astype(np.uint16),
+                      str(root / "sizes" / f"t{i}"))
+        images.append(str(image))
+        masks.append(str(root / "masks" / f"t{i}.png"))
+    return images, masks
+
+
+@pytest.mark.parametrize("size", [(256, 256), (64, 48)])
+def test_mixed_tile_sizes_raise(tmp_path, size):
+    """A batch of 300^2, 256^2 and 320^2 tiles is resized on the host to
+    the loader's size as the JAX loader does it through Pillow: images
+    byte for byte, targets (float32 for such a batch) exactly; a batch of
+    one size keeps uint16 targets."""
+    images, masks = _mixed_files(tmp_path)
+    jax_loader, loader = _loaders("resize", size=size)
+    idxs = np.arange(3)
+    want_x, want_y = jax_loader._assemble(images, masks, idxs)
+    got_x, got_y = loader._assemble(images, masks, idxs)
+    assert got_x.dtype == np.uint8 and got_y.dtype == np.float32
+    assert got_x.shape == size_b(size, 3) and got_y.shape == size_b(size, 3)
+    np.testing.assert_array_equal(got_x, want_x)
+    np.testing.assert_array_equal(got_y, want_y)
+    same_x, same_y = loader._assemble(images, masks, np.array([1]))
+    assert same_y.dtype == np.uint16 and same_x.shape == (1, 256, 256, 3)
+    np.testing.assert_array_equal(
+        same_y, jax_loader._assemble(images, masks, np.array([1]))[1])
+
+
+def size_b(size, b):
+    return (b,) + tuple(size) + (3,)
+
+
+def test_mixed_tile_sizes_flow_through_training_and_inference(tmp_path):
+    """The same mixed files through the training flow (no augmentation)
+    and the inference flow: the JAX loader's batches within the resized
+    tolerance."""
+    images, masks = _mixed_files(tmp_path)
+    jax_loader, loader = _loaders("resize", batch_size_train=3,
+                                  batch_size_inference=3)
+    (jflow, _), _ = jax_loader.transform(images, masks).values()
+    (flow, _), _ = loader.transform(images, masks).values()
+    _assert_batches_equal(list(flow), list(jflow), True)
+    flow.close()
+    want = jax_loader.transform(images, None, train_mode=False)["datagen"]
+    got = loader.transform(images, None, train_mode=False)["datagen"]
+    _assert_batches_equal(list(got[0]), list(want[0]), True)

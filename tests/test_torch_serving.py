@@ -204,11 +204,13 @@ def test_tf32_off_only_inside_float32_forward(slice_outputs, dtype,
 
 
 def test_unported_settings_raise():
+    """Only the mesh settings (item 16) are left unported; int8 serving
+    (item 21) builds (tests/test_torch_quantize.py runs it)."""
     state = {}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        _pipeline({"quantized_serving": 1}, state)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        _pipeline({"data_parallel": 1}, state)
+    for key in ("data_parallel", "spatial_serving"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+            _pipeline({key: 1}, state)
+    assert _pipeline({"quantized_serving": 1}, state).quantized
 
 
 def test_cuda_pipeline_without_card_raises():
@@ -259,7 +261,13 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.models.vgg',\n"
         "        'mapping_tpu_torch.models.scratch',\n"
         "        'mapping_tpu_torch.models.unetpp',\n"
-        "        'mapping_tpu_torch.utils.visualize'} <= set(names)\n"
+        "        'mapping_tpu_torch.utils.visualize',\n"
+        "        'mapping_tpu_torch.models.quantize',\n"
+        "        'mapping_tpu_torch.ops.crf',\n"
+        "        'mapping_tpu_torch.ops.resize',\n"
+        "        'mapping_tpu_torch.graph',\n"
+        "        'mapping_tpu_torch.sklearn_models',\n"
+        "        'mapping_tpu_torch.utils.misc'} <= set(names)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'mapping_tpu', 'pandas', 'yaml', 'click', 'PIL', "
         "'msgpack', 'joblib', 'imageio', 'sklearn') and sys.modules[k] is "
