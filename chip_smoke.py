@@ -195,6 +195,29 @@ the JAX package is imported. Phases, each printing what it found:
      must equal (b)'s byte for byte; (d) `dense_crf` in window and grid
      mode on one 300^2 tile and its float probabilities, the card
      against the CPU within 1e-4.
+ 14. data parallel on the one card, under build/chip_smoke_parallel/, on
+     phase 9 (a)'s weights and phase 6's files, at the defaults: (a) the
+     110 val tiles at batch 20, bf16, through FusedServe on one device and
+     over a mesh of two replicas on the card (cuda:0 twice), without and
+     with TTA: labels and areas equal and scores within 1e-4 relative,
+     except on images whose labels differ only at pixels within max
+     |p_mesh - p_single| of the threshold; the mesh must launch the CCL
+     `label` once per shard per batch; ms per batch of both; (b)
+     `evaluate` with `data_parallel: 1` (one visible card: no mesh) must
+     write the plain evaluate's prediction.json byte for byte; (c) one
+     step (dropout_2d 0.1 in the decoder) of the trainer in float32 (TF32
+     off) and in float64 on two gloo ranks sharing the card and on one
+     NCCL rank (spawned processes, parallel/distributed.py), each against
+     the single-process step on the same 20 images: losses within 1e-4
+     relative and running statistics within 1e-4 in both, and in float64
+     every gradient within 1e-3 of its tensor's largest magnitude; the
+     float32 gradients' distances (per tensor and in L2) are printed
+     beside the single-process float32 step's own distance from float64,
+     which is large (a rounding difference in one layer flips ReLUs
+     below it), so they are not gated; (d) 3 bf16
+     UNetTrainer.fit steps from phase 6's files on two gloo ranks, rank 0
+     writing last.pt, then a two-rank resume to epoch 1; ms/step of the
+     ranks beside one process's on the same files.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -306,6 +329,28 @@ QUANT_WIDTH = 256  # c_in = c_out of phase 13 (a)'s conv geometries
 QUANT_MODEL = {}
 QUANT_AGREEMENT = 0.98  # tests/test_quantize.py's confident-pixel gate
 CRF_TOL = 1e-4  # dense_crf on the card against the CPU, absolute
+PARALLEL_DIR = ROOT / "build" / "chip_smoke_parallel"
+#: phase 14 (c): loss relative, each float64 gradient tensor against its
+#: largest magnitude, BatchNorm running statistics against their largest
+DDP_LOSS_TOL, DDP_GRAD_TOL, DDP_STAT_TOL = 1e-4, 1e-3, 1e-4
+#: phase 14 (c), (d): a bf16 loss relative to one process's bf16 loss
+#: (bf16's unit roundoff, 2^-8); the ranks' bf16 gradients from one
+#: process's bf16 ones (relative L2 over all tensors) at most this times
+#: one process's bf16 distance from its float64 step
+BF16_LOSS_TOL, BF16_L2_MARGIN = 2.0 ** -8, 2.0
+#: phase 14 (a): the mesh (shards of BATCH / 2) against one device at the
+#: shard's batch: max |dp| of the served probabilities (the band of
+#: tests/test_torch_evaluate.py's assert_same_instances); against one
+#: device at BATCH: max |dp| at most BAND_MARGIN times one device's own
+#: batch-BATCH/2-against-BATCH reading, and at most BAND_CEIL
+SHARD_BAND, BAND_MARGIN, BAND_CEIL = 1e-4, 2.0, 1e-2
+#: phase 14 (c)'s model over the defaults: the decoder's spatial dropout on
+#: (the ResNet U-Nets ignore dropout_conv, in the JAX package too)
+DDP_MODEL = {"dropout_2d": 0.1}
+FIT_STEPS = 3  # phase 14 (d): optimizer steps per epoch
+#: phase 14's parameters over the JAX config's defaults (ResNet101, bf16,
+#: batch 20, 256^2 in, 300^2 out), and (d)'s model_params over them
+PARALLEL_PARAMS, FIT_MODEL = {}, {}
 CCL_KERNELS = ("tile_label", "merge_borders", "resolve", "scan", "gather")
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
@@ -919,21 +964,26 @@ def conv_dw_phase():
     return max_err, times[DW_MAIN]
 
 
-def trainer(model_dtype, state, device=None):
+def trainer(model_dtype, state, device=None, mesh=None, model=None,
+            **kwargs):
     """A UNetTrainer at the JAX config's defaults (mapping_tpu/config.py:
     ResNet101, 32 filters, deconv, 2 classes, weighted loss w0 50, sigma
     10, dice 0.2 softmax with smooth 1, CE 1.0, Adam lr 5e-4 with L2 1e-4
-    on conv kernels, flat rate) holding the weights `state`."""
+    on conv kernels, flat rate) holding the weights `state`; `mesh`,
+    `model` (model_params over the defaults) and UNetTrainer's other
+    arguments as given."""
     from mapping_tpu_torch.train.trainer import UNetTrainer
 
-    t = UNetTrainer(
-        model_params={"encoder": "ResNet101", "dtype": model_dtype},
+    args = dict(
+        model_params={"encoder": "ResNet101", "dtype": model_dtype,
+                      **(model or {})},
         optimizer_params={"lr": 5e-4, "gamma": 1.0, "weight_decay": 1e-4},
         loss_params={"w0": 50, "sigma": 10, "imsize": TRAIN_SIZE,
                      "dice_weight": 0.2, "bce_weight": 1.0, "smooth": 1,
                      "dice_activation": "softmax"},
         training_config={"epochs": 1, "steps_per_call": 1},
-        input_size=TRAIN_SIZE, device=device or DEVICE)
+        input_size=TRAIN_SIZE, device=device or DEVICE, mesh=mesh)
+    t = UNetTrainer(**{**args, **kwargs})
     t.model.load_state_dict(state)
     return t
 
@@ -2920,6 +2970,441 @@ def quantize_phase(gen, smi, prepared):
     return launches
 
 
+def rank_setup(setup):
+    """A spawned rank runs this file anew: the phase's settings (DEVICE,
+    TRAIN_SIZE, BATCH, DDP_MODEL, FIT_MODEL) as the parent has them."""
+    globals().update(setup)
+
+
+def step_outputs(state, batch, dtype, mesh=None):
+    """One step of the default trainer with DDP_MODEL in `dtype` (bf16
+    under autocast, float32 with TF32 off, or float64) on `batch` (a
+    rank's shard on a mesh): (loss, gradients, BatchNorm running
+    statistics), on the device."""
+    if dtype == torch.bfloat16:
+        t = trainer("bfloat16", state, mesh=mesh, model=DDP_MODEL)
+    else:
+        t = trainer("float32", state, mesh=mesh, model=DDP_MODEL)
+        t.model.to(dtype)
+        t.dtype = dtype
+    t._ensure_state()
+    inputs = torch.promote_types(dtype, torch.float32)
+    loss = float(t._train_steps([{k: v.to(t.device, inputs)
+                                  for k, v in batch.items()}], 0)
+                 ["loss"][0])
+    return (loss, {n: p.grad for n, p in t.model.named_parameters()},
+            {k: v for k, v in t.model.state_dict().items()
+             if "running" in k})
+
+
+DDP_DTYPES = (("f32", torch.float32), ("f64", torch.float64),
+              ("bf16", torch.bfloat16))
+
+
+def rel_errors(got, want):
+    """{name: max |got - want| / max |want|}."""
+    return {n: float((got[n].to(w.device, w.dtype) - w).abs().max())
+            / (float(w.abs().max()) or 1.0) for n, w in want.items()}
+
+
+def l2_distance(got, want):
+    """|got - want| / |want| over all tensors together (float64)."""
+    num = sum(float((got[n].to(w.device, torch.float64)
+                     - w.to(torch.float64)).square().sum())
+              for n, w in want.items())
+    den = sum(float(w.to(torch.float64).square().sum())
+              for w in want.values())
+    return math.sqrt(num / den)
+
+
+def instances_agree(got, want, p_ref, band):
+    """Phase 14 (a), two served outputs (labels, scores, areas) image by
+    image: labels and areas equal and scores within 1e-4 relative, or
+    labels that differ only at pixels whose probability p_ref lies within
+    `band` of the threshold (the rule of tests/test_torch_evaluate.py's
+    assert_same_instances). The number of images that differ; raises at a
+    pixel beyond the band."""
+    near = ((p_ref - 0.5).abs() <= band).cpu().numpy()
+    differ = 0
+    for i in range(len(got[0])):
+        if np.array_equal(got[0][i], want[0][i]):
+            w = min(got[1].shape[-1], want[1].shape[-1])
+            np.testing.assert_array_equal(got[2][i][..., :w],
+                                          want[2][i][..., :w])
+            np.testing.assert_allclose(got[1][i][..., :w],
+                                       want[1][i][..., :w], rtol=1e-4,
+                                       atol=0)
+            continue
+        away = ((got[0][i, 1] > 0) != (want[0][i, 1] > 0)) & ~near[i]
+        if away.any():
+            raise AssertionError(f"parallel: (a) image {i}: labels differ at "
+                                 f"{int(away.sum())} pixels farther than "
+                                 f"{band:.3g} from the threshold")
+        differ += 1
+    return differ
+
+
+def ddp_step_rank(setup, reference_path, batch_path):
+    """Phase 14 (c) on a rank: one step of the default trainer on the
+    group's mesh with this rank's shard of the global batch, in float32,
+    float64 and bf16, held against the single-process steps saved at
+    reference_path."""
+    from mapping_tpu_torch.parallel import distributed
+    from mapping_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    rank_setup(setup)
+    ref = torch.load(reference_path, map_location="cpu", weights_only=True)
+    batch = shard_batch(torch.load(batch_path, weights_only=True), make_mesh(
+        ["cpu"] * distributed.world()))[distributed.rank()]
+    out = {"rank": distributed.rank(),
+           "backend": torch.distributed.get_backend()}
+    for name, dtype in DDP_DTYPES:
+        loss, grads, stats = step_outputs(ref["init"], batch, dtype, "auto")
+        want = ref[name]
+        errors = rel_errors(grads, want["grads"])
+        worst = max(errors, key=errors.get)
+        out[name] = {"loss": loss, "grad_err": errors[worst],
+                     "worst": worst,
+                     "stat_err": max(rel_errors(stats, want["stats"])
+                                     .values())}
+        if name != "f64":  # the whole gradient's relative L2 distances
+            out[name]["l2"] = l2_distance(grads, want["grads"])
+            out[name]["l2_f64"] = l2_distance(grads, ref["f64"]["grads"])
+        del grads, stats
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(setup, reference_path, batch_path, state_path, x, y,
+                  checkpoint_dir):
+    """Phase 14 (c), then (d) on a rank: the step held against one
+    process, a fit of one epoch that writes last.pt, and a fresh trainer
+    that resumes from it for a second epoch."""
+    out = {"step": ddp_step_rank(setup, reference_path, batch_path)}
+    torch.cuda.empty_cache()
+    out["fit"] = fit_rank(setup, state_path, x, y, checkpoint_dir, 1)
+    torch.distributed.barrier()  # last.pt written before it is read
+    out["resumed"] = fit_rank(setup, state_path, x, y, checkpoint_dir, 2)
+    return out
+
+
+def fit_rank(setup, state_path, x, y, checkpoint_dir, epochs):
+    """Phase 14 (d) on a rank: `epochs` of bf16 UNetTrainer.fit over the
+    files x, y (FIT_STEPS global batches each) on the group's mesh with
+    the resume callbacks in checkpoint_dir; each step's host seconds."""
+    from mapping_tpu_torch.data.loader import SegmentationLoader
+    from mapping_tpu_torch.parallel import distributed
+
+    rank_setup(setup)
+    t = trainer("bfloat16", torch.load(state_path, weights_only=True),
+                model=FIT_MODEL,
+                mesh="auto" if distributed.is_active() else None,
+                training_config={"epochs": epochs, "steps_per_call": 1},
+                callbacks_config={
+                    "checkpoint_dir": str(checkpoint_dir), "resume": True,
+                    "resume_every": 1, "best_write_every": 1,
+                    "validate_with_map": False})
+    dp = t.data_parallel
+    loader = SegmentationLoader(size=TRAIN_SIZE, batch_size_train=BATCH,
+                                device=t.device, shard=None if dp is None
+                                else (dp.rank, dp.world))
+    flow = loader.transform(x, y)["datagen"]
+    t._ensure_state(steps_per_epoch=flow[1])
+    steps, seconds = t._train_steps, []
+
+    def timed(batches, first):
+        start = time.perf_counter()
+        out = steps(batches, first)
+        out["loss"].tolist()  # the host reads each loss back
+        seconds.append(time.perf_counter() - start)
+        return out
+
+    t._train_steps = timed
+    t.fit(flow)
+    return {"rank": distributed.rank(), "step": t.step,
+            "next_epoch": t.resume_info.get("next_epoch", 0),
+            "losses": t.train_losses, "seconds": seconds}
+
+
+def parallel_phase(smi, prepared):
+    """Phase 14: data parallel on the one card."""
+    from mapping_tpu_torch import main as cli
+    from mapping_tpu_torch.config import build_config
+    from mapping_tpu_torch.data.augment import resize_bilinear
+    from mapping_tpu_torch.data.loader import load_image, load_target
+    from mapping_tpu_torch.data.loader import eval_batch_resize
+    from mapping_tpu_torch.data.metadata import read_metadata
+    from mapping_tpu_torch.data.tta import tta_specs
+    from mapping_tpu_torch.infer.serving import FusedServe
+    from mapping_tpu_torch.kernels import ccl as K
+    from mapping_tpu_torch.parallel import distributed, make_mesh
+    from mapping_tpu_torch.pipelines import PIPELINES
+
+    phase_start = time.perf_counter()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir(parents=True)
+    card = "cuda:0" if DEVICE == "cuda" else DEVICE
+    setup = {"DEVICE": DEVICE, "TRAIN_SIZE": TRAIN_SIZE, "BATCH": BATCH,
+             "DDP_MODEL": DDP_MODEL, "FIT_MODEL": FIT_MODEL}
+    weights = TRAIN_DIR / "full" / "transformers" / "unet.pt"
+    rows = read_metadata(prepared["meta_dir"] / "metadata.csv")
+    train = [r for r in rows if r["is_train"] == 1]
+    valid = [r for r in rows if r["is_valid"] == 1]
+    launches = {k: 0 for k in K.LAUNCHES}
+
+    def config(name, **extra):
+        experiment = PARALLEL_DIR / name
+        (experiment / "transformers").mkdir(parents=True)
+        shutil.copy2(weights, experiment / "transformers" / "unet.pt")
+        return write_config(name, {
+            "data_dir": str(PREP_DIR / "data"),
+            "meta_dir": str(prepared["meta_dir"]),
+            "experiment_dir": str(experiment), "device": DEVICE,
+            "evaluation_data_sample": PREP_VAL, **PARALLEL_PARAMS, **extra},
+            PARALLEL_DIR)
+
+    # (a) two replicas on the card against one, on the val tiles
+    pipe = PIPELINES["unet_weighted"]["inference"](
+        build_config(config("serving")))
+    pipe._ensure_weights()
+    mesh = make_mesh([card, card])
+    flow, steps = pipe.loader.transform(
+        [r["file_path_image"] for r in valid], None,
+        train_mode=False)["datagen"]
+    batches = [b["image"] for _, b in zip(range(steps), flow)]
+    for tta in (False, True):
+        args = pipe._serve_args(False)
+        if tta:
+            args["tta_specs"] = tta_specs()
+        single = FusedServe(pipe._probs_fn(), **args)
+        meshed = FusedServe(pipe._probs_fn(), mesh=mesh, **args)
+        times, deltas, outs = {}, {}, {}
+        for name, serve in (("single", single), ("mesh", meshed)):
+            serve(batches[0])  # warm-up: cuDNN plans for this batch shape
+            torch.cuda.synchronize()
+            before = dict(K.LAUNCHES)
+            start = time.perf_counter()
+            outs[name] = [serve(b) for b in batches]
+            torch.cuda.synchronize()
+            times[name] = 1e3 * (time.perf_counter() - start) / len(batches)
+            deltas[name] = K.LAUNCHES["ccl_label_raw"] - before[
+                "ccl_label_raw"]
+            for k in launches:
+                launches[k] += K.LAUNCHES[k] - before[k]
+        if deltas["mesh"] != 2 * deltas["single"] or not deltas["single"]:
+            raise AssertionError(f"parallel: (a) CCL label launches "
+                                 f"{deltas}: the mesh must label each of "
+                                 f"its 2 shards once per batch")
+        bands = {"shard": 0.0, "mesh": 0.0, "own": 0.0}
+        differ = {"shard": 0, "mesh": 0, "own": 0}
+        for b, got, want in zip(batches, outs["mesh"], outs["single"]):
+            halves = b.chunk(2)
+            h = len(halves[0])
+            with torch.inference_mode():
+                p_single, p_half, p_mesh = (torch.cat([resize_bilinear(
+                    fn(part), (TILE, TILE))[..., 1] for part in parts])
+                    for fn, parts in ((single._probs, [b]),
+                                      (single._probs, halves),
+                                      (meshed._probs, halves)))
+            band = {"shard": float((p_mesh - p_half).abs().max()),
+                    "mesh": float((p_mesh - p_single).abs().max()),
+                    "own": float((p_half - p_single).abs().max())}
+            for k in bands:
+                bands[k] = max(bands[k], band[k])
+            # the mesh against one device at the shard's batch, and both
+            # against one device at BATCH
+            halves_out = [single(part) for part in halves]
+            for k, half in enumerate(halves_out):
+                rows = slice(k * h, (k + 1) * h)
+                differ["shard"] += instances_agree(
+                    [o[rows] for o in got], half, p_half[rows],
+                    band["shard"])
+                differ["own"] += instances_agree(
+                    half, [o[rows] for o in want], p_single[rows],
+                    band["own"])
+            differ["mesh"] += instances_agree(got, want, p_single,
+                                              band["mesh"])
+        print(f"parallel: (a) {'TTA ' if tta else ''}FusedServe over the "
+              f"mesh {[str(d) for d in mesh.devices]} (two replicas on the "
+              f"card) vs one device, {len(batches)} batches of {BATCH} of "
+              f"the {len(valid)} val tiles, bf16. Against one device at "
+              f"the shard's batch {BATCH // 2}: max |dp| {bands['shard']:.3g} "
+              f"(tolerance {SHARD_BAND}), {differ['shard']} images with "
+              f"other labels. Against one device at {BATCH}: max |dp| "
+              f"{bands['mesh']:.3g} (tolerance min({BAND_MARGIN} x one "
+              f"device's own batch {BATCH // 2}-vs-{BATCH} reading "
+              f"{bands['own']:.3g}, {BAND_CEIL})), {differ['mesh']} images "
+              f"with other labels, only within that band of the threshold "
+              f"(one device's own: {differ['own']}; the others: labels and "
+              f"areas equal, scores within 1e-4 relative); CCL label "
+              f"launches {deltas} (one per shard per batch); ms per batch "
+              f"(host clock, synchronised) one device "
+              f"{times['single']:.2f}, mesh {times['mesh']:.2f} on {smi}")
+        limit = min(max(BAND_MARGIN * bands["own"], SHARD_BAND), BAND_CEIL)
+        if not (bands["shard"] <= SHARD_BAND and bands["mesh"] <= limit
+                and differ["mesh"] <= differ["own"] + differ["shard"]):
+            raise AssertionError(f"parallel: (a) the mesh's probabilities or "
+                                 f"labels leave one device's: {bands}, "
+                                 f"{differ}")
+    del pipe, single, meshed, batches
+    torch.cuda.empty_cache()
+
+    # (b) data_parallel: 1 with one visible card is the plain path
+    plain, dp_cfg = config("plain"), config("dp", data_parallel=1)
+    for cfg in (plain, dp_cfg):
+        before = dict(K.LAUNCHES)
+        cli.main(["--config", cfg, "evaluate", "-p", "unet_weighted"])
+        for k in launches:
+            launches[k] += K.LAUNCHES[k] - before[k]
+    same = (PARALLEL_DIR / "plain" / "prediction.json").read_bytes() == \
+        (PARALLEL_DIR / "dp" / "prediction.json").read_bytes()
+    print(f"parallel: (b) evaluate with data_parallel: 1 on "
+          f"{torch.cuda.device_count() if DEVICE == 'cuda' else 1} card(s):"
+          f" prediction.json byte-equal to the plain evaluate's: {same}; "
+          f"AP/AR {last_scores(PARALLEL_DIR / 'dp')}")
+    if not same:
+        raise AssertionError("data_parallel: 1 on one card changed the "
+                             "predictions")
+
+    # (c) one step in float32 (TF32 off) and in float64: two gloo ranks
+    # sharing the card, and one NCCL rank, each against the single-process
+    # step on the same 20 images
+    state = torch.load(weights, map_location="cpu", weights_only=True)
+    x = [r["file_path_image"] for r in train]
+    y = [r["file_path_mask_eroded_0_dilated_0"] for r in train]
+    images = torch.from_numpy(np.stack([load_image(p) for p in x[:BATCH]]))
+    targets = torch.from_numpy(np.stack([load_target(p)
+                                         for p in y[:BATCH]]))
+    batch = {k: v.cpu() for k, v in eval_batch_resize(
+        images, targets, TRAIN_SIZE).items()}
+    batch_path = PARALLEL_DIR / "batch.pt"
+    torch.save(batch, batch_path)
+    ref, ref_ms = {"init": state}, {}
+    for name, dtype in DDP_DTYPES:
+        start = time.perf_counter()
+        loss, grads, stats = step_outputs(state, batch, dtype)
+        ref_ms[name] = 1e3 * (time.perf_counter() - start)
+        ref[name] = {"loss": loss,
+                     "grads": {n: g.cpu() for n, g in grads.items()},
+                     "stats": {k: v.cpu() for k, v in stats.items()}}
+        del grads, stats
+        torch.cuda.empty_cache()
+    floor = rel_errors(ref["f32"]["grads"], ref["f64"]["grads"])
+    farthest = max(floor, key=floor.get)
+    bf16_l2 = l2_distance(ref["bf16"]["grads"], ref["f64"]["grads"])
+    reference_path = PARALLEL_DIR / "reference.pt"
+    torch.save(ref, reference_path)
+    print(f"parallel: (c) single-process steps (dropout_2d 0.1): float32 "
+          f"loss {ref['f32']['loss']:.6f}, float64 {ref['f64']['loss']:.6f}"
+          f", bf16 {ref['bf16']['loss']:.6f}; the float32 gradients sit up "
+          f"to {floor[farthest]:.3g} of a tensor's max from the float64 "
+          f"ones ({farthest}), "
+          f"{l2_distance(ref['f32']['grads'], ref['f64']['grads']):.3g} "
+          f"relative in L2 over all tensors, the bf16 ones {bf16_l2:.3g}; "
+          f"{ref_ms['f32']:.1f} / {ref_ms['f64']:.1f} / "
+          f"{ref_ms['bf16']:.1f} ms (host clock, first step of a process)")
+    loss_ref = {name: ref[name]["loss"] for name, _ in DDP_DTYPES}
+    del ref
+    n = FIT_STEPS * BATCH
+    state_path = PARALLEL_DIR / "state.pt"
+    torch.save(state, state_path)
+    checkpoint_dir = PARALLEL_DIR / "ck_ranks"
+    runs = {}
+    for devices in ([card, card], [card]):
+        start = time.perf_counter()
+        if len(devices) == 2:  # with (d) on the same ranks
+            runs[2] = distributed.spawn(parallel_rank, devices, setup,
+                                        reference_path, batch_path,
+                                        state_path, x[:n], y[:n],
+                                        checkpoint_dir)
+            got = [r["step"] for r in runs[2]]
+        else:
+            got = distributed.spawn(ddp_step_rank, devices, setup,
+                                    reference_path, batch_path)
+        seconds = time.perf_counter() - start
+        for r in got:
+            f32, f64, bf16 = r["f32"], r["f64"], r["bf16"]
+            print(f"parallel: (c) rank {r['rank']} of {len(devices)} "
+                  f"({r['backend']}, {devices}): float64 loss "
+                  f"{f64['loss']:.9f}, worst gradient {f64['grad_err']:.3g} "
+                  f"of its max ({f64['worst']}; tolerance {DDP_GRAD_TOL}), "
+                  f"running statistics {f64['stat_err']:.3g} (tolerance "
+                  f"{DDP_STAT_TOL}); float32 loss {f32['loss']:.6f}, "
+                  f"statistics {f32['stat_err']:.3g}, gradients up to "
+                  f"{f32['grad_err']:.3g} of a tensor's max from one "
+                  f"process's float32 ({f32['worst']}; not gated: see "
+                  f"above), {f32['l2']:.3g} relative in L2 ({f32['l2_f64']:.3g}"
+                  f" from float64); bf16 loss {bf16['loss']:.6f} (tolerance "
+                  f"{BF16_LOSS_TOL:.3g} relative), gradients {bf16['l2']:.3g} "
+                  f"relative in L2 from one process's bf16 (tolerance "
+                  f"{BF16_L2_MARGIN} x {bf16_l2:.3g}), {bf16['l2_f64']:.3g} "
+                  f"from float64; spawn to exit {seconds:.1f} s"
+                  + (" with (d)" if len(devices) == 2 else ""))
+            for name, v in (("f32", f32), ("f64", f64)):
+                want = loss_ref[name]
+                if not (abs(v["loss"] - want) <= DDP_LOSS_TOL * abs(want)
+                        and v["stat_err"] <= DDP_STAT_TOL):
+                    raise AssertionError(f"parallel: (c) rank {r['rank']} "
+                                         f"of {len(devices)}: {name} loss or "
+                                         f"statistics differ")
+            if f64["grad_err"] > DDP_GRAD_TOL:
+                raise AssertionError(f"parallel: (c) rank {r['rank']} of "
+                                     f"{len(devices)}: gradients differ from "
+                                     f"the single-process step")
+            if not (abs(bf16["loss"] - loss_ref["bf16"])
+                    <= BF16_LOSS_TOL * abs(loss_ref["bf16"])
+                    and bf16["l2"] <= BF16_L2_MARGIN * bf16_l2):
+                raise AssertionError(f"parallel: (c) rank {r['rank']} of "
+                                     f"{len(devices)}: the bf16 step differs "
+                                     f"from one process's: {bf16}")
+
+    # (d) bf16 UNetTrainer.fit on the two-rank mesh (run above, after
+    # (c)), then a two-rank resume, beside one process on the same files
+    single = fit_rank(setup, state_path, x[:n], y[:n],
+                      PARALLEL_DIR / "ck_single", 1)
+    first = [r["fit"] for r in runs[2]]
+    resumed = [r["resumed"] for r in runs[2]]
+    payload, aux = resume_files(checkpoint_dir)
+    for r in first:
+        if r["step"] != FIT_STEPS or r["next_epoch"] != 0:
+            raise AssertionError(f"parallel: (d) rank {r['rank']}'s first "
+                                 f"fit: {r}")
+    for r in resumed:
+        if r["next_epoch"] != 1 or r["step"] != 2 * FIT_STEPS:
+            raise AssertionError(f"parallel: (d) rank {r['rank']} did not "
+                                 f"resume at epoch 1: {r}")
+    if payload["step"] != 2 * FIT_STEPS or aux["epoch_id"] != 1:
+        raise AssertionError("parallel: (d) the resumed run's last.pt")
+    losses = first[0]["losses"] + resumed[0]["losses"]
+    if not np.isfinite(losses).all() or \
+            first[0]["losses"] != first[1]["losses"]:
+        raise AssertionError(f"parallel: (d) losses {first}")
+    # the first step starts from the same weights on the same global batch
+    if abs(losses[0] - single["losses"][0]) > BF16_LOSS_TOL * abs(
+            single["losses"][0]):
+        raise AssertionError(f"parallel: (d) the ranks' first bf16 loss "
+                             f"{losses[0]} against one process's "
+                             f"{single['losses'][0]}")
+
+    def ms(seconds):
+        return [round(1e3 * s, 2) for s in seconds]
+
+    print(f"parallel: (d) bf16 fit of {FIT_STEPS} steps of {BATCH} "
+          f"({TRAIN_SIZE[0]}x{TRAIN_SIZE[1]}, from phase 6's files) on 2 gloo "
+          f"ranks sharing the card: "
+          f"rank 0 wrote last.pt (step {FIT_STEPS}, epoch 0), a 2-rank "
+          f"resume continued at epoch 1 to step {payload['step']}; first "
+          f"loss within {BF16_LOSS_TOL:.3g} relative of one process's; losses "
+          f"{[round(v, 5) for v in losses]} (single-process "
+          f"{[round(v, 5) for v in single['losses']]}); ms/step (host clock,"
+          f" loss read back) ranks {ms(first[0]['seconds'])}, resumed "
+          f"{ms(resumed[0]['seconds'])}, single process "
+          f"{ms(single['seconds'])} on {smi}")
+    print(f"parallel: phase 14 took {time.perf_counter() - phase_start:.2f} "
+          f"s; CCL launches {launches}")
+    return launches
+
+
 def main():
     smi = card()
     from mapping_tpu_torch.kernels import bounds
@@ -2935,7 +3420,8 @@ def main():
                   train_cli_phase(smi, prepared),
                   scoring_phase(smi, prepared),
                   serving_phase(smi, prepared), zoo_phase(smi, prepared),
-                  quantize_phase(gen, smi, prepared)):
+                  quantize_phase(gen, smi, prepared),
+                  parallel_phase(smi, prepared)):
         for name, n in phase.items():
             launches[name] += n
     n, c, h, w = DW_TIMED[DW_MAIN]

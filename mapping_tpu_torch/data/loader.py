@@ -27,6 +27,17 @@ as the JAX loader does through Pillow: the images by Pillow's bilinear
 nearest for the mask and size channels and bilinear for the distance
 (`resize_nearest_f32`, `resize_bilinear_f32`); such a batch's targets
 are float32, a batch of one size keeps uint16.
+
+Data parallel (`shard` = (rank, world) on the loader or the in-memory
+flow, set by the pipeline of a rank): a training flow hands each rank its
+contiguous slice of the global batch that the single-process flow makes
+at that step, from the same shuffle, and the augmentation (and crop)
+parameters are drawn for the whole global batch from the same host
+generator, each rank applying its rows; only the rank's files are
+decoded. The ranks' batches then concatenate to the single-process batch.
+A global batch that does not divide over the ranks raises when the flow
+is made, as the JAX package's batch sharding raises. Validation and
+inference flows are not sharded.
 """
 
 import os
@@ -114,34 +125,73 @@ def _resize_target(target, size: Tuple[int, int]):
     return torch.cat([near[..., :1], lin, near[..., 1:]], dim=-1)
 
 
+def rank_rows(idx, shard):
+    """The rows of a global batch `idx` that rank `shard[0]` of
+    `shard[1]` takes: a contiguous equal slice (all of it without a
+    shard); a batch that does not divide raises."""
+    if shard is None:
+        return idx
+    rank, world = shard
+    if len(idx) % world:
+        raise ValueError(f"a batch of {len(idx)} does not divide over "
+                         f"{world} ranks")
+    b = len(idx) // world
+    return idx[rank * b:(rank + 1) * b]
+
+
+def _check_divides(n, batch_size, shard):
+    """Every batch of a pass over n items (the last one ragged) must
+    divide over the ranks."""
+    if shard is not None and n:
+        for b in {batch_size, n - (-(-n // batch_size) - 1) * batch_size}:
+            rank_rows(range(b), shard)
+
+
+def _global_draws(sample, b, shard, *args):
+    """sample(n, *args, generator) for the global batch of a rank's `b`
+    images, cut to the rank's rows: every rank consumes the generator as
+    the single-process flow does."""
+    world = 1 if shard is None else shard[1]
+    draws = sample(b * world, *args)
+    if isinstance(draws, dict):
+        return {k: rank_rows(v, shard) for k, v in draws.items()}
+    return tuple(rank_rows(v, shard) for v in draws)
+
+
 def train_batch_resize(generator: Optional[torch.Generator], image_u8,
-                       target, size: Tuple[int, int], augment: bool = True):
+                       target, size: Tuple[int, int], augment: bool = True,
+                       shard=None):
     """A training batch on the inputs' device: (B, H, W, 3) uint8 images and
     (B, H, W, 3) targets -> {"image": normalised float32 at `size`,
     "target": float32 at `size`}. With `augment`, fast_seq parameters are
-    drawn from `generator` and applied before the resize."""
+    drawn from `generator` and applied before the resize; with `shard`
+    the batch is a rank's slice and the draws are the global batch's."""
     img = image_u8.to(torch.float32) / 255.0
     target = target.to(torch.float32)
     if augment:
-        img, target = apply_fast_augment(
-            img, target, sample_fast_augment(img.shape[0], generator))
+        img, target = apply_fast_augment(img, target, _global_draws(
+            lambda n: sample_fast_augment(n, generator), img.shape[0],
+            shard))
     img = resize_bilinear(img, size)
     return {"image": normalize_image(img),
             "target": _resize_target(target, size)}
 
 
 def train_batch_crop(generator: Optional[torch.Generator], image_u8, target,
-                     size: Tuple[int, int], augment: bool = True):
+                     size: Tuple[int, int], augment: bool = True,
+                     shard=None):
     """A training batch of the `crop_and_pad` mode: with `augment`,
-    fast_seq then a random crop to `size` (both drawn from `generator`);
-    without, the centred crop."""
+    fast_seq then a random crop to `size` (both drawn from `generator`,
+    for the global batch with `shard`); without, the centred crop."""
     img = image_u8.to(torch.float32) / 255.0
     target = target.to(torch.float32)
     if augment:
-        img, target = apply_fast_augment(
-            img, target, sample_fast_augment(img.shape[0], generator))
-        img, target = random_crop(img, target, *sample_random_crop(
-            img.shape[0], img.shape[1:3], size, generator), size)
+        b = img.shape[0]
+        img, target = apply_fast_augment(img, target, _global_draws(
+            lambda n: sample_fast_augment(n, generator), b, shard))
+        img, target = random_crop(img, target, *_global_draws(
+            lambda n: sample_random_crop(n, img.shape[1:3], size, generator),
+            b, shard), size)
     else:
         img, target = center_crop(img, size), center_crop(target, size)
     return {"image": normalize_image(img), "target": target}
@@ -159,12 +209,14 @@ class _TrainFlow:
     """One pass per iteration over host arrays, in a new order each time."""
 
     def __init__(self, images, targets, batch_size, size, generator, device,
-                 augment):
+                 augment, shard=None):
         self.images, self.targets = images, targets
         self.batch_size, self.size = batch_size, tuple(size)
         self.generator, self.device = generator, torch.device(device)
         self.augment = augment
+        self.shard = shard
         self.steps = -(-len(images) // batch_size)
+        _check_divides(len(images), batch_size, shard)
 
     def __iter__(self):
         if self.images is None:
@@ -172,11 +224,12 @@ class _TrainFlow:
         order = torch.randperm(len(self.images),
                                generator=self.generator).numpy()
         for i in range(self.steps):
-            idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+            idx = rank_rows(order[i * self.batch_size:
+                                  (i + 1) * self.batch_size], self.shard)
             image_b = torch.from_numpy(self.images[idx]).to(self.device)
             target_b = torch.from_numpy(self.targets[idx]).to(self.device)
             yield train_batch_resize(self.generator, image_b, target_b,
-                                     self.size, self.augment)
+                                     self.size, self.augment, self.shard)
 
     def __len__(self):
         return self.steps
@@ -190,14 +243,15 @@ class _TrainFlow:
 def in_memory_train_flow(images_u8: np.ndarray, targets: np.ndarray,
                          batch_size: int, size: Tuple[int, int],
                          generator: torch.Generator, device="cuda",
-                         augment: bool = True):
+                         augment: bool = True, shard=None):
     """(flow, steps) over (N, H, W, 3) uint8 tiles and (N, H, W, 3) targets
     (uint16 or float) held in host memory: each pass reshuffles with
     `generator`, copies each batch to `device` and preprocesses it there
     with `train_batch_resize` (augmentation parameters from the same
-    generator). The last batch of a pass may be smaller."""
+    generator). The last batch of a pass may be smaller. With `shard` =
+    (rank, world) each batch is the rank's slice of the global one."""
     flow = _TrainFlow(images_u8, targets, batch_size, size, generator, device,
-                      augment)
+                      augment, shard)
     return flow, flow.steps
 
 
@@ -268,12 +322,14 @@ class _FileTrainFlow:
         self.loader, self.X, self.y = loader, list(X), list(y)
         self.steps = -(-len(self.X) // loader.batch_size_train)
         self._next = None
+        _check_divides(len(self.X), loader.batch_size_train, loader.shard)
 
     def _start(self):
-        bs = self.loader.batch_size_train
+        bs, shard = self.loader.batch_size_train, self.loader.shard
         order = self.loader._np_rng.permutation(len(self.X))
         return _Prefetcher(lambda i: self.loader._assemble(
-            self.X, self.y, order[i * bs:(i + 1) * bs]), self.steps)
+            self.X, self.y, rank_rows(order[i * bs:(i + 1) * bs], shard)),
+            self.steps)
 
     def __iter__(self):
         prefetcher, self._next = self._next or self._start(), None
@@ -299,7 +355,8 @@ class SegmentationLoader:
     mode: `resize` to `size`, or `crop_and_pad`, which trains on random
     crops of `size` and pads each side of inference images by `pad` with
     `pad_method` (replicate or reflect). `decode_seconds` adds up the host
-    time spent decoding and stacking, on the worker threads."""
+    time spent decoding and stacking, on the worker threads. `shard` =
+    (rank, world) makes the training flow a rank's (module docstring)."""
 
     def __init__(self, mode: str = "resize",
                  size: Tuple[int, int] = (256, 256),
@@ -310,7 +367,7 @@ class SegmentationLoader:
                  seed: int = 1234,
                  augment: bool = True,
                  load_in_memory: bool = False,
-                 device="cuda"):
+                 device="cuda", shard=None):
         if mode not in ("resize", "crop_and_pad"):
             raise ValueError(f"unknown loader mode {mode!r}")
         if pad_method not in PAD_FUNCTION:
@@ -324,6 +381,7 @@ class SegmentationLoader:
         self.batch_size_inference = batch_size_inference
         self.augment = augment
         self.device = torch.device(device)
+        self.shard = shard
         self._cache = {} if load_in_memory else None
         self._lock = threading.Lock()
         self._np_rng = np.random.RandomState(seed)
@@ -407,7 +465,7 @@ class SegmentationLoader:
         return make(self._generator,
                     torch.as_tensor(image_u8_batch).to(self.device),
                     torch.as_tensor(target_batch).to(self.device),
-                    self.size, self.augment)
+                    self.size, self.augment, self.shard)
 
     def _eval_gen(self, n, host_batch, with_targets):
         """(flow, steps): batches of `batch_size_inference` from

@@ -31,8 +31,10 @@ does one queue put and one event wait and never touches the device. Start
 it with `python3 -m mapping_tpu_torch.main serve -p unet`. With
 `quantized_serving: 1` a weight change rebuilds the int8 tables in the
 background while the previous snapshot serves; `param_source_stats`
-(in /v1/stats) counts those rebuilds. The mesh bucket filter (ROADMAP
-item 16) is not ported.
+(in /v1/stats) counts those rebuilds. With `data_parallel: 1` over more
+than one card the pipeline serves a replica per card, and the bucket
+sizes that do not divide over them are dropped with a warning, as in the
+JAX daemon (`mesh_buckets`; the full batch is kept).
 """
 
 import io
@@ -316,6 +318,20 @@ def _max_pending_from(params):
     return value or None
 
 
+def mesh_buckets(buckets, mesh, batch):
+    """The bucket sizes a serving mesh can cut into equal shards: those
+    that do not divide over its data axis are dropped with a warning (the
+    full batch stays, as in the JAX daemon)."""
+    if mesh is None:
+        return buckets
+    n = len(mesh)
+    bad = [b for b in buckets if b % n and b != batch]
+    if bad:
+        logger.warning("serve_batch_buckets %s dropped: not divisible by "
+                       "the %d-device data mesh", bad, n)
+    return [b for b in buckets if b % n == 0 or b == batch]
+
+
 def parse_serve_buckets(params):
     """`serve_batch_buckets` -> sorted bucket list INCLUDING the full
     `batch_size_inference` shape; one parser for the daemon and the
@@ -560,7 +576,8 @@ def daemon_from_pipeline(pipeline, config, host="127.0.0.1", port=8000,
         category_ids=CATEGORY_IDS,
         category_layers=pipeline.category_layers,
         max_wait_ms=max_wait_ms,
-        bucket_sizes=parse_serve_buckets(params),
+        bucket_sizes=mesh_buckets(parse_serve_buckets(params),
+                                  getattr(serve, "mesh", None), batch),
         convert=convert,
         max_pending=(max_pending if max_pending is not None
                      else _max_pending_from(params)))

@@ -17,12 +17,28 @@ the TTA on the images it reruns). A serving loop that dispatches batch k+1
 before it collects batch k keeps the device busy while the host handles
 batch k. An int8 forward (models/quantize.py `QuantizedProbs`) serves as
 any other; `enable_async_recalibration` and `recalibration_stats` reach
-its recalibration. Mesh and spatial serving (ROADMAP item 16) are not
-ported yet.
+its recalibration.
+
+Data-parallel serving (`mesh`, parallel/mesh.py; the JAX package's
+shard_map over 'data'): one process, a replica per data-axis device.
+`dispatch` cuts the batch into contiguous equal shards (a batch that does
+not divide raises, as JAX's NamedSharding does), moves each to its device
+and enqueues the whole fused body there without waiting: forward (+TTA),
+softmax, resize, threshold, erode/restore, the CCL `label` on that
+device's card, scores [, features]. `probs_fn` must run on its input's
+device (the trainer's and the int8 forward do, with one copy of the
+weights per device, parallel/mesh.py `Replicas`); a module is copied to
+each device here the same way.
+`collect` gathers the shards in order, and the overflow escalation re-runs
+the dense images on the first device, as the JAX package re-runs them
+single-device. Spatial serving (one image's height over the devices,
+`spatial`) is ROADMAP item 16b and raises.
 """
 
+import contextlib
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from mapping_tpu_torch.data.augment import center_crop
@@ -30,6 +46,11 @@ from mapping_tpu_torch.data.tta import tta_wrap_predict
 from mapping_tpu_torch.infer.postprocess import (MAX_INSTANCES,
                                                  escalate_overflow,
                                                  fused_postprocess)
+from mapping_tpu_torch.parallel.mesh import Replicas, shard_batch
+
+SPATIAL = ("spatial serving (one image's height split over the devices, "
+           "with a halo exchange in every conv, pool and resize) is not "
+           "ported to PyTorch yet (ROADMAP item 16b)")
 
 
 class ServeProgram(torch.nn.Module):
@@ -90,13 +111,35 @@ class ServeProgram(torch.nn.Module):
         return self.run(self.preprocess(images_u8), self.max_instances)
 
 
+def _device_scope(device: torch.device):
+    """The block runs with `device` as the current card (nothing on the
+    CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _on_each_device(module: torch.nn.Module) -> Callable:
+    """images -> module(images) through a copy of `module` on the images'
+    device (`Replicas`: one copy per device)."""
+    replicas = Replicas()
+    return lambda images: replicas.get(module, images.device)(images)
+
+
 class FusedServe:
     """images (B, H, W, 3) normalised float -> numpy labels (B, L, th, tw)
     int16, scores (B, L, N) float32, areas (B, L, N) int32 [, features
     (B, L, N, 9) float32 with `compute_features`], through a ServeProgram
-    (same arguments) in inference mode."""
+    (same arguments) in inference mode; over a `mesh`, a shard of the
+    batch on each of its data-axis devices (module docstring)."""
 
-    def __init__(self, probs_fn: Callable, **kwargs):
+    def __init__(self, probs_fn: Callable, mesh=None, spatial: bool = False,
+                 **kwargs):
+        if spatial:
+            raise NotImplementedError(SPATIAL)
+        self.mesh = mesh
+        if mesh is not None and isinstance(probs_fn, torch.nn.Module):
+            probs_fn = _on_each_device(probs_fn)
         self.program = ServeProgram(probs_fn, **kwargs)
         self._post = self.program.post
         self._crop_size = self.program.crop_size
@@ -107,7 +150,8 @@ class FusedServe:
 
     @torch.inference_mode()
     def _run(self, images, max_instances):
-        return self.program.run(images, max_instances)
+        with _device_scope(images.device):
+            return self.program.run(images, max_instances)
 
     def enable_async_recalibration(self) -> bool:
         """Online mode for an int8 forward (models/quantize.py): on a
@@ -126,22 +170,31 @@ class FusedServe:
         return dict(getattr(self.program.model_probs, "stats", {}) or {})
 
     def dispatch(self, images):
-        """Enqueue one batch; returns a handle for `collect`. Does not
-        synchronise."""
-        return self._run(images, self._base_max_instances), images
+        """Enqueue one batch (on a mesh, one shard on each device); returns
+        a handle for `collect`. Does not synchronise."""
+        if self.mesh is None:
+            return [self._run(images, self._base_max_instances)], images
+        return [self._run(shard, self._base_max_instances)
+                for shard in shard_batch(images, self.mesh)], images
 
     def collect(self, handle):
         """Copy a dispatched batch's outputs to the host (this waits for
-        them) and re-run images that overflow the instance pad with a
-        doubled pad, up to MAX_INSTANCES_CEILING."""
-        outs_d, images = handle
+        them), the shards in order, and re-run images that overflow the
+        instance pad with a doubled pad, up to MAX_INSTANCES_CEILING, on
+        the first device of the mesh."""
+        shards, images = handle
+        first = (images.device if self.mesh is None
+                 else self.mesh.devices[0])
 
         def rerun(idx, pad):
             sel = torch.as_tensor(idx, device=images.device)
-            return [o.cpu().numpy() for o in self._run(images[sel], pad)]
+            return [o.cpu().numpy()
+                    for o in self._run(images[sel].to(first), pad)]
 
-        return escalate_overflow([o.cpu().numpy() for o in outs_d], rerun,
-                                 self._base_max_instances)
+        outs = [np.concatenate(parts) if len(parts) > 1 else parts[0]
+                for parts in zip(*[[o.cpu().numpy() for o in shard]
+                                   for shard in shards])]
+        return escalate_overflow(outs, rerun, self._base_max_instances)
 
     def __call__(self, images):
         return self.collect(self.dispatch(images))

@@ -30,8 +30,16 @@ reference's published 0.943 / 0.954 (the CLI's `parity_drill`).
 `evaluate_artifact` (`evaluate --artifact DIR`) scores an exported serving
 artifact (infer/artifact.py) on the same validation sample with the same
 COCOeval, and leaves the same stage seconds in `manager.timings`.
+
+`data_parallel: 1` (ROADMAP item 16): `train` of a unet pipeline with
+more than one visible card runs `train_on_ranks` over them, one spawned
+process per card (parallel/distributed.py), and returns when they have
+finished; `evaluate` (and `train_evaluate`'s evaluate, in this process)
+then serves on a replica per card. With one card every command runs the
+plain path.
 """
 
+import copy
 import json
 import logging
 import math
@@ -52,6 +60,7 @@ from mapping_tpu_torch.data.metadata import (generate_inference_metadata,
                                              write_metadata)
 from mapping_tpu_torch.eval.cocoeval import coco_evaluation
 from mapping_tpu_torch.infer.annotations import labeled_to_annotations
+from mapping_tpu_torch.parallel import distributed
 from mapping_tpu_torch.pipelines import PIPELINES
 from mapping_tpu_torch.prep.targets import overlay_masks
 from mapping_tpu_torch.train.callbacks import MetricSink
@@ -110,7 +119,11 @@ class PipelineManager:
         if warm_start:
             self.config.params["warm_start"] = 1
         try:
-            train(pipeline_name, dev_mode, self.config)
+            devices = rank_devices(pipeline_name, self.config.params)
+            if devices:
+                train_on_ranks(pipeline_name, dev_mode, self.config, devices)
+            else:
+                train(pipeline_name, dev_mode, self.config)
         finally:
             self.config.params["warm_start"] = prev
 
@@ -267,11 +280,54 @@ def _sample(rows, n, seed):
     return [rows[i] for i in idx]
 
 
+def rank_devices(pipeline_name, params):
+    """The cards to train `pipeline_name` on, one rank each, or None for
+    one process: with `data_parallel: 1`, every visible card where there
+    is more than one, for the pipelines that train the unet."""
+    if not params.get("data_parallel", 0) or pipeline_name not in (
+            "unet", "unet_weighted"):
+        return None
+    if str(params.get("device", "cuda")) != "cuda":
+        return None
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return [f"cuda:{i}" for i in range(n)] if n > 1 else None
+
+
+def train_on_ranks(pipeline_name, dev_mode, config, devices):
+    """`train` on one spawned process per device (a rank each, NCCL for
+    distinct cards, gloo otherwise) with `data_parallel: 1`: the ranks
+    train data-parallel, rank 0 writes the files. Raises if a rank
+    fails."""
+    logger.info("training %s on %d ranks: %s", pipeline_name, len(devices),
+                devices)
+    config = copy.deepcopy(config)
+    config.params["data_parallel"] = 1
+    distributed.spawn(_train_rank, devices, pipeline_name, dev_mode, config)
+
+
+def _train_rank(pipeline_name, dev_mode, config):
+    logger = logging.getLogger("mapping_tpu_torch")
+    if not logger.handlers:
+        handler = logging.StreamHandler()
+        handler.setFormatter(logging.Formatter(
+            f"%(asctime)s rank {distributed.rank()} %(name)s >>> "
+            f"%(message)s", datefmt="%Y-%m-%d %H:%M:%S"))
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+        logger.propagate = False
+    _seed_everything(SEED)
+    train(pipeline_name, dev_mode, config)
+
+
 def train(pipeline_name, dev_mode, config):
     params = config.params
     logger.info("training %s", pipeline_name)
-    if bool(params.overwrite) and os.path.isdir(params.experiment_dir):
+    if bool(params.overwrite) and os.path.isdir(params.experiment_dir) \
+            and distributed.is_primary():
         shutil.rmtree(params.experiment_dir)
+    distributed.barrier()
 
     meta = read_metadata(os.path.join(params.meta_dir, "metadata.csv"))
     meta_train = [r for r in meta if r["is_train"] == 1]

@@ -5,6 +5,7 @@ reference's torch modules (`conv`, `block.0`, `block.1`, ...) so a
 reference checkpoint loads unchanged.
 """
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -75,6 +76,41 @@ class DecoderBlockV2(nn.Module):
         return self.block(x)
 
 
+def batch_dropout(x, p: float, training: bool, shard, per_channel: bool):
+    """Dropout of NCHW `x`: whole channels with `per_channel`, else single
+    elements; the identity in eval mode or at p = 0. `shard` = (rank,
+    world), set by a data-parallel train step: the mask is drawn for the
+    global batch of world * len(x) images and this rank keeps its rows,
+    so that the ranks together drop what one process drops on the global
+    batch from the same generator state (train/step.py seeds it per
+    step on every rank)."""
+    if not training or p == 0:
+        return x
+    if p == 1:
+        return x * 0
+    rank, world = shard or (0, 1)
+    b = x.shape[0]
+    shape = (b * world, x.shape[1]) + ((1, 1) if per_channel
+                                       else tuple(x.shape[2:]))
+    # drawn in float32 whatever x's dtype: the same masks in every dtype
+    keep = torch.empty(shape, device=x.device).bernoulli_(1 - p)
+    return x * keep[rank * b:(rank + 1) * b].div_(1 - p).to(x.dtype)
+
+
 class SpatialDropout(nn.Dropout2d):
     """Channel-wise dropout before the final 1x1 conv; the identity in
-    eval mode."""
+    eval mode (`batch_dropout`)."""
+
+    shard = None
+
+    def forward(self, x):
+        return batch_dropout(x, self.p, self.training, self.shard, True)
+
+
+class ElementDropout(nn.Dropout):
+    """Elementwise dropout (`batch_dropout`)."""
+
+    shard = None
+
+    def forward(self, x):
+        return batch_dropout(x, self.p, self.training, self.shard, False)

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mapping_tpu_torch.parallel.mesh import Replicas
 from mapping_tpu_torch.train.trainer import SoftmaxProbs
 
 logger = logging.getLogger(__name__)
@@ -422,17 +423,26 @@ def quantized_probs_fn(get_model: Callable[[], nn.Module], calib_images,
 class QuantizedProbs:
     """images -> probabilities through the current int8 snapshot of a
     (probs_fn, get_packed) pair, with the pair's `set_async` and `stats`:
-    the probability function of a quantised FusedServe."""
+    the probability function of a quantised FusedServe. It runs on the
+    images' device: the snapshot's int8 model is copied once to each
+    other device it meets (parallel/mesh.py `Replicas`; a recalibration's
+    new snapshot drops the copies), as the JAX package replicates the
+    packed pytree over a mesh."""
 
     def __init__(self, probs_fn, get_packed):
         self.probs_fn = probs_fn
         self.get_packed = get_packed
         self.set_async = get_packed.set_async
         self.stats = get_packed.stats
+        self._replicas = Replicas()
 
     def __call__(self, images):
+        packed = self.get_packed()
+        module = self._replicas.get(packed["module"], images.device)
+        if module is not packed["module"]:
+            packed = dict(packed, module=module)
         with torch.inference_mode():
-            return self.probs_fn(self.get_packed(), images)
+            return self.probs_fn(packed, images)
 
     def module(self) -> nn.Module:
         """The current snapshot's module, for export."""

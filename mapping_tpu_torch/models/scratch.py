@@ -24,6 +24,7 @@ its skip differ in size and the concat raises, in both packages.
 import torch
 from torch import nn
 
+from mapping_tpu_torch.models.blocks import ElementDropout
 from mapping_tpu_torch.models.resnet import BatchNorm2d
 
 
@@ -38,8 +39,8 @@ class ConvBlock(nn.Module):
         self.bn0 = BatchNorm2d(cout, eps=1e-5) if batch_norm else None
         self.conv1 = nn.Conv2d(cout, cout, kernel, padding="same")
         self.bn1 = BatchNorm2d(cout, eps=1e-5) if batch_norm else None
-        self.dropout = (nn.Dropout(dropout) if dropout > 0 and dropout_last
-                        else None)
+        self.dropout = (ElementDropout(dropout)
+                        if dropout > 0 and dropout_last else None)
 
     def forward(self, x):
         for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):

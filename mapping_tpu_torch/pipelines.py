@@ -34,8 +34,17 @@ package's `scoring_model.joblib` beside it is read, never written);
 suppresses overlaps across layers (NMS), one image at a time
 (`force_stream`). With `quantized_serving: 1` every pipeline serves the
 int8 forward of models/quantize.py, calibrated on the first
-`quant_calib_images` metadata images. Not ported yet, and raising with its
-ROADMAP item: a device mesh (item 16).
+`quant_calib_images` metadata images.
+
+`data_parallel: 1` gives the trainer the mesh "auto" (train/trainer.py):
+with one visible card that is no mesh and the plain path runs, as in the
+JAX package. With more, serving runs a replica per card (infer/serving.py
+`FusedServe(mesh=...)`, int8 serving included), and training runs on the
+ranks of a process group, one per card, which the train command starts
+(manager.py): there the loader hands each rank its shard of the global
+batch, rank 0 alone archives a warm-started stage and writes the cache
+and the stage marker, and the others wait for it. Not ported yet, and
+raising with its ROADMAP item: `spatial_serving` (item 16b).
 """
 
 import logging
@@ -55,6 +64,7 @@ from mapping_tpu_torch.data.metadata import read_metadata
 from mapping_tpu_torch.infer.serving import FusedServe, ServeProgram
 from mapping_tpu_torch.models.quantize import (QuantizedProbs,
                                                quantized_probs_fn)
+from mapping_tpu_torch.parallel import distributed
 from mapping_tpu_torch.scoring import (NonMaximumSupression, ScoringGBM,
                                        features_from_tensor)
 from mapping_tpu_torch.train.trainer import UNetTrainer
@@ -62,7 +72,7 @@ from mapping_tpu_torch.train.trainer import UNetTrainer
 logger = logging.getLogger(__name__)
 
 # settings of the JAX package this port does not run yet -> ROADMAP item
-_NOT_PORTED = {"data_parallel": 16, "spatial_serving": 16}
+_NOT_PORTED = {"spatial_serving": "16b"}
 
 
 def _not_ported(what: str, item: str):
@@ -103,13 +113,6 @@ class UNetPipeline:
         loader = config.loader
         mode = "crop_and_pad" if padded else loader.mode
         self.crop_predictions = padded or (tta and mode == "crop_and_pad")
-        self.loader = SegmentationLoader(
-            mode=mode, size=loader.size, pad=loader.pad,
-            pad_method=loader.pad_method,
-            batch_size_train=loader.batch_size_train,
-            batch_size_inference=loader.batch_size_inference,
-            seed=loader.seed,
-            load_in_memory=loader.load_in_memory, device=device)
         self.trainer = UNetTrainer(
             model_params=config.unet.model_params,
             optimizer_params=config.unet.optimizer_params,
@@ -119,9 +122,20 @@ class UNetPipeline:
             loss_name=loss_name,
             input_size=config.loader.size,
             seed=SEED,
+            mesh="auto" if config.params.get("data_parallel", 0) else None,
             remat=bool(config.params.get("remat", 0)),
             pretrained_weights=config.unet.get("pretrained_weights", ""),
             device=device)
+        dp = self.trainer.data_parallel
+        self.loader = SegmentationLoader(
+            mode=mode, size=loader.size, pad=loader.pad,
+            pad_method=loader.pad_method,
+            batch_size_train=loader.batch_size_train,
+            batch_size_inference=loader.batch_size_inference,
+            seed=loader.seed,
+            load_in_memory=loader.load_in_memory,
+            device=self.trainer.device,
+            shard=None if dp is None else (dp.rank, dp.world))
         self.category_layers = _category_layers(config)
         self.quantized = bool(config.params.get("quantized_serving", 0))
         self._quantized = None
@@ -208,8 +222,10 @@ class UNetPipeline:
                                          train_mode=True)
             self.trainer.fit(gens["datagen"], gens["validation_datagen"],
                              meta_valid=meta_valid)
-            self.trainer.save(self.trainer_cache_path)
-            self._mark_stage_complete()
+            if self.trainer.is_primary:
+                self.trainer.save(self.trainer_cache_path)
+                self._mark_stage_complete()
+            distributed.barrier()
         self._weights_loaded = True
         return {"y_pred": []}
 
@@ -235,7 +251,16 @@ class UNetPipeline:
 
     def _begin_stage(self, cache):
         """`warm_start` with an existing cache: the next stage of the
-        multistage recipe, from the weights in `cache`. A completed stage
+        multistage recipe, from the weights in `cache` (on a mesh rank 0
+        archives, and every rank warm-starts once it has; see
+        `_archive_stage`)."""
+        if self.trainer.is_primary:
+            self._archive_stage(cache)
+        distributed.barrier()
+        self.trainer.warm_start(cache)
+
+    def _archive_stage(self, cache):
+        """The archiving of `_begin_stage`. A completed stage
         (marker present) is archived, never destroyed: its checkpoint dir
         moves to `<checkpoint_dir>.stage{N}` and its cache is copied to
         `unet.stage{N}` beside it, so the new stage starts a fresh
@@ -288,7 +313,6 @@ class UNetPipeline:
             logger.info("warm start: archived completed stage (checkpoints "
                         "-> %s.stage%d, weights -> %s.stage%d%s)", ck, n,
                         stem, n, archive_ext)
-        self.trainer.warm_start(cache)
 
     # -------------------------------------------------------- inference
     def serve_program(self, return_features=False):
@@ -297,7 +321,10 @@ class UNetPipeline:
         with `return_features` the feature tensor) leave the device."""
         key = bool(return_features)
         if key not in self._serve:
-            self._serve[key] = FusedServe(self._probs_fn(),
+            # a rank of a data-parallel trainer serves on its own card
+            mesh = (self.trainer.mesh if self.trainer.data_parallel is None
+                    else None)
+            self._serve[key] = FusedServe(self._probs_fn(), mesh=mesh,
                                           **self._serve_args(key))
         return self._serve[key]
 

@@ -19,6 +19,15 @@ same hooks, resume protocol and JSON sidecar schema ({"epoch_id",
   draws a new permutation;
 - `ProfilerTrace` runs `torch.profiler` and writes a Chrome trace;
 - `PredictionImageMonitor` writes its PNGs with `utils/png`.
+
+On the ranks of a data-parallel trainer (train/trainer.py) the JAX
+package validates through `FusedServe(mesh=trainer.mesh)`; here rank 0
+validates on its own card while the other ranks wait for the value it
+broadcasts (`_rank0_value`): data-parallel serving gives the outputs of
+single-device serving, so the mAP is the same, and every rank then takes
+the same best-checkpoint and early-stopping decisions. Only rank 0 writes
+files (best.pt, last.pt and its sidecar, metrics.jsonl, traces, images);
+every rank reads a resume file.
 """
 
 import json
@@ -32,10 +41,25 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from mapping_tpu_torch.parallel import distributed
 from mapping_tpu_torch.train.checkpoint import (refuse_jax_resume_file,
                                                 save_state_dict)
 
 logger = logging.getLogger(__name__)
+
+
+def _rank0_value(trainer, compute):
+    """compute() on rank 0 of a data-parallel trainer, its value handed to
+    every rank; compute() anywhere else."""
+    if getattr(trainer, "data_parallel", None) is None:
+        return compute()
+    return distributed.primary_value(compute)
+
+
+def _writes(trainer) -> bool:
+    """Whether this process writes the run's files: all but the ranks
+    other than 0 of a data-parallel trainer."""
+    return getattr(trainer, "is_primary", True)
 
 
 class MetricSink:
@@ -113,8 +137,9 @@ class Callback:
         """Validation metrics, computed once per epoch and shared through
         `trainer.validation_loss`."""
         if self.epoch_id not in self.trainer.validation_loss:
-            self.trainer.validation_loss[self.epoch_id] = (
-                self.trainer.score_validation(self.validation_datagen))
+            self.trainer.validation_loss[self.epoch_id] = _rank0_value(
+                self.trainer, lambda: self.trainer.score_validation(
+                    self.validation_datagen))
         return self.trainer.validation_loss[self.epoch_id]
 
 
@@ -251,7 +276,7 @@ class ValidationMonitorSegmentation(ValidationMonitor):
         if not self.validate_with_map or self.meta_valid is None:
             return super().get_validation_loss()
         if self.epoch_id not in self.trainer.validation_loss:
-            ap = self._map_validation()
+            ap = _rank0_value(self.trainer, self._map_validation)
             self.trainer.validation_loss[self.epoch_id] = {
                 "sum": np.asarray(ap)}
         return self.trainer.validation_loss[self.epoch_id]
@@ -391,14 +416,15 @@ class ModelCheckpoint(Callback):
             if improved:
                 if value is not None:
                     self.best = value
-                # a copy, also on the CPU, where .cpu() would alias the
-                # weights that training goes on changing
-                self._best_state = {
-                    k: v.detach().to("cpu", copy=True)
-                    for k, v in self.trainer.model.state_dict().items()}
+                if _writes(self.trainer):
+                    # a copy, also on the CPU, where .cpu() would alias
+                    # the weights that training goes on changing
+                    self._best_state = {
+                        k: v.detach().to("cpu", copy=True)
+                        for k, v in self.trainer.model.state_dict().items()}
+                    self._dirty = True
                 logger.info("epoch %d new best checkpoint (score=%s)",
                             self.epoch_id, value)
-                self._dirty = True
         if self._dirty and self.write_every and (
                 self._last_write_epoch is None
                 or self.epoch_id - self._last_write_epoch >= self.write_every):
@@ -460,16 +486,18 @@ class MetricsMonitor(Callback):
         self.model_name = model_name
 
     def on_batch_end(self, metrics=None, **kw):
-        for name, value in (metrics or {}).items():
-            self.sink.send(f"{self.model_name} batch {name}",
-                           self.batch_id, float(value))
+        if _writes(self.trainer):
+            for name, value in (metrics or {}).items():
+                self.sink.send(f"{self.model_name} batch {name}",
+                               self.batch_id, float(value))
         super().on_batch_end(**kw)
 
     def on_epoch_end(self, *a, **kw):
         if self.validation_datagen is not None or self.meta_valid is not None:
             for name, value in self.get_validation_loss().items():
-                self.sink.send(f"{self.model_name} epoch_val {name}",
-                               self.epoch_id, float(np.asarray(value)))
+                if _writes(self.trainer):
+                    self.sink.send(f"{self.model_name} epoch_val {name}",
+                                   self.epoch_id, float(np.asarray(value)))
         super().on_epoch_end(*a, **kw)
 
 
@@ -519,7 +547,8 @@ class ResumeCheckpoint(Callback):
         super().on_epoch_end(*a, **kw)
 
     def maybe_save(self, epoch_id):
-        if not (self.epoch_every and epoch_id % self.epoch_every == 0):
+        if not (self.epoch_every and epoch_id % self.epoch_every == 0
+                and _writes(self.trainer)):
             return
         start = time.perf_counter()
         aux = {"epoch_id": epoch_id}
@@ -564,7 +593,8 @@ class ProfilerTrace(Callback):
 
     def on_batch_begin(self, *a, **kw):
         if (not self._done and self._profiler is None
-                and self.batch_id == self.start_batch):
+                and self.batch_id == self.start_batch
+                and _writes(self.trainer)):
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -603,7 +633,8 @@ class PredictionImageMonitor(Callback):
 
     def on_epoch_end(self, *a, **kw):
         if (self.validation_datagen is not None and self.epoch_every
-                and self.epoch_id % self.epoch_every == 0):
+                and self.epoch_id % self.epoch_every == 0
+                and _writes(self.trainer)):
             self._save_images()
         super().on_epoch_end(*a, **kw)
 

@@ -6,6 +6,15 @@ targets (N, H, W), and weighted targets stacked along the last axis as
 (N, H, W, 1+K) = [mask, distance, size]. All weight math runs in float32.
 The JAX package picks each pixel's log-probability with a one-hot product
 (a TPU scatter workaround); here it is a gather.
+
+Data parallel: every batch-wide reduction (the CE's mean, the dice's
+sums) takes a `reduce`, the differentiable all-reduce of the train step's
+process group (parallel.distributed.DataParallel.all_reduce): under it
+the CE is the all-reduced sum over the all-reduced pixel count and the
+dice uses the all-reduced sums of p * t, p and t, so that every rank's
+loss is the loss of the global batch, as in the JAX package's mesh step.
+No term mixes a global value with a local one (the local term's gradient
+would come out world-size times too small).
 """
 
 import math
@@ -21,11 +30,19 @@ def _per_pixel_ce(logits, labels):
     return -logp.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
 
 
-def multiclass_segmentation_loss(logits, target):
+def _mean(x, reduce=None):
+    """x.mean(), or with `reduce` the mean over every rank's elements."""
+    if reduce is None:
+        return x.mean()
+    total = reduce(torch.stack([x.sum(), x.new_tensor(float(x.numel()))]))
+    return total[0] / total[1]
+
+
+def multiclass_segmentation_loss(logits, target, reduce=None):
     """Mean softmax CE; target (N, H, W) int or (N, H, W, 1)."""
     if target.dim() == logits.dim():
         target = target[..., 0]
-    return _per_pixel_ce(logits, target).mean()
+    return _mean(_per_pixel_ce(logits, target), reduce)
 
 
 def _distance_weights(d, w0, sigma):
@@ -47,27 +64,31 @@ def get_weights(weight_channels, w0, sigma, imsize):
             * _size_weights(weight_channels[..., 1], c))
 
 
-def multiclass_weighted_cross_entropy(logits, target, weights_function=None):
+def multiclass_weighted_cross_entropy(logits, target, weights_function=None,
+                                      reduce=None):
     """Weighted CE: target (N, H, W, 1+K); channel 0 = class mask, channels
     1..K feed weights_function (or channel 1 is the weight directly)."""
     if weights_function is None:
         weights = target[..., 1].float()
     else:
         weights = weights_function(target[..., 1:])
-    return (_per_pixel_ce(logits, target[..., 0]) * weights).mean()
+    return _mean(_per_pixel_ce(logits, target[..., 0]) * weights, reduce)
 
 
-def dice_loss(probs, target, smooth=0.0, eps=1e-7):
+def dice_loss(probs, target, smooth=0.0, eps=1e-7, reduce=None):
     """1 - 2|p∩t| / (|p|+|t|), batch-global sums."""
     probs = probs.float()
     target = target.float()
-    num = 2.0 * (probs * target).sum() + smooth
-    den = probs.sum() + target.sum() + smooth + eps
+    sums = torch.stack([(probs * target).sum(), probs.sum(), target.sum()])
+    if reduce is not None:
+        sums = reduce(sums)
+    num = 2.0 * sums[0] + smooth
+    den = sums[1] + sums[2] + smooth + eps
     return 1.0 - num / den
 
 
 def multiclass_dice_loss(logits, target, smooth=0.0, activation="softmax",
-                         excluded_classes: Sequence[int] = ()):
+                         excluded_classes: Sequence[int] = (), reduce=None):
     """Sum of per-class dice over non-excluded channels. target: (N, H, W)
     int."""
     if activation == "softmax":
@@ -81,7 +102,7 @@ def multiclass_dice_loss(logits, target, smooth=0.0, activation="softmax",
         if class_nr in excluded_classes:
             continue
         loss = loss + dice_loss(probs[..., class_nr], target == class_nr,
-                                smooth)
+                                smooth, reduce=reduce)
     return loss
 
 
@@ -94,28 +115,31 @@ def mixed_dice_cross_entropy_loss(
     dice_activation="softmax",
     cross_entropy_loss: Optional[Callable] = None,
     excluded_classes: Sequence[int] = (0,),
+    reduce=None,
 ):
     """dice_weight * dice + cross_entropy_weight * ce. target: (N, H, W, 1+K)
     stacked [mask, weight channels...]; dice reads channel 0, a weighted CE
     gets the whole stack."""
     mask = target[..., 0].long()
     dice = multiclass_dice_loss(logits, mask, smooth, dice_activation,
-                                excluded_classes)
+                                excluded_classes, reduce=reduce)
     if cross_entropy_loss is None:
-        ce = multiclass_segmentation_loss(logits, mask)
+        ce = multiclass_segmentation_loss(logits, mask, reduce)
     else:
-        ce = cross_entropy_loss(logits, target)
+        ce = cross_entropy_loss(logits, target, reduce=reduce)
     return dice_weight * dice + cross_entropy_weight * ce
 
 
-def make_loss_fn(loss_name: str, params: dict) -> Callable:
+def make_loss_fn(loss_name: str, params: dict,
+                 reduce: Optional[Callable] = None) -> Callable:
     """'ce' (plain) or 'weighted' (distance/size weighted CE + dice); the
-    keys of `params` and their defaults are the JAX package's."""
+    keys of `params` and their defaults are the JAX package's. With
+    `reduce` the loss is that of the global batch of a process group."""
     if loss_name == "ce":
         def plain(logits, target):
             if target.dim() == logits.dim():
                 target = target[..., 0]
-            return multiclass_segmentation_loss(logits, target)
+            return multiclass_segmentation_loss(logits, target, reduce)
         return plain
     if loss_name == "weighted":
         weights_function = partial(
@@ -132,5 +156,6 @@ def make_loss_fn(loss_name: str, params: dict) -> Callable:
             dice_activation=params.get("dice_activation", "softmax"),
             cross_entropy_loss=partial(multiclass_weighted_cross_entropy,
                                        weights_function=weights_function),
+            reduce=reduce,
         )
     raise KeyError(f"unknown loss {loss_name!r}")

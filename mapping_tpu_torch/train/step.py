@@ -19,6 +19,25 @@ step). The eval and predict steps take one map and refuse a list
 (torch.utils.checkpoint), like jax.checkpoint in the JAX step. A re-run
 forward would update the BatchNorm running statistics a second time, so
 the re-run holds them (momentum 0): one step updates them once, as in JAX.
+
+Dropout draws from the step's own random state: the forward and backward
+run with the default generators of the CPU and of the model's card forked
+and seeded from (`seed`, step number), as the JAX step folds the step into
+its dropout key, so a step's masks depend on nothing else the process
+drew, and a remat re-run (which restores the forked state) draws them
+again.
+
+Data parallel (`data_parallel`, a parallel.distributed.DataParallel): the
+step runs on one rank of a process group with the rank's shard of the
+global batch. For the forward and backward every BatchNorm takes the
+statistics of the global batch and every dropout draws the global batch's
+mask and keeps the rank's rows (models/resnet.BatchNorm2d,
+models/blocks.batch_dropout); the loss must be the global one
+(train/losses.make_loss_fn with `reduce`); after the backward the
+gradients are averaged over the ranks. The step then equals the
+single-process step on the concatenated batch, and every rank's weights
+stay the same. `place_for_mesh` puts a model and a global batch in that
+layout.
 """
 
 import contextlib
@@ -27,6 +46,9 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from mapping_tpu_torch.models.blocks import ElementDropout, SpatialDropout
+from mapping_tpu_torch.models.resnet import BatchNorm2d
 
 
 @contextlib.contextmanager
@@ -47,7 +69,7 @@ def _no_tf32(active):
 
 def _autocast(device: torch.device, dtype: torch.dtype):
     """The context a forward of `dtype` runs in on `device`."""
-    if dtype == torch.float32:
+    if dtype in (torch.float32, torch.float64):
         return contextlib.nullcontext()
     return torch.autocast(device.type, dtype=dtype)
 
@@ -73,6 +95,54 @@ def _eval_mode(model: nn.Module):
         yield
     finally:
         model.train(was_training)
+
+
+@contextlib.contextmanager
+def _step_rng(device: torch.device, seed: int, step: int):
+    """The default generators of the CPU and of `device` forked, and
+    seeded from (seed, step), for the block."""
+    value = (int(seed) << 32) + int(step)
+    cuda = [device.index] if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=cuda, device_type="cuda"):
+        torch.random.default_generator.manual_seed(value)
+        if cuda:
+            torch.cuda.default_generators[device.index].manual_seed(value)
+        yield
+
+
+@contextlib.contextmanager
+def _global_batch(model: nn.Module, data_parallel):
+    """BatchNorms and dropouts of `model` over the global batch of
+    `data_parallel`'s group for the block (nothing without one)."""
+    if data_parallel is None:
+        yield
+        return
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    drops = [m for m in model.modules()
+             if isinstance(m, (SpatialDropout, ElementDropout))]
+    for m in norms:
+        m.group = data_parallel
+    for m in drops:
+        m.shard = (data_parallel.rank, data_parallel.world)
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
+        for m in drops:
+            m.shard = None
+
+
+def place_for_mesh(model: nn.Module, batch, mesh):
+    """(model with rank 0's weights, this rank's shard of the global
+    `batch` on the rank's device), on a rank of a process group over
+    `mesh`: the counterpart of the JAX package's place_for_mesh, which
+    replicates the state and shards the batch for one SPMD step."""
+    from mapping_tpu_torch.parallel import distributed
+    from mapping_tpu_torch.parallel.mesh import shard_batch
+
+    return (distributed.broadcast_module(model),
+            shard_batch(batch, mesh)[distributed.rank()])
 
 
 MULTI_HEAD = ("a multi-head model (UNetMultitask, nr_outputs > 1) returns "
@@ -121,24 +191,32 @@ def make_train_step(loss_fn: Callable, model: nn.Module,
                     optimizer: torch.optim.Optimizer,
                     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler]
                     = None, dtype: torch.dtype = torch.bfloat16,
-                    remat: bool = False):
-    """Returns batch -> {"loss": 0-dim float32 tensor} that runs one
-    optimizer step on `model` in place (BatchNorm in training mode, its
-    running statistics updated) and steps `scheduler` after it.
+                    remat: bool = False, seed: int = 0,
+                    data_parallel=None):
+    """Returns (batch, step=0) -> {"loss": 0-dim float32 tensor} that runs
+    one optimizer step on `model` in place (BatchNorm in training mode,
+    its running statistics updated) and steps `scheduler` after it;
+    dropout draws from (`seed`, `step`).
 
     batch: {"image": (N, H, W, 3) float32, "target": (N, H, W, 1+K)} on the
     model's device. loss_fn(logits (N, H, W, C) float32, target) -> scalar.
-    The loss is returned on the device; reading it synchronises."""
+    The loss is returned on the device; reading it synchronises. With
+    `data_parallel` the batch is this rank's shard and loss_fn the global
+    loss (module docstring)."""
     device = next(model.parameters()).device
 
-    def train_step(batch: Dict[str, torch.Tensor]):
+    def train_step(batch: Dict[str, torch.Tensor], step: int = 0):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        with _no_tf32(dtype == torch.float32):
+        with _no_tf32(dtype == torch.float32), \
+                _step_rng(device, seed, step), \
+                _global_batch(model, data_parallel):
             with _autocast(device, dtype):
                 logits = _forward(model, batch["image"], remat)
             loss = heads_loss(loss_fn, logits, batch["target"])
             loss.backward()
+        if data_parallel is not None:
+            data_parallel.average_gradients(model)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -150,14 +228,19 @@ def make_train_step(loss_fn: Callable, model: nn.Module,
 def make_train_step_multi(loss_fn: Callable, model: nn.Module,
                           optimizer: torch.optim.Optimizer,
                           scheduler=None, dtype: torch.dtype = torch.bfloat16,
-                          remat: bool = False):
-    """Returns batches -> {"loss": (K,) tensor}: K single steps, one per
-    batch, in order (the JAX package scans them in one dispatch; eager
-    PyTorch has no dispatch to save)."""
-    step = make_train_step(loss_fn, model, optimizer, scheduler, dtype, remat)
+                          remat: bool = False, seed: int = 0,
+                          data_parallel=None):
+    """Returns (batches, first_step=0) -> {"loss": (K,) tensor}: K single
+    steps, one per batch, in order, numbered from `first_step` (the JAX
+    package scans them in one dispatch; eager PyTorch has no dispatch to
+    save)."""
+    step = make_train_step(loss_fn, model, optimizer, scheduler, dtype, remat,
+                           seed, data_parallel)
 
-    def train_steps(batches: Sequence[Dict[str, torch.Tensor]]):
-        return {"loss": torch.stack([step(b)["loss"] for b in batches])}
+    def train_steps(batches: Sequence[Dict[str, torch.Tensor]],
+                    first_step: int = 0):
+        return {"loss": torch.stack([step(b, first_step + i)["loss"]
+                                     for i, b in enumerate(batches)])}
 
     return train_steps
 

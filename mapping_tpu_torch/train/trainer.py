@@ -34,7 +34,20 @@ encoder the first time the float32 model is used, as the JAX package
 grafts it when it creates its state: fit, save, serving, and before any
 weights are loaded, which then replace it.
 
-Not ported yet, and raising with its ROADMAP item: a device mesh (16).
+`mesh` (None, "auto" or a parallel.mesh.Mesh) is the data-parallel
+mesh of the JAX trainer. "auto" is the mesh of the active process group
+where there is one, else every visible card where there is more than one,
+else None: with one device the plain path runs, as the JAX trainer's
+"auto" does. On a rank of a process group (parallel/distributed.py) the
+trainer sits on the rank's device and trains data-parallel: the weights
+are broadcast from rank 0 when the state is made, every step reduces
+BatchNorm statistics, the loss and the gradients over the group
+(train/step.py), so that a step equals the single-process step on the
+global batch, and validation runs on rank 0 alone while the others wait
+for its value (train/callbacks.py). Outside a group a mesh is a serving
+mesh: `probs_apply_fn` runs on whichever device its input lies on, with
+one BN-folded copy of the weights per device (`serving_model(device)`,
+parallel/mesh.py `Replicas`), and `fit` raises.
 """
 
 import copy
@@ -49,6 +62,8 @@ from mapping_tpu_torch.models.convert import state_dict_for_encoder
 from mapping_tpu_torch.models.fold_bn import fold_batch_stats
 from mapping_tpu_torch.models.registry import build_network
 from mapping_tpu_torch.models.scratch import UNetMultitask
+from mapping_tpu_torch.parallel import distributed
+from mapping_tpu_torch.parallel.mesh import Mesh, Replicas, make_mesh
 from mapping_tpu_torch.train.callbacks import (CallbackList,
                                                default_unet_callbacks)
 from mapping_tpu_torch.train.checkpoint import (load_flax_weights,
@@ -67,9 +82,23 @@ logger = logging.getLogger(__name__)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
+def _indexed(device: torch.device) -> torch.device:
+    """A CUDA device with its index (the current card for plain "cuda")."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _resolve_mesh(mesh, device: torch.device) -> Optional[Mesh]:
+    if mesh == "auto":
+        if distributed.is_active():
+            return distributed.group_mesh()
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            return make_mesh()
+        return None
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be None, 'auto' or a Mesh, got {mesh!r}")
+    return mesh
 
 
 class SoftmaxProbs(torch.nn.Module):
@@ -105,12 +134,25 @@ class UNetTrainer:
                  remat: bool = False,
                  pretrained_weights: str = "",
                  device="cuda"):
-        if mesh is not None:
-            raise _not_ported("a device mesh", 16)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("UNetTrainer: CUDA device requested but "
                                "torch.cuda.is_available() is False")
+        self.device = _indexed(self.device)
+        self.mesh = _resolve_mesh(mesh, self.device)
+        #: on a rank of a process group: what the step reduces over
+        self.data_parallel = None
+        if self.mesh is not None and distributed.is_active():
+            if len(self.mesh) != distributed.world():
+                raise ValueError(f"the mesh has {len(self.mesh)} data-axis "
+                                 f"devices and the process group "
+                                 f"{distributed.world()} ranks")
+            rank_device = self.mesh.devices[distributed.rank()]
+            if rank_device.type != self.device.type:
+                raise ValueError(f"rank {distributed.rank()} is bound to "
+                                 f"{rank_device}, not to a {device} device")
+            self.device = rank_device
+            self.data_parallel = distributed.DataParallel()
         self.model_params = dict(model_params)
         self.optimizer_params = dict(optimizer_params)
         self.loss_params = dict(loss_params)
@@ -127,7 +169,12 @@ class UNetTrainer:
             torch.manual_seed(seed)
             model = build_network(self.model_params)
         self.model = model.to(self.device, memory_format=torch.channels_last)
+        # the validation loss is rank 0's own; a data-parallel step's loss
+        # is the global batch's
         self._loss_fn = make_loss_fn(loss_name, self.loss_params)
+        self._train_loss_fn = self._loss_fn if self.data_parallel is None \
+            else make_loss_fn(loss_name, self.loss_params,
+                              reduce=self.data_parallel.all_reduce)
         self.optimizer = None
         self.scheduler = None
         self.train_losses: List[float] = []
@@ -136,10 +183,18 @@ class UNetTrainer:
         self.resume_info: Dict[str, Any] = {}
         self.warm_started_from = None
         self._warm_start_path = None
-        # the folded serving copy and the weights' version it was made from
+        # the folded serving copy, the weights' version it was made from,
+        # and its copies on other devices
         self._state_version = 0
         self._folded = None
         self._folded_version = None
+        self._replicas = Replicas()
+
+    @property
+    def is_primary(self) -> bool:
+        """False on the ranks other than 0 of a data-parallel trainer: they
+        write no file."""
+        return self.data_parallel is None or self.data_parallel.rank == 0
 
     # ------------------------------------------------------------- state
     def _master(self):
@@ -208,9 +263,12 @@ class UNetTrainer:
             master, lr=op.get("lr", 5e-4), gamma=gamma,
             decay_every_steps=max(steps_per_epoch, 1),
             weight_decay=op.get("weight_decay", 0.0))
+        if self.data_parallel is not None:
+            distributed.broadcast_module(master)
+            self._state_version += 1
         self._train_steps = make_train_step_multi(
-            self._loss_fn, master, self.optimizer, self.scheduler,
-            self.dtype, self.remat)
+            self._train_loss_fn, master, self.optimizer, self.scheduler,
+            self.dtype, self.remat, self.seed, self.data_parallel)
         self._eval_step = make_eval_step(self._loss_fn, master, self.dtype)
         self._predict_step = make_predict_step(master, self.dtype)
 
@@ -317,9 +375,11 @@ class UNetTrainer:
         if isinstance(self.model, UNetMultitask):
             raise TypeError(MULTI_HEAD)
 
-    def serving_model(self):
+    def serving_model(self, device=None):
         """The BN-folded copy of the model in the compute dtype that
-        `probs_apply_fn` runs, re-made when the weights changed."""
+        `probs_apply_fn` runs, re-made when the weights changed; on
+        another `device` than the trainer's, a copy of it there (one per
+        device)."""
         self._refuse_multi_head()
         if self.model is not None:
             self._master()  # a pending encoder graft changes the weights
@@ -328,7 +388,10 @@ class UNetTrainer:
             self._folded = fold_batch_stats(model).to(
                 dtype=self.dtype, memory_format=torch.channels_last)
             self._folded_version = self._state_version
-        return self._folded
+        if device is None:
+            return self._folded
+        return self._replicas.get(self._folded,
+                                  _indexed(torch.device(device)))
 
     def folded_float32(self):
         """A BN-folded float32 copy of the current weights in eval mode,
@@ -350,13 +413,15 @@ class UNetTrainer:
     def probs_apply_fn(self):
         """images (B, H, W, 3) normalised float -> (B, H, W, C) float32
         softmax probabilities, from a BN-folded copy of the model in the
-        compute dtype (float32 runs with TF32 off for the call only). The
-        copy is re-folded when the weights change."""
+        compute dtype (float32 runs with TF32 off for the call only), on
+        the images' device (a mesh replica's). The copy is re-folded when
+        the weights change."""
         self._refuse_multi_head()
 
         @torch.inference_mode()
         def probs(images):
-            return SoftmaxProbs(self.serving_model(), self.dtype)(images)
+            return SoftmaxProbs(self.serving_model(images.device),
+                                self.dtype)(images)
 
         return probs
 
@@ -374,7 +439,13 @@ class UNetTrainer:
         The callbacks get `validation_datagen` and `meta_valid` (the
         validation rows); a resume checkpoint continues the schedule at
         the epoch after its own, and the best weights, where kept, are
-        loaded at the end."""
+        loaded at the end. On a mesh, each rank's flow yields its shard of
+        the global batch (data/loader.py `shard`)."""
+        if self.mesh is not None and self.data_parallel is None:
+            raise RuntimeError(
+                "a trainer with a mesh trains on the ranks of a process "
+                "group, one per device (parallel.distributed.spawn; the "
+                "train command starts them); here there is none")
         flow, steps = datagen
         self._ensure_state(steps_per_epoch=steps)
         self.train_losses = []
@@ -401,7 +472,7 @@ class UNetTrainer:
             single = len(pending) == 1
             if single:
                 callbacks.on_batch_begin()
-            losses = self._train_steps(pending)["loss"].tolist()  # host sync
+            losses = self._train_steps(pending, self.step)["loss"].tolist()
             self.step += len(pending)
             self._state_version += 1  # the folded serving copy is stale
             self.train_losses.extend(losses)
@@ -427,6 +498,8 @@ class UNetTrainer:
         if hasattr(flow, "close"):
             flow.close()  # retire the next epoch's decode prefetch
         callbacks.on_train_end()
+        if self.data_parallel is not None:
+            distributed.barrier()  # rank 0 has written best.pt
         # hand back the best weights where a checkpoint kept them
         best = os.path.join(self.callbacks_config.get("checkpoint_dir", ""),
                             "best.pt")

@@ -204,12 +204,14 @@ def test_tf32_off_only_inside_float32_forward(slice_outputs, dtype,
 
 
 def test_unported_settings_raise():
-    """Only the mesh settings (item 16) are left unported; int8 serving
-    (item 21) builds (tests/test_torch_quantize.py runs it)."""
+    """Only spatial serving (item 16b) is left unported; data_parallel
+    (item 16) builds, on the CPU without a mesh (tests/
+    test_torch_parallel.py runs it), and int8 serving (item 21) builds
+    (tests/test_torch_quantize.py runs it)."""
     state = {}
-    for key in ("data_parallel", "spatial_serving"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-            _pipeline({key: 1}, state)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 16b"):
+        _pipeline({"spatial_serving": 1}, state)
+    assert _pipeline({"data_parallel": 1}, state).trainer.mesh is None
     assert _pipeline({"quantized_serving": 1}, state).quantized
 
 
@@ -267,7 +269,12 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.ops.resize',\n"
         "        'mapping_tpu_torch.graph',\n"
         "        'mapping_tpu_torch.sklearn_models',\n"
-        "        'mapping_tpu_torch.utils.misc'} <= set(names)\n"
+        "        'mapping_tpu_torch.utils.misc',\n"
+        "        'mapping_tpu_torch.parallel',\n"
+        "        'mapping_tpu_torch.parallel.mesh',\n"
+        "        'mapping_tpu_torch.parallel.distributed',\n"
+        "        'mapping_tpu_torch.parallel.dryrun',\n"
+        "        'mapping_tpu_torch.infer.sharded'} <= set(names)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'mapping_tpu', 'pandas', 'yaml', 'click', 'PIL', "
         "'msgpack', 'joblib', 'imageio', 'sklearn') and sys.modules[k] is "

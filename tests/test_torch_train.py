@@ -564,8 +564,16 @@ def test_steps_per_call_runs_the_same_single_steps():
 
 @pytest.mark.parametrize("kw,item", [({"mesh": "auto"}, 16)])
 def test_unported_trainer_settings_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        _trainer(**kw)
+    """ROADMAP item 16 is ported: mesh "auto" on the CPU is no mesh (the
+    plain path, as the JAX trainer's "auto" with one device), and a mesh
+    outside a process group refuses to train (tests/
+    test_torch_parallel.py trains on ranks)."""
+    from mapping_tpu_torch.parallel import make_mesh
+
+    assert _trainer(**kw).mesh is None
+    trainer = _trainer(mesh=make_mesh(["cpu", "cpu"]))
+    with pytest.raises(RuntimeError, match="process group"):
+        trainer.fit(_flow())
 
 
 # ------------------------------------------------- pretrained encoders
