@@ -218,6 +218,26 @@ the JAX package is imported. Phases, each printing what it found:
      UNetTrainer.fit steps from phase 6's files on two gloo ranks, rank 0
      writing last.pt, then a two-rank resume to epoch 1; ms/step of the
      ranks beside one process's on the same files.
+ 15. spatial serving on the one card, under build/chip_smoke_spatial/, on
+     phase 9 (a)'s weights (BN folded) over meshes of 2 and 4 bands on
+     cuda:0 (the card listed several times): (a) one 2048^2 tile of phase
+     6's train tiles laid side by side, bf16, 300^2 out, on 2 and on 4
+     bands against the unsplit forward on the card: labels and areas
+     equal and scores within 1e-4 relative, except on pixels within max
+     |p_spatial - p_single| (at most 1e-2) of the threshold; the
+     exchange's bytes and its largest transfer (fewer rows than the
+     map's), ms per tile of both (CUDA events, in turns), their peak
+     device memory, one `label` launch; (b) a 512 x 256 float64 tile on 4
+     bands: max |dp| <= 1e-9 against the unsplit float64 forward, labels
+     and areas equal; (c) the 110 val tiles at batch 20 (256^2 in, 300^2
+     out) through the pipeline's forward with FusedServe(mesh=Mesh(
+     ["cuda:0"] * 2), spatial=True) against one device under (a)'s rule,
+     one `label` launch a batch whose labels equal the plain CCL's on the
+     batch's masks, and the CLI with spatial_serving: 1 on the one visible
+     card exiting non-zero with the JAX package's message; (d) one 512^2
+     tile each through VGG11, VGG16, the scratch UNet (pool 3/2) and
+     UNet++ (seeded weights, float32) and the int8 forward, 4 bands,
+     under (a)'s rule.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -351,6 +371,22 @@ FIT_STEPS = 3  # phase 14 (d): optimizer steps per epoch
 #: phase 14's parameters over the JAX config's defaults (ResNet101, bf16,
 #: batch 20, 256^2 in, 300^2 out), and (d)'s model_params over them
 PARALLEL_PARAMS, FIT_MODEL = {}, {}
+SPATIAL_DIR = ROOT / "build" / "chip_smoke_spatial"
+#: phase 15: the side of (a)'s tile, its band counts, (b)'s float64 tile
+#: (H, W) and its gate on max |dp|, (d)'s tile side and band count
+SPATIAL_SIDE, SPATIAL_BANDS = 2048, (2, 4)
+SPATIAL_F64, SPATIAL_F64_TOL = (512, 256), 1e-9
+SPATIAL_FAMILY_SIDE, SPATIAL_FAMILY_BANDS = 512, 4
+#: (d)'s families: encoder and model_params over the JAX config's
+#: defaults; float32, because their seeded weights, rescaled to spread the
+#: probabilities, amplify bf16's rounding (in bf16 the scratch UNet's
+#: bands moved probabilities by 0.09 on an H100)
+SPATIAL_FAMILIES = (("VGG11", {}), ("VGG16", {}),
+                    ("from_scratch", {"pool_kernel": 3, "pool_stride": 2}),
+                    ("UNetPlusPlus", {}))
+#: (a)'s instance pad: wide enough for the tile's buildings, so that no
+#: overflow rerun enters its times
+SPATIAL_PAD = 1024
 CCL_KERNELS = ("tile_label", "merge_borders", "resolve", "scan", "gather")
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
@@ -746,15 +782,16 @@ def random_model(depth, gen):
 
 
 def centre_logits(model, images):
-    """Rescale the final conv so that the class logit difference over
-    `images` has mean 0 and standard deviation 4: about half the pixels
-    are foreground and probabilities do not saturate."""
+    """Rescale the final conv (the model's last) so that the class logit
+    difference over `images` has mean 0 and standard deviation 4: about
+    half the pixels are foreground and probabilities do not saturate."""
     model = model.to(DEVICE).eval()
+    final = [m for m in model.modules() if isinstance(m, torch.nn.Conv2d)][-1]
     with torch.no_grad():
         logits = model(images.permute(0, 3, 1, 2))
         diff = logits[:, 1] - logits[:, 0]
         centre, scale = diff.mean(), 4.0 / diff.std()
-        w, b = model.final.weight, model.final.bias
+        w, b = final.weight, final.bias
         w[1] = w[0] + scale * (w[1] - w[0])
         b[1] = b[0] + scale * (b[1] - b[0] - centre)
     return {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -3405,6 +3442,272 @@ def parallel_phase(smi, prepared):
     return launches
 
 
+class Softmax64(torch.nn.Module):
+    """(B, H, W, 3) -> the float64 softmax of a float64 model: phase 15
+    (b)'s forward, whose probabilities stay in float64."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, images):
+        logits = self.model(images.permute(0, 3, 1, 2).to(torch.float64))
+        return torch.softmax(logits, 1).permute(0, 2, 3, 1)
+
+
+def spatial_tile(side):
+    """A (1, side, side, 3) uint8 tile of phase 6's synthetic train tiles
+    (the crowded and the empty one left out), laid side by side."""
+    from mapping_tpu_torch.data.loader import load_image
+
+    per = -(-side // TILE)
+    paths = sorted((PREP_DIR / "data" / "train" / "images").iterdir())
+    tiles = [load_image(str(p)) for p in paths[2:2 + per * per]]
+    rows = [np.concatenate(tiles[r * per:(r + 1) * per], 1)
+            for r in range(per)]
+    return torch.from_numpy(np.concatenate(rows, 0)[None, :side, :side])
+
+
+def spatial_compare(what, single, spatial, images, reps=0):
+    """Phase 15: `spatial` (a FusedServe over bands) against `single` on
+    `images`: the band rule of phase 14 (a) (labels equal, or different
+    only at pixels whose single-device probability lies within max
+    |p_spatial - p_single| of the threshold, that band at most BAND_CEIL),
+    and with `reps` the ms per call of each (CUDA events, in turns), each
+    one's peak device memory and the exchange of one call."""
+    from mapping_tpu_torch.data.augment import resize_bilinear
+    from mapping_tpu_torch.kernels import ccl as K
+    from mapping_tpu_torch.parallel.spatial import EXCHANGE
+
+    th, tw = single._post["target_size"]
+    with torch.inference_mode():
+        p_single = resize_bilinear(single._probs(images), (th, tw))
+        p_spatial = spatial.spatial(images).to(p_single.dtype)
+    band = float((p_spatial - p_single).abs().max())
+    out = {"band": band}
+    before = dict(K.LAUNCHES)
+    EXCHANGE.reset()
+    handle = spatial.dispatch(images)
+    out["exchange"] = EXCHANGE.as_dict()
+    out["launches"] = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+    got = spatial.collect(handle)  # with the overflow reruns, if any
+    out["all_launches"] = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+    want = single(images)
+    if band > BAND_CEIL:
+        raise AssertionError(f"spatial: {what}: max |dp| {band:.3g} above "
+                             f"{BAND_CEIL}")
+    out["differ"] = instances_agree(got, want, p_single[..., 1], band)
+    out["labels"] = got[0]
+    if reps:
+        ms = {"single": [], "spatial": []}
+        for name in ("single", "spatial", "spatial", "single"):
+            fn = single if name == "single" else spatial
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn(images)
+            end.record()
+            end.synchronize()
+            ms[name].append(start.elapsed_time(end) / reps)
+            out[f"{name}_peak_gib"] = max(
+                out.get(f"{name}_peak_gib", 0.0),
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+        out["ms"] = {k: float(np.mean(v)) for k, v in ms.items()}
+    return out
+
+
+def spatial_phase(smi, prepared):
+    """Phase 15: spatial serving on the one card."""
+    from mapping_tpu_torch.config import build_config
+    from mapping_tpu_torch.constants import CATEGORY_IDS
+    from mapping_tpu_torch.data.augment import (normalize_image,
+                                                resize_bilinear)
+    from mapping_tpu_torch.data.metadata import read_metadata
+    from mapping_tpu_torch.infer.postprocess import active_layers_for
+    from mapping_tpu_torch.infer.serving import FusedServe
+    from mapping_tpu_torch.kernels import ccl as K
+    from mapping_tpu_torch.models.quantize import (QuantizedProbs,
+                                                   quantized_probs_fn)
+    from mapping_tpu_torch.models.registry import build_network
+    from mapping_tpu_torch.ops.ccl import _label_raw, _renumber
+    from mapping_tpu_torch.parallel import Mesh
+    from mapping_tpu_torch.parallel.spatial import SpatialProgram
+    from mapping_tpu_torch.pipelines import PIPELINES
+
+    phase_start = time.perf_counter()
+    shutil.rmtree(SPATIAL_DIR, ignore_errors=True)
+    SPATIAL_DIR.mkdir(parents=True)
+    card = "cuda:0" if DEVICE == "cuda" else DEVICE
+    weights = TRAIN_DIR / "full" / "transformers" / "unet.pt"
+    state = torch.load(weights, map_location="cpu", weights_only=True)
+    post = dict(target_size=(TILE, TILE), category_layers=(1, 1),
+                active_layers=active_layers_for(CATEGORY_IDS, (1, 1)))
+    launches = {k: 0 for k in K.LAUNCHES}
+
+    def meshes(n):
+        return Mesh([card] * n)
+
+    # (a) one large tile, bf16, on 2 and 4 bands against the unsplit forward
+    tile = spatial_tile(SPATIAL_SIDE)
+    image = normalize_image(tile.to(card))
+    t = trainer("bfloat16", state)
+    probs = t.probs_apply_fn()
+    wide = dict(post, max_instances=SPATIAL_PAD)
+    single = FusedServe(probs, **wide)
+    with torch.inference_mode():  # how far bf16 itself moves them
+        f32 = trainer("float32", state).probs_apply_fn()
+        own = float((resize_bilinear(f32(image), (TILE, TILE))
+                     - resize_bilinear(probs(image), (TILE, TILE))
+                     ).abs().max())
+    del f32
+    for n in SPATIAL_BANDS:
+        spatial = FusedServe(probs, mesh=meshes(n), spatial=True, **wide)
+        r = spatial_compare(f"(a) {n} bands", single, spatial, image, reps=3)
+        for k in launches:
+            launches[k] += r["all_launches"][k]
+        ex = r["exchange"]
+        if not ex["max_rows"] < SPATIAL_SIDE or not r["all_launches"][
+                "ccl_label_raw"] == 1:
+            raise AssertionError(f"spatial: (a) {n} bands: the largest "
+                                 f"transfer has {ex['max_rows']} rows, the "
+                                 f"CCL label launched {r['launches']}")
+        print(f"spatial: (a) one {SPATIAL_SIDE}^2 tile of phase 6's "
+              f"buildings, ResNet101 bf16 (phase 9 (a)'s weights), target "
+              f"{TILE}^2, {n} bands on {card}: max |dp| {r['band']:.3g} "
+              f"(limit {BAND_CEIL}; one device's bf16 from its float32 "
+              f"{own:.3g}), {r['differ']} image(s) with other "
+              f"labels ({int(r['labels'].max())} instances); exchange per "
+              f"call: halo {ex['halo_bytes'] / 2 ** 20:.2f} MiB, gather "
+              f"{ex['gather_bytes'] / 2 ** 20:.2f} MiB in {ex['transfers']} "
+              f"transfers, the largest {ex['max_rows']} rows (the map has "
+              f"{SPATIAL_SIDE}); ms per tile (CUDA events) single "
+              f"{r['ms']['single']:.2f}, spatial {r['ms']['spatial']:.2f}; "
+              f"peak device memory single {r['single_peak_gib']:.3f} GiB, "
+              f"spatial {r['spatial_peak_gib']:.3f} GiB; CCL launches "
+              f"{r['all_launches']} (instance pad {SPATIAL_PAD}) on {smi}")
+    del t, probs, single, spatial
+    torch.cuda.empty_cache()
+
+    # (b) the float64 equality gate: 4 bands against the unsplit forward
+    h, w = SPATIAL_F64
+    f64 = Softmax64(trainer("float32", state).folded_float32().to(
+        torch.float64)).eval()
+    x = image[:, :h, :w].to(torch.float64)
+    with torch.inference_mode():
+        want = f64(x)
+        bands = SpatialProgram(f64)(x, [card] * 4)
+        dp = float((torch.cat(bands.parts, 1) - want).abs().max())
+    before = dict(K.LAUNCHES)
+    got = FusedServe(f64, mesh=meshes(4), spatial=True, **post)(x)
+    for k in launches:
+        launches[k] += K.LAUNCHES[k] - before[k]
+    ref = FusedServe(f64, **post)(x)
+    same = all(np.array_equal(a, b) for a, b in zip(got[::2], ref[::2]))
+    print(f"spatial: (b) float64 {h} x {w} tile, 4 bands on {card}: max |dp| "
+          f"{dp:.3g} against the unsplit float64 forward (limit "
+          f"{SPATIAL_F64_TOL}); labels and areas equal: {same} "
+          f"({int(got[0].max())} instances)")
+    if not (dp <= SPATIAL_F64_TOL and same):
+        raise AssertionError("spatial: (b) the float64 bands differ from "
+                             "the unsplit forward")
+    del f64, bands, want
+    torch.cuda.empty_cache()
+
+    # (c) the product shape: the val tiles at batch 20 through the
+    # pipeline's forward over two bands, against one device
+    experiment = SPATIAL_DIR / "experiment"
+    (experiment / "transformers").mkdir(parents=True)
+    shutil.copy2(weights, experiment / "transformers" / "unet.pt")
+    config = write_config("serving", {
+        "data_dir": str(PREP_DIR / "data"),
+        "meta_dir": str(prepared["meta_dir"]),
+        "experiment_dir": str(experiment), "device": DEVICE,
+        "evaluation_data_sample": PREP_VAL}, SPATIAL_DIR)
+    pipe = PIPELINES["unet_weighted"]["inference"](build_config(config))
+    pipe._ensure_weights()
+    valid = [r for r in read_metadata(prepared["meta_dir"] / "metadata.csv")
+             if r["is_valid"] == 1]
+    flow, steps = pipe.loader.transform(
+        [r["file_path_image"] for r in valid], None,
+        train_mode=False)["datagen"]
+    batches = [b["image"] for _, b in zip(range(steps), flow)]
+    args = pipe._serve_args(False)
+    single = FusedServe(pipe._probs_fn(), **args)
+    spatial = FusedServe(pipe._probs_fn(), mesh=meshes(2), spatial=True,
+                         **args)
+    bands, differ, plain_equal = 0.0, 0, True
+    for b in batches:
+        r = spatial_compare("(c)", single, spatial, b)
+        if r["launches"]["ccl_label_raw"] != 1:
+            raise AssertionError(f"spatial: (c) CCL launches {r['launches']}"
+                                 f" for one batch")
+        for k in launches:
+            launches[k] += r["all_launches"][k]
+        bands, differ = max(bands, r["band"]), differ + r["differ"]
+        with torch.inference_mode():
+            masks = (spatial.spatial(b)[..., 1] > 0.5).contiguous()
+            plain = _renumber(_label_raw(masks, 2 * TILE))
+        plain_equal &= np.array_equal(
+            r["labels"][:, 1], torch.clamp(plain, max=32767).cpu().numpy())
+    one_card = write_config("one_card", {
+        "data_dir": str(PREP_DIR / "data"),
+        "meta_dir": str(prepared["meta_dir"]),
+        "experiment_dir": str(experiment), "device": DEVICE,
+        "spatial_serving": 1}, SPATIAL_DIR)
+    log = SPATIAL_DIR / "one_card.log"
+    rc, seconds, _ = run_child(cli_child(one_card, "evaluate", "-p",
+                                         "unet_weighted"), log)
+    refused = "spatial_serving: 1 needs more than one device" in \
+        log.read_text()
+    print(f"spatial: (c) FusedServe(mesh=Mesh([{card!r}] * 2), "
+          f"spatial=True) over the {len(valid)} val tiles in {len(batches)} "
+          f"batches of {BATCH} (256^2 in, {TILE}^2 out) against one device: "
+          f"max |dp| {bands:.3g}, {differ} images with other labels within "
+          f"that band; the CCL label launched once a batch on {card}, its "
+          f"labels equal to the plain CCL's on those masks: {plain_equal}; "
+          f"the CLI with spatial_serving: 1 on {torch.cuda.device_count()} "
+          f"visible card(s) exited {rc} in {seconds:.1f} s with JAX's "
+          f"message: {refused}")
+    if not (plain_equal and rc != 0 and refused):
+        raise AssertionError("spatial: (c) the kernel's labels or the "
+                             "one-card refusal")
+    del pipe, single, spatial, batches
+    torch.cuda.empty_cache()
+
+    # (d) families and the int8 forward, seeded weights, one tile each
+    side, n = SPATIAL_FAMILY_SIDE, SPATIAL_FAMILY_BANDS
+    small = image[:, :side, :side].contiguous()
+    torch.manual_seed(0)
+    forwards = []
+    for encoder, extra in SPATIAL_FAMILIES:
+        model = {"encoder": encoder, **extra}
+        seeded = centre_logits(build_network(model), small)
+        forwards.append((f"{encoder} (float32)", trainer(
+            "float32", seeded, model=model).probs_apply_fn()))
+    t32 = trainer("float32", state)
+    forwards.append(("int8 ResNet101 (bf16 between the int8 convs)",
+                     QuantizedProbs(*quantized_probs_fn(
+                         t32.folded_float32, small,
+                         compute_dtype=torch.bfloat16))))
+    for name, fn in forwards:
+        r = spatial_compare(f"(d) {name}", FusedServe(fn, **post),
+                            FusedServe(fn, mesh=meshes(n), spatial=True,
+                                       **post), small)
+        for k in launches:
+            launches[k] += r["all_launches"][k]
+        print(f"spatial: (d) {name}, one {side}^2 tile, {n} bands: max |dp| "
+              f"{r['band']:.3g}, {r['differ']} image(s) with other labels "
+              f"within that band ({int(r['labels'].max())} instances)")
+    print(f"spatial: phase 15 took {time.perf_counter() - phase_start:.2f} "
+          f"s; CCL launches {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"spatial: CCL launches {launches}")
+    return launches
+
+
 def main():
     smi = card()
     from mapping_tpu_torch.kernels import bounds
@@ -3421,7 +3724,8 @@ def main():
                   scoring_phase(smi, prepared),
                   serving_phase(smi, prepared), zoo_phase(smi, prepared),
                   quantize_phase(gen, smi, prepared),
-                  parallel_phase(smi, prepared)):
+                  parallel_phase(smi, prepared),
+                  spatial_phase(smi, prepared)):
         for name, n in phase.items():
             launches[name] += n
     n, c, h, w = DW_TIMED[DW_MAIN]

@@ -1,7 +1,8 @@
 """Image normalisation, resizing and training augmentation on the device.
 
 Counterpart of mapping_tpu/data/augment.py `_MEAN`/`_STD`,
-`normalize_image`, `resize_bilinear`, `resize_nearest`, the fixed pads of
+`normalize_image`, `resize_bilinear` (and its weights along one axis,
+`resize_matrix`), `resize_nearest`, the fixed pads of
 the `crop_and_pad` loader mode (`pad_fixed`), its random and centre crops
 (`random_crop`, `center_crop`), and `fast_augment` (the reference's
 fast_seq: 1-2 of {fliplr(0.5), flipud(0.5), affine rotate +-10 deg,
@@ -50,10 +51,28 @@ def resize_bilinear(x, size: Tuple[int, int]):
     antialiased filter is the same triangle there and plain bilinear along
     an axis that grows."""
     h, w = x.shape[1], x.shape[2]
-    shrink = size[0] < h or size[1] < w
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
-                      align_corners=False, antialias=shrink)
+    y = _bilinear(x.permute(0, 3, 1, 2), size, size[0] < h or size[1] < w)
     return y.permute(0, 2, 3, 1)
+
+
+def _bilinear(x, size, antialias: bool):
+    return F.interpolate(x, size=tuple(size), mode="bilinear",
+                         align_corners=False, antialias=antialias)
+
+
+def resize_matrix(n_in: int, n_out: int, antialias: bool,
+                  dtype=torch.float64, device="cpu") -> torch.Tensor:
+    """(n_out, n_in): the weights of `resize_bilinear` along one
+    axis, `antialias` as it decides for the whole 2-D resize (on when
+    either axis shrinks), so that resizing that axis is R @ x, as that
+    filter computes them in `dtype` on `device`. Read off
+    the resize of an identity (channel c holds the unit row c), two
+    columns wide: torch's antialiased filter mixes the rows of a map one
+    column wide."""
+    eye = torch.eye(n_in, dtype=dtype, device=device).reshape(
+        1, n_in, n_in, 1)
+    return _bilinear(eye.expand(-1, -1, -1, 2), (n_out, 2),
+                     antialias)[0, :, :, 0].t()
 
 
 def resize_nearest(x, size: Tuple[int, int]):

@@ -34,6 +34,11 @@ of moving it. `replicate()` copies the programs to the other cards of the
 same class (torch.export's move_to_device_pass) and replays chunks round
 robin over them.
 
+A program is a single-device computation, as in the JAX package:
+`spatial_serving: 1` and `data_parallel: 1` shape the live pipelines'
+serving only, so an export with either writes the same single-device
+programs; `replicate()` is the artifact's way over several cards.
+
 Numerics: a program replays the same ATen ops as the live FusedServe on
 the same device (TF32 off, as the live float32 path), so the replay is
 expected to equal it bit for bit. Overflow differs in one way, as in the

@@ -34,7 +34,9 @@ background while the previous snapshot serves; `param_source_stats`
 (in /v1/stats) counts those rebuilds. With `data_parallel: 1` over more
 than one card the pipeline serves a replica per card, and the bucket
 sizes that do not divide over them are dropped with a warning, as in the
-JAX daemon (`mesh_buckets`; the full batch is kept).
+JAX daemon (`mesh_buckets`; the full batch is kept). With
+`spatial_serving: 1` each image's rows split over the devices instead,
+so every bucket is kept, as in the JAX daemon.
 """
 
 import io
@@ -576,8 +578,10 @@ def daemon_from_pipeline(pipeline, config, host="127.0.0.1", port=8000,
         category_ids=CATEGORY_IDS,
         category_layers=pipeline.category_layers,
         max_wait_ms=max_wait_ms,
-        bucket_sizes=mesh_buckets(parse_serve_buckets(params),
-                                  getattr(serve, "mesh", None), batch),
+        bucket_sizes=mesh_buckets(
+            parse_serve_buckets(params),
+            None if getattr(serve, "spatial", None)
+            else getattr(serve, "mesh", None), batch),
         convert=convert,
         max_pending=(max_pending if max_pending is not None
                      else _max_pending_from(params)))

@@ -31,8 +31,20 @@ weights per device, parallel/mesh.py `Replicas`); a module is copied to
 each device here the same way.
 `collect` gathers the shards in order, and the overflow escalation re-runs
 the dense images on the first device, as the JAX package re-runs them
-single-device. Spatial serving (one image's height over the devices,
-`spatial`) is ROADMAP item 16b and raises.
+single-device.
+
+Spatial serving (`spatial=True` over a `mesh`; the JAX package's
+`_spatial_program`): each image's rows are split over the mesh's devices
+and the forward runs band by band with a row exchange at every layer that
+reads another band's rows (parallel/spatial.py `SpatialProgram`, a trace
+of the forward's module: `probs_fn` itself, or its `module()`, as the
+trainer's and the int8 forward's give, re-traced when that object
+changes). Each band's probabilities are cropped (`crop_size`) and resized
+toward `target_size`, W first, then H as the band's partial; the partials
+are summed on the first device, and `fused_postprocess` runs there, the
+CCL `label` included, on the (B, th, tw, C) map. It refuses without a
+mesh and with TTA, as the JAX package does; the overflow rerun runs
+single-device on the first device.
 """
 
 import contextlib
@@ -47,10 +59,8 @@ from mapping_tpu_torch.infer.postprocess import (MAX_INSTANCES,
                                                  escalate_overflow,
                                                  fused_postprocess)
 from mapping_tpu_torch.parallel.mesh import Replicas, shard_batch
-
-SPATIAL = ("spatial serving (one image's height split over the devices, "
-           "with a halo exchange in every conv, pool and resize) is not "
-           "ported to PyTorch yet (ROADMAP item 16b)")
+from mapping_tpu_torch.parallel.spatial import (SpatialProgram, crop_bands,
+                                                gather_resized)
 
 
 class ServeProgram(torch.nn.Module):
@@ -119,6 +129,38 @@ def _device_scope(device: torch.device):
     return contextlib.nullcontext()
 
 
+class SpatialServe:
+    """images -> (B, th, tw, C) probabilities on the first device of
+    `devices`: `probs_fn` band by band over the devices, each band cropped
+    to `crop_size` (centred) and resized toward `target_size`, the
+    partials summed there (parallel/spatial.py). What is traced is
+    `probs_fn` if it is a module, else the module its `module()` returns
+    (the trainer's probability function, models/quantize.QuantizedProbs),
+    else the plain function; a new object is traced anew."""
+
+    def __init__(self, probs_fn: Callable, devices, target_size,
+                 crop_size=None):
+        self.probs_fn = probs_fn
+        self.devices = tuple(devices)
+        self.target_size = tuple(target_size)
+        self.crop_size = crop_size
+        self._program = None
+
+    def program(self) -> SpatialProgram:
+        fn = self.probs_fn
+        module = getattr(fn, "module", None)
+        if not isinstance(fn, torch.nn.Module) and callable(module):
+            fn = module()
+        if self._program is None or self._program.source is not fn:
+            self._program = SpatialProgram(fn)
+        return self._program
+
+    def __call__(self, images):
+        bands = self.program()(images, self.devices)
+        h, pieces = crop_bands(bands, self.crop_size)
+        return gather_resized(h, pieces, self.target_size, self.devices[0])
+
+
 def _on_each_device(module: torch.nn.Module) -> Callable:
     """images -> module(images) through a copy of `module` on the images'
     device (`Replicas`: one copy per device)."""
@@ -131,13 +173,22 @@ class FusedServe:
     int16, scores (B, L, N) float32, areas (B, L, N) int32 [, features
     (B, L, N, 9) float32 with `compute_features`], through a ServeProgram
     (same arguments) in inference mode; over a `mesh`, a shard of the
-    batch on each of its data-axis devices (module docstring)."""
+    batch on each of its data-axis devices, or with `spatial` a band of
+    each image's rows (module docstring)."""
 
     def __init__(self, probs_fn: Callable, mesh=None, spatial: bool = False,
                  **kwargs):
-        if spatial:
-            raise NotImplementedError(SPATIAL)
+        if spatial and mesh is None:
+            raise ValueError("spatial serving requires a device mesh")
+        if spatial and kwargs.get("tta_specs"):
+            raise ValueError("spatial serving does not support TTA "
+                             "(rotations need square shard-local tiles)")
         self.mesh = mesh
+        self.spatial = None
+        if spatial:
+            self.spatial = SpatialServe(
+                probs_fn, mesh.devices, kwargs["target_size"],
+                kwargs.get("crop_size"))
         if mesh is not None and isinstance(probs_fn, torch.nn.Module):
             probs_fn = _on_each_device(probs_fn)
         self.program = ServeProgram(probs_fn, **kwargs)
@@ -152,6 +203,15 @@ class FusedServe:
     def _run(self, images, max_instances):
         with _device_scope(images.device):
             return self.program.run(images, max_instances)
+
+    @torch.inference_mode()
+    def _run_spatial(self, images, max_instances):
+        first = self.mesh.devices[0]
+        probs = self.spatial(images)
+        with _device_scope(first):
+            outs = fused_postprocess(probs, max_instances=max_instances,
+                                     **self._post)
+        return (labels_i16(outs[0]),) + tuple(outs[1:])
 
     def enable_async_recalibration(self) -> bool:
         """Online mode for an int8 forward (models/quantize.py): on a
@@ -174,6 +234,9 @@ class FusedServe:
         a handle for `collect`. Does not synchronise."""
         if self.mesh is None:
             return [self._run(images, self._base_max_instances)], images
+        if self.spatial is not None:
+            return [self._run_spatial(images, self._base_max_instances)], \
+                images
         return [self._run(shard, self._base_max_instances)
                 for shard in shard_batch(images, self.mesh)], images
 

@@ -12,8 +12,12 @@ enqueued one after the other without waiting, and the outputs are
 concatenated in order on the first device. No traffic crosses devices
 after the weights are copied, as under JAX's shard_map.
 
-`make_spatial_infer` (one image's height over the devices) is ROADMAP
-item 16b and raises.
+`make_spatial_infer` splits each image's rows over the mesh's devices
+instead (parallel/spatial.py): the forward runs band by band with a row
+exchange at every layer that reads another band's rows, each band's
+probabilities are resized toward the target size (W, then H as partials
+summed on the first device), and the postprocess runs there on the small
+map.
 """
 
 from typing import Callable, Tuple
@@ -22,7 +26,7 @@ import torch
 
 from mapping_tpu_torch.data.tta import tta_wrap_predict
 from mapping_tpu_torch.infer.postprocess import fused_postprocess
-from mapping_tpu_torch.infer.serving import SPATIAL, _device_scope
+from mapping_tpu_torch.infer.serving import SpatialServe, _device_scope
 from mapping_tpu_torch.parallel.mesh import Mesh, Replicas, shard_batch
 
 
@@ -93,6 +97,42 @@ def _sharded(per_device: Callable, mesh: Mesh):
     return run
 
 
-def make_spatial_infer(apply_fn: Callable, mesh: Mesh, **kwargs):
-    """One image's height over the devices: not ported (raises)."""
-    raise NotImplementedError(SPATIAL)
+class _Probs(torch.nn.Module):
+    """images -> float32 softmax of apply_fn(model, images), over the last
+    axis; `model` a submodule, so that a trace reaches its layers."""
+
+    def __init__(self, apply_fn, model):
+        super().__init__()
+        self.apply_fn, self.model = apply_fn, model
+
+    def forward(self, images):
+        return _softmax(self.apply_fn(self.model, images))
+
+
+def make_spatial_infer(apply_fn: Callable, mesh: Mesh,
+                       target_size: Tuple[int, int] = (300, 300),
+                       category_layers: Tuple[int, ...] = (1, 1),
+                       active_layers: Tuple[int, ...] = None,
+                       erode_size: int = 0,
+                       dilate_size: int = 0):
+    """(model, images) -> (labels, scores) for images (N, H, W, 3) too
+    large for one device: each image's rows split over the mesh's devices,
+    `model` (a module, in eval mode) copied to each once for as long as
+    the caller passes the same object. apply_fn(model, images) -> logits
+    (N, H, W, C), traced with torch.fx (parallel/spatial.py names the
+    layers it splits); the labels and scores are on the first device."""
+    post = dict(target_size=target_size, category_layers=category_layers,
+                active_layers=active_layers, erode_size=erode_size,
+                dilate_size=dilate_size)
+    serve = SpatialServe(None, mesh.devices, target_size)
+
+    @torch.inference_mode()
+    def run(model, images):
+        if getattr(serve.probs_fn, "model", None) is not model:
+            serve.probs_fn = _Probs(apply_fn, model)
+        probs = serve(images)
+        with _device_scope(mesh.devices[0]):
+            labels, scores, _ = fused_postprocess(probs, **post)
+        return labels, scores
+
+    return run

@@ -268,10 +268,16 @@ class QuantizedConv(nn.Module):
         self.register_buffer("bias", None if bias is None
                              else bias.to(torch.float32))
 
-    def forward(self, x):
+    def forward(self, x, h_pads=None):
+        """`h_pads` (lo, hi), where given, replace the geometry's pads
+        along H: a band of rows (parallel/spatial.py) pads only at the
+        image's true top and bottom."""
+        geometry = self.geometry
+        if h_pads is not None:
+            geometry = dict(geometry,
+                            pads=(tuple(h_pads), geometry["pads"][1]))
         acc = int8_conv(_quantize_input(x, self.x_scale).permute(0, 2, 3, 1),
-                        self.w_mat, self.kernel_size, self.c_out,
-                        **self.geometry)
+                        self.w_mat, self.kernel_size, self.c_out, **geometry)
         y = acc.to(torch.float32) * self.scale
         if self.bias is not None:
             y = y + self.bias

@@ -43,8 +43,13 @@ JAX package. With more, serving runs a replica per card (infer/serving.py
 ranks of a process group, one per card, which the train command starts
 (manager.py): there the loader hands each rank its shard of the global
 batch, rank 0 alone archives a warm-started stage and writes the cache
-and the stage marker, and the others wait for it. Not ported yet, and
-raising with its ROADMAP item: `spatial_serving` (item 16b).
+and the stage marker, and the others wait for it.
+
+`spatial_serving: 1` serves each image's rows split over a mesh (infer/
+serving.py `FusedServe(spatial=True)`): the trainer's mesh with
+`data_parallel: 1`, otherwise one built for serving only, of every
+visible card; with one device it raises, as the JAX package does. A rank
+of a data-parallel trainer validates on its own card.
 """
 
 import logging
@@ -64,20 +69,29 @@ from mapping_tpu_torch.data.metadata import read_metadata
 from mapping_tpu_torch.infer.serving import FusedServe, ServeProgram
 from mapping_tpu_torch.models.quantize import (QuantizedProbs,
                                                quantized_probs_fn)
-from mapping_tpu_torch.parallel import distributed
+from mapping_tpu_torch.parallel import distributed, make_mesh
 from mapping_tpu_torch.scoring import (NonMaximumSupression, ScoringGBM,
                                        features_from_tensor)
 from mapping_tpu_torch.train.trainer import UNetTrainer
 
 logger = logging.getLogger(__name__)
 
-# settings of the JAX package this port does not run yet -> ROADMAP item
-_NOT_PORTED = {"spatial_serving": "16b"}
+
+def visible_devices(device: torch.device):
+    """Every visible device of `device`'s kind: the CUDA cards, or the one
+    CPU."""
+    if device.type == "cuda":
+        return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return [device]
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
+def spatial_mesh(device: torch.device):
+    """The mesh of spatial serving without a trainer's mesh: every visible
+    device of `device`'s kind, which must be more than one."""
+    devices = visible_devices(device)
+    if len(devices) < 2:
+        raise ValueError("spatial_serving: 1 needs more than one device")
+    return make_mesh(devices)
 
 
 def _xy(rows):
@@ -102,9 +116,6 @@ class UNetPipeline:
 
     def __init__(self, config, train_mode: bool, loss_name: str = "ce",
                  tta: bool = False, padded: bool = False):
-        for key, item in _NOT_PORTED.items():
-            if config.params.get(key, 0):
-                raise _not_ported(f"{key}: {config.params[key]!r}", item)
         self.config = config
         self.cache_dir = config.env.cache_dirpath
         self.tta = tta
@@ -322,9 +333,15 @@ class UNetPipeline:
         key = bool(return_features)
         if key not in self._serve:
             # a rank of a data-parallel trainer serves on its own card
-            mesh = (self.trainer.mesh if self.trainer.data_parallel is None
-                    else None)
+            rank = self.trainer.data_parallel is not None
+            mesh = None if rank else self.trainer.mesh
+            spatial = bool(self.config.params.get("spatial_serving", 0)) \
+                and not rank
+            if spatial and mesh is None:
+                # an inference-only mesh, never the trainer's
+                mesh = spatial_mesh(self.trainer.device)
             self._serve[key] = FusedServe(self._probs_fn(), mesh=mesh,
+                                          spatial=spatial,
                                           **self._serve_args(key))
         return self._serve[key]
 

@@ -1,7 +1,8 @@
 """Data parallel across the cards of one machine: serving throughput, the
-train step against one process, and the step time.
+train step against one process, and the step time; with --spatial, one
+large tile's rows split over the cards instead.
 
-    python3 -m mapping_tpu_torch.tools.scale_out [--cards N]
+    python3 -m mapping_tpu_torch.tools.scale_out [--cards N] [--spatial]
 
 Over the first N visible cards (default: all of them), seeded random
 ResNet101 weights at the JAX config's defaults (bf16, batch 20, 256^2 in,
@@ -26,6 +27,16 @@ ResNet101 weights at the JAX config's defaults (bf16, batch 20, 256^2 in,
   step's global BatchNorm under a group of one rank (no communication)
   beside the plain step: ms/step, and the device time and device events
   of one more step under torch.profiler.
+With --spatial, only this part:
+- spatial: one SPATIAL_SIDE^2 tile of upsampled noise through FusedServe
+  on one card and with `spatial=True` over the N cards (a band of rows
+  each, the row exchange between them), ResNet101 bf16 with the logit
+  difference centred on the tile: ms per tile (host clock, synchronised,
+  after a warm-up), the exchange's bytes and largest transfer of one
+  call, each card's kernel-busy ms per tile from a torch.profiler trace,
+  and the labels against one card's: they may differ only at pixels whose
+  one-card probability lies within max |p_spatial - p_one| of the
+  threshold (raises otherwise, or where that band passes BAND_CEIL).
 Prints one JSON line per part, then one with the card's name and power
 limit.
 """
@@ -57,6 +68,9 @@ STEPS, REPS, TRACED = 5, 10, 3
 #: tensor's largest magnitude, and of the running statistics' (the gates
 #: of chip_smoke.py phase 14 (c))
 GRAD_TOL, STAT_TOL = 1e-3, 1e-4
+#: --spatial: the tile's side, and the most its probabilities may move
+#: (chip_smoke.py phase 14 (a)'s ceiling)
+SPATIAL_SIDE, BAND_CEIL = 4096, 1e-2
 
 
 def _sync(device):
@@ -153,6 +167,75 @@ def serve(devices):
             "one_card_host_ms": single_host, "mesh_host_ms": mesh_host,
             "mesh_kernel_busy_ms_per_batch": _kernel_busy_ms(prof, TRACED),
             "images_with_one_card_labels": f"{same} of {len(got)}"}
+
+
+def _tile(side, device, seed=0):
+    """One (1, side, side, 3) normalised tile of upsampled noise."""
+    gen = torch.Generator().manual_seed(seed)
+    low = torch.rand((1, 3, side // 64, side // 64), generator=gen)
+    up = torch.nn.functional.interpolate(low, size=(side, side),
+                                         mode="bilinear",
+                                         align_corners=False)
+    return (up.permute(0, 2, 3, 1) * 2 - 1).to(device)
+
+
+def spatial(devices):
+    from mapping_tpu_torch.data.augment import resize_bilinear
+    from mapping_tpu_torch.parallel.spatial import EXCHANGE
+
+    t = trainer("bfloat16", devices[0])
+    image = _tile(SPATIAL_SIDE, devices[0])
+    with torch.no_grad():  # the class logit difference: mean 0, std 4
+        d = t.model(image.permute(0, 3, 1, 2))
+        d = d[:, 1] - d[:, 0]
+        scale, w, b = 4.0 / d.std(), t.model.final.weight, t.model.final.bias
+        w[1] = w[0] + scale * (w[1] - w[0])
+        b[1] = b[0] + scale * (b[1] - b[0] - d.mean())
+    post = dict(target_size=(TILE, TILE), category_layers=(1, 1),
+                active_layers=active_layers_for(CATEGORY_IDS, (1, 1)))
+    probs = t.probs_apply_fn()
+    one = FusedServe(probs, **post)
+    split = FusedServe(probs, mesh=make_mesh(devices), spatial=True, **post)
+
+    def ms(fs):
+        fs(image)  # warm-up: cuDNN plans, a copy of the weights per card
+        for d in devices:
+            _sync(d)
+        start = time.perf_counter()
+        for _ in range(REPS):
+            out = fs(image)
+        return out, 1e3 * (time.perf_counter() - start) / REPS
+
+    want, one_ms = ms(one)
+    got, split_ms = ms(split)
+    EXCHANGE.reset()
+    split(image)
+    exchange = EXCHANGE.as_dict()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(TRACED):
+            split(image)
+        for d in devices:
+            _sync(d)
+    with torch.inference_mode():
+        p_one = resize_bilinear(one._probs(image), (TILE, TILE))[..., 1]
+        p_split = split.spatial(image)[..., 1]
+    band = float((p_split - p_one).abs().max())
+    near = ((p_one - 0.5).abs() <= band).cpu().numpy()
+    differ = (got[0][:, 1] > 0) != (want[0][:, 1] > 0)
+    if band > BAND_CEIL or (differ & ~near).any():
+        raise AssertionError(f"scale_out: spatial labels differ beyond the "
+                             f"band {band:.3g} at "
+                             f"{int((differ & ~near).sum())} pixels")
+    return {"part": "spatial", "cards": len(devices), "side": SPATIAL_SIDE,
+            "one_card_ms": one_ms, "spatial_ms": split_ms,
+            "speedup": one_ms / split_ms, "exchange_per_call": exchange,
+            "spatial_kernel_busy_ms_per_tile": _kernel_busy_ms(prof,
+                                                               TRACED),
+            "max_abs_dp": band, "pixels_differ": int(differ.sum()),
+            "labels_equal": bool(np.array_equal(got[0], want[0])),
+            "instances": int(want[0].max())}
 
 
 def step_outputs(t, batch):
@@ -314,12 +397,15 @@ def run(devices):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cards", type=int, default=None)
+    ap.add_argument("--spatial", action="store_true",
+                    help="only the spatial part: one large tile's rows "
+                         "over the cards")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scale_out: no CUDA card is visible")
     devices = [f"cuda:{i}" for i in
                range(args.cards or torch.cuda.device_count())]
-    for line in run(devices):
+    for line in ([spatial(devices)] if args.spatial else run(devices)):
         print(json.dumps(line), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -188,6 +188,7 @@ class UNetTrainer:
         self._state_version = 0
         self._folded = None
         self._folded_version = None
+        self._probs_module = None
         self._replicas = Replicas()
 
     @property
@@ -423,13 +424,19 @@ class UNetTrainer:
             return SoftmaxProbs(self.serving_model(images.device),
                                 self.dtype)(images)
 
+        probs.module = self.probs_module
         return probs
 
     def probs_module(self):
         """The same function as `probs_apply_fn` as a module over the
         current BN-folded copy, outside inference mode, for torch.export
-        (infer/artifact.py); it does not follow later weight changes."""
-        return SoftmaxProbs(self.serving_model(), self.dtype)
+        (infer/artifact.py) and a spatial trace (infer/serving.py); it
+        does not follow later weight changes, and it is the same object
+        until they change."""
+        model = self.serving_model()
+        if getattr(self._probs_module, "model", None) is not model:
+            self._probs_module = SoftmaxProbs(model, self.dtype)
+        return self._probs_module
 
     # --------------------------------------------------------------- fit
     def fit(self, datagen, validation_datagen=None, meta_valid=None):

@@ -66,8 +66,7 @@ from mapping_tpu_torch.infer import daemon as port_daemon
 from mapping_tpu_torch.infer.postprocess import postprocess_probabilities
 from mapping_tpu_torch.infer.serving import FusedServe
 from mapping_tpu_torch.infer.sharded import (make_sharded_infer,
-                                             make_sharded_tta_infer,
-                                             make_spatial_infer)
+                                             make_sharded_tta_infer)
 from mapping_tpu_torch.models import convert
 from mapping_tpu_torch.models.convert import state_dict_from_flax
 from mapping_tpu_torch.models.scratch import UNet
@@ -329,24 +328,6 @@ def test_sharded_infer_matches_jax(kind):
     near = np.abs(jprobs[..., 1] - 0.5) < 1e-4
     assert not (labels.numpy()[:, 0] != np.asarray(jl)[:, 0])[~near].any()
     assert labels.shape == np.asarray(jl).shape and labels.max() > 0
-
-
-def test_spatial_serving_raises_naming_item_16b():
-    """spatial_serving: 1 and make_spatial_infer raise with item 16b;
-    data_parallel: 1 builds a pipeline whose mesh is None on the CPU (the
-    plain path, as JAX's "auto" with one device)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16b"):
-        _pipeline({**PARAMS, "spatial_serving": 1}, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16b"):
-        make_spatial_infer(_port_apply, make_mesh(CPU2))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16b"):
-        FusedServe(lambda im: im, mesh=make_mesh(CPU2), spatial=True, **POST)
-    pipe = _pipeline({**PARAMS, "data_parallel": 1}, {})
-    assert pipe.trainer.mesh is None and pipe.serve_program().mesh is None
-    assert port_manager.rank_devices(
-        "unet_weighted", build_config(overrides={"data_parallel": 1,
-                                                 "device": "cpu"}).params) \
-        is None
 
 
 # ---------------------------------------------------------------- daemon

@@ -204,13 +204,16 @@ def test_tf32_off_only_inside_float32_forward(slice_outputs, dtype,
 
 
 def test_unported_settings_raise():
-    """Only spatial serving (item 16b) is left unported; data_parallel
-    (item 16) builds, on the CPU without a mesh (tests/
-    test_torch_parallel.py runs it), and int8 serving (item 21) builds
-    (tests/test_torch_quantize.py runs it)."""
+    """No setting of the JAX package is left unported: spatial serving
+    (item 16b) builds, and its serve program on the one CPU refuses as the
+    JAX package's does on one device (tests/test_torch_spatial.py runs it
+    over CPU devices); data_parallel (item 16) builds, on the CPU without
+    a mesh (tests/test_torch_parallel.py runs it), and int8 serving (item
+    21) builds (tests/test_torch_quantize.py runs it)."""
     state = {}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16b"):
-        _pipeline({"spatial_serving": 1}, state)
+    spatial = _pipeline({"spatial_serving": 1}, state)
+    with pytest.raises(ValueError, match="needs more than one device"):
+        spatial.serve_program()
     assert _pipeline({"data_parallel": 1}, state).trainer.mesh is None
     assert _pipeline({"quantized_serving": 1}, state).quantized
 
@@ -274,6 +277,7 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.parallel.mesh',\n"
         "        'mapping_tpu_torch.parallel.distributed',\n"
         "        'mapping_tpu_torch.parallel.dryrun',\n"
+        "        'mapping_tpu_torch.parallel.spatial',\n"
         "        'mapping_tpu_torch.infer.sharded'} <= set(names)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'mapping_tpu', 'pandas', 'yaml', 'click', 'PIL', "
