@@ -9,10 +9,11 @@ the JAX package is imported. Phases, each printing what it found:
 
   1. the card: refuses to run without CUDA; prints the card's name and
      power limit as nvidia-smi gives them;
-  2. build: compiles mapping_tpu_torch/csrc/ccl.cu and conv_dw.cu for
-     sm_90a into build/, one nvcc per source, started together (and the
-     parent tree's sources when a copy of it lies under build/old/); fails
-     if `-Xptxas -v` reports a spill;
+  2. build: compiles mapping_tpu_torch/csrc/ccl.cu, conv_dw.cu and
+     jpeg_pixels.cu for sm_90a into build/, one nvcc per source, started
+     together (and the parent tree's sources when a copy of it lies under
+     build/old/); fails if `-Xptxas -v` reports a spill; then
+     csrc/jpeg_entropy.cpp with g++;
   3. kernels: the CUDA CCL kernels (K1 `label_raw`, K2 `renumber` and the
      fused `label`) against their plain PyTorch versions and
      scipy.ndimage.label, exact, on test cases, serving shapes, lines and
@@ -75,7 +76,8 @@ the JAX package is imported. Phases, each printing what it found:
   8. evaluate: a CrowdAI-style val split of 110 synthetic 300^2 tiles
      (tests/fixtures/synthetic.py `_make_image`, up to 20 buildings), PNG
      written with the standard library, and its COCO annotation.json, under
-     build/chip_smoke_evaluate/. Seeded random ResNet101 weights saved with
+     build/chip_smoke_evaluate/ (a JPEG of the corpus decodes through the
+     port's decoder; a 64-byte fake JPEG raises a ValueError). Seeded random ResNet101 weights saved with
      torch.save come in through `import_checkpoint`; then the CLI
      (`python3 -m mapping_tpu_torch.main`) runs `evaluate -p unet_weighted`
      at the JAX config's defaults in a subprocess, and in this process
@@ -145,14 +147,17 @@ the JAX package is imported. Phases, each printing what it found:
      `label`'s kernels, and its labels equal the plain CCL on the CPU of
      its masks; (d) `serve -p unet_weighted` and `serve --artifact` in
      child processes on free ports: /v1/health within a deadline, the 110
-     val tiles POSTed as PNG bytes at concurrency 1 and 16 and one lone
-     request; every answer must equal (segmentation exact, scores 1e-5
-     relative) that tile's annotations from one of the exported batch
-     shapes (the artifact's or the live FusedServe's, on batches of
-     exactly that size), and predict_on_dir's must equal the batch-20
-     ones; requests/s, p50/p99 latency (client clock), mean batch
-     occupancy over each run (/v1/stats) and each child's CCL launches,
-     printed after SIGTERM (killed at a 60 s deadline);
+     val tiles POSTed as PNG bytes and as JPEG bytes (the port's encoder,
+     quality 95, 4:2:0; their pixel stage runs on the card and the tile
+     stays there for the batcher) at concurrency 1 and 16, and one lone
+     PNG request; every answer must equal (segmentation exact, scores
+     1e-5 relative) that tile's annotations from one of the exported
+     batch shapes (the artifact's or the live FusedServe's, on batches of
+     exactly that size, of the tile as the body decodes), and
+     predict_on_dir's must equal the batch-20 ones; requests/s, p50/p99
+     latency (client clock), mean batch occupancy over each run
+     (/v1/stats) and each child's CCL and JPEG launches, printed after
+     SIGTERM (killed at a 60 s deadline), J1 and J2 above 0;
  12. the model zoo, under build/chip_smoke_zoo/, on phase 6's split
      (phase 9's metadata cut to its first 200 train tiles, the crowded
      and the empty one among them, and the 110 val tiles), seeded random
@@ -238,6 +243,25 @@ the JAX package is imported. Phases, each printing what it found:
      tile each through VGG11, VGG16, the scratch UNet (pool 3/2) and
      UNet++ (seeded weights, float32) and the int8 forward, 4 bands,
      under (a)'s rule.
+ 16. JPEG, under build/chip_smoke_jpeg/, in at most 40 s: (a) every file
+     of tests/fixtures/jpeg_corpus (Pillow at qualities 30-100, 4:4:4,
+     4:2:2, 4:2:0, grey, optimised tables, EXIF/ICC, sizes 1x1 to 301^2,
+     the port encoder's 1x2 and restart files, a truncated stream, an
+     Adobe RGB file): J1 `jpeg_idct` and J2 `jpeg_color` on the card must
+     equal their plain versions exactly and the decode the SHA-256 of
+     libjpeg's in the manifest; the refused kinds (progressive, CMYK,
+     arithmetic-coded, 12-bit, 4x1 sampling) must raise naming their
+     feature; (b) phase 8's 110 val tiles written as JPEG (the port's
+     encoder, quality 95, 4:2:0) must decode on the card equal to the CPU
+     decode (20 of them also as request bodies through the daemon's
+     decoder, which leaves them on the card), and `evaluate -p
+     unet_weighted` through the CLI in a child (twice: the first run pays
+     the process's first forward) on phase 9 (a)'s weights must write a
+     prediction.json of the 110 images with AP/AR in [0, 1] and launch
+     J1, J2 and the CCL kernels; prints its images/s and decode seconds
+     (to J2's end) beside phase 8's PNG run; (c) J1 and J2 at (20,
+     300^2, 4:2:0) as CUDA-graph replays, the plain versions, the bounds,
+     and the host Huffman decode in ms a tile on 1 and 8 threads.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -270,10 +294,18 @@ N_BATCHES, BATCH, TILE = 3, 20, 300
 DEVICE = "cuda"
 SOURCES = {"ccl_label_raw": "mapping_tpu_torch/csrc/ccl.cu",
            "ccl_renumber": "mapping_tpu_torch/csrc/ccl.cu",
-           "conv_dw": "mapping_tpu_torch/csrc/conv_dw.cu"}
+           "conv_dw": "mapping_tpu_torch/csrc/conv_dw.cu",
+           "jpeg_idct": "mapping_tpu_torch/csrc/jpeg_pixels.cu",
+           "jpeg_color": "mapping_tpu_torch/csrc/jpeg_pixels.cu"}
+#: the TPU kernel each replaces; the JPEG kernels replace none (the JAX
+#: package decodes on the host with libjpeg)
 REPLACES = {"ccl_label_raw": "mapping_tpu/ops/ccl_pallas.py:127",
             "ccl_renumber": "mapping_tpu/ops/ccl_pallas.py:141",
-            "conv_dw": "tools/dw_probe.py:70"}
+            "conv_dw": "tools/dw_probe.py:70",
+            "jpeg_idct": "cpp/decode.cpp:54 (libjpeg on the host; not a "
+                         "TPU kernel)",
+            "jpeg_color": "cpp/decode.cpp:54 (libjpeg on the host; not a "
+                          "TPU kernel)"}
 TRAIN_SIZE, TRAIN_STEPS = (256, 256), 5
 #: NCHW shapes K3 is timed at: the JAX dW probe's two (tools/dw_probe.py)
 #: and the default train step's dec0.conv and dec1.block.0.conv
@@ -388,6 +420,26 @@ SPATIAL_FAMILIES = (("VGG11", {}), ("VGG16", {}),
 #: overflow rerun enters its times
 SPATIAL_PAD = 1024
 CCL_KERNELS = ("tile_label", "merge_borders", "resolve", "scan", "gather")
+JPEG_KERNELS = ("jpeg_idct", "jpeg_color")
+JPEG_DIR = ROOT / "build" / "chip_smoke_jpeg"
+JPEG_CORPUS = ROOT / "tests" / "fixtures" / "jpeg_corpus"
+#: phase 16 (c): CUDA-graph replays of J1 and J2, calls of the plain
+#: version, tiles of the host Huffman decode's timing; the phase's budget
+JPEG_REPS, JPEG_PLAIN_REPS, JPEG_ENTROPY_TILES = 200, 20, 200
+JPEG_BUDGET_S = 40.0
+#: phase 16 (b): the CLI in a child process, twice (the first run pays
+#: the process's first forward); prints both runs' stage seconds and the
+#: second run's CCL and JPEG launch counts as one JSON line
+JPEG_CHILD = ("import json, sys\n"
+              "from mapping_tpu_torch import main\n"
+              "from mapping_tpu_torch.kernels import ccl, jpeg\n"
+              "cold = main.main(sys.argv[1:]).timings\n"
+              "ccl.reset_launches()\n"
+              "jpeg.reset_launches()\n"
+              "manager = main.main(sys.argv[1:])\n"
+              "print('jpeg ' + json.dumps({'cold': cold, 'timings': "
+              "manager.timings, 'ccl': ccl.LAUNCHES, 'jpeg': "
+              "jpeg.LAUNCHES}))\n")
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
 CLI_CHILD = ("import json, sys\n"
@@ -406,13 +458,13 @@ CLI_CHILDREN = ("import json, sys\n"
 #: closes its batcher), then it prints its CCL launch counts
 SERVE_CHILD = ("import json, signal, sys\n"
                "from mapping_tpu_torch import main\n"
-               "from mapping_tpu_torch.kernels import ccl\n"
+               "from mapping_tpu_torch.kernels import ccl, jpeg\n"
                "signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))\n"
                "try:\n"
                "    main.main(sys.argv[1:])\n"
                "finally:\n"
-               "    print('ccl launches ' + json.dumps(ccl.LAUNCHES), "
-               "flush=True)\n")
+               "    print('ccl launches ' + json.dumps({**ccl.LAUNCHES, "
+               "**jpeg.LAUNCHES}), flush=True)\n")
 
 
 #: phase 13 (b): the CLI in a child process, twice (the first run pays
@@ -922,9 +974,10 @@ def slice_phase(gen, smi):
 
 
 def build_phase():
-    from mapping_tpu_torch.kernels import build, ccl, conv_dw
+    from mapping_tpu_torch.kernels import build, ccl, conv_dw, jpeg
+    from mapping_tpu_torch.utils import jpeg as jpeg_host
 
-    specs = {k.LIBRARY: k.SOURCES for k in (ccl, conv_dw)}
+    specs = {k.LIBRARY: k.SOURCES for k in (ccl, conv_dw, jpeg)}
     if (OLD_TREE / "mapping_tpu_torch" / "csrc").is_dir():
         csrc = OLD_TREE / "mapping_tpu_torch" / "csrc"
         specs.update(old_ccl=[csrc / "ccl.cu"],
@@ -936,6 +989,10 @@ def build_phase():
             spill = re.search(r"(\d+) bytes spill stores", line)
             if spill and int(spill.group(1)) and not name.startswith("old"):
                 raise AssertionError(f"{name}: ptxas reports a spill: {line}")
+    start = time.perf_counter()
+    jpeg_host.load()  # csrc/jpeg_entropy.cpp with g++; raises naming it
+    print(f"build: csrc/jpeg_entropy.cpp (g++) loaded in "
+          f"{time.perf_counter() - start:.2f} s")
 
 
 def conv_dw_phase():
@@ -1231,12 +1288,17 @@ def crowded_tile(rng, n=PREP_CROWDED, side=8, step=20):
     return tile, anns
 
 
-def write_split(root, split, n, rng, extra=()):
+def write_split(root, split, n, rng, extra=(), fmt="png"):
     """The `extra` (tile, annotations) pairs, then n synthetic CrowdAI-style
-    300^2 tiles (up to 20 buildings each), as root/split/images/*.png
-    (written on 8 threads) with root/split/annotation.json; returns the
-    tiles."""
+    300^2 tiles (up to 20 buildings each), as root/split/images/*.png, or
+    *.jpg with `fmt` "jpeg" (the port's encoder at quality 95, 4:2:0, as
+    the CrowdAI tiles are), written on 8 threads, with
+    root/split/annotation.json; returns the tiles."""
+    from mapping_tpu_torch.utils import jpeg
     from mapping_tpu_torch.utils.png import encode_png
+
+    suffix, encode = ((".jpg", lambda t: jpeg.encode(t, 95, "4:2:0"))
+                      if fmt == "jpeg" else (".png", encode_png))
 
     fixture = synthetic_fixture()
     images = root / split / "images"
@@ -1247,16 +1309,16 @@ def write_split(root, split, n, rng, extra=()):
                                                max_buildings=20)
                            for _ in range(n)]
     for i, (tile, anns) in enumerate(pairs):
-        name = f"{split}_{i:05d}.png"
+        name = f"{split}_{i:05d}{suffix}"
         dataset["images"].append({"id": i + 1, "file_name": name,
                                   "height": TILE, "width": TILE})
         for ann in anns:
             dataset["annotations"].append(
                 {**ann, "id": len(dataset["annotations"]) + 1,
                  "image_id": i + 1})
-    with ThreadPoolExecutor(8) as pool:  # zlib releases the GIL
-        list(pool.map(lambda i: (images / f"{split}_{i:05d}.png").write_bytes(
-            encode_png(pairs[i][0])), range(len(pairs))))
+    with ThreadPoolExecutor(8) as pool:  # zlib, numpy, g++ code
+        list(pool.map(lambda i: (images / f"{split}_{i:05d}{suffix}")
+                      .write_bytes(encode(pairs[i][0])), range(len(pairs))))
     (root / split / "annotation.json").write_text(json.dumps(dataset))
     return np.stack([tile for tile, _ in pairs])
 
@@ -1612,19 +1674,21 @@ def evaluate_phase(gen, smi):
     tiles = write_split(data, "val", EVAL_TILES, np.random.RandomState(8))
     gt_path = data / "val" / "annotation.json"
     image_ids = set(range(1, EVAL_TILES + 1))
-    if native_decode.available():
-        print("evaluate: native decoder (cpp/decode.cpp, libjpeg + libpng) "
-              "built; tiles are PNG")
+    print(f"evaluate: libpng (cpp/decode.cpp) "
+          f"{'built' if native_decode.available() else 'unavailable: PNG goes through the stdlib reader'}; "
+          f"tiles are PNG (phase 16 runs them as JPEG)")
+    small = load_image(JPEG_CORPUS / "size_16x16.jpg")
+    if small.shape != (16, 16, 3):
+        raise AssertionError(f"a JPEG decoded to {small.shape}")
+    fake_jpeg = EVAL_DIR / "not_decodable.jpg"
+    fake_jpeg.write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
+    try:
+        load_image(fake_jpeg)
+    except ValueError as e:
+        print(f"evaluate: a JPEG decodes through the port's decoder; a "
+              f"64-byte fake one raises: {e}")
     else:
-        fake_jpeg = EVAL_DIR / "not_decodable.jpg"
-        fake_jpeg.write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
-        try:
-            load_image(fake_jpeg)
-        except RuntimeError as e:
-            print(f"evaluate: native decoder unavailable here, PNG goes "
-                  f"through the stdlib reader and JPEG raises: {e}")
-        else:
-            raise AssertionError("a JPEG decoded without the native decoder")
+        raise AssertionError("a 64-byte fake JPEG decoded")
 
     base = {"data_dir": str(data), "meta_dir": str(EVAL_DIR / "meta"),
             "experiment_dir": str(experiment), "device": DEVICE,
@@ -1744,8 +1808,8 @@ def evaluate_phase(gen, smi):
           f"AP {ap} AR {ar}")
     if not ap == ar == 1.0:
         raise AssertionError("ground truth as predictions must score 1")
-    return {k: sum(launches[k] for _, launches in runs.values())
-            for k in K.LAUNCHES}
+    return ({k: sum(launches[k] for _, launches in runs.values())
+             for k in K.LAUNCHES}, runs["default"][0])
 
 
 def cli_child(config, *command):
@@ -2119,8 +2183,8 @@ def wait_healthy(proc, port, log):
 
 
 def stop_serve(proc, log):
-    """SIGTERM, then a kill at a 60 s deadline; returns the CCL launch
-    counts the child printed."""
+    """SIGTERM, then a kill at a 60 s deadline; returns the CCL and JPEG
+    launch counts the child printed."""
     import signal
 
     if proc.poll() is None:
@@ -2139,7 +2203,7 @@ def stop_serve(proc, log):
     return json.loads(lines[-1][len("ccl launches "):])
 
 
-def drive_daemon(port, bodies, ids, concurrency):
+def drive_daemon(port, bodies, ids, concurrency, content_type):
     """POST every body to /v1/predict from `concurrency` client threads:
     (annotations per body, requests/s, p50 and p99 ms of the client's
     latency, the daemon's mean batch occupancy over the run)."""
@@ -2149,7 +2213,7 @@ def drive_daemon(port, bodies, ids, concurrency):
     def post(i):
         start = time.perf_counter()
         got = http_json(url + "/v1/predict", bodies[i], {
-            "Content-Type": "image/png", "X-Image-Id": str(ids[i])})
+            "Content-Type": content_type, "X-Image-Id": str(ids[i])})
         return got["annotations"], time.perf_counter() - start
 
     start = time.perf_counter()
@@ -2252,6 +2316,7 @@ def serving_phase(smi, prepared):
     from mapping_tpu_torch.pipelines import PIPELINES
     from mapping_tpu_torch.tools.kernel_variants import (kernel_events,
                                                           short_name)
+    from mapping_tpu_torch.utils import jpeg, native_decode
 
     phase_start = time.perf_counter()
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
@@ -2419,27 +2484,17 @@ def serving_phase(smi, prepared):
           f"{len(events)} kernels under the profiler include "
           f"{[e for e in events if any(k in e for k in CCL_KERNELS)]}")
 
-    # (d) the serve children: a pipeline and the artifact. A daemon's
-    # answer comes from a batch of one of the bucket shapes, composed as
-    # the requests arrived: it must equal that tile's answer from a batch
-    # of that shape here, or differ from the batch-20 one only where the
-    # probability lies within the largest difference between the batch
-    # shapes' probabilities of the threshold
-    bodies = [p.read_bytes() for p in paths]
+    # (d) the serve children: a pipeline and the artifact, on the val
+    # tiles as PNG and as JPEG bodies (written by the port's encoder; a
+    # JPEG's pixel stage runs on the card and its tile stays there for the
+    # batcher). A daemon's answer comes from a batch of one of the bucket
+    # shapes, composed as the requests arrived: it must equal that tile's
+    # answer from a batch of that shape here, or differ from the batch-20
+    # one only where the probability lies within the largest difference
+    # between the batch shapes' probabilities of the threshold
     image_ids = list(range(1, len(paths) + 1))
     buckets = art.manifest["batch_buckets"]
     top = buckets[-1]
-    refs = {"pipeline": by_batch_shape(
-                lambda b: annotate(live_serve(pipe.loader.infer_preprocess(
-                    b)), [0] * len(b)), tiles, buckets),
-            "artifact": by_batch_shape(
-                lambda b: annotate(art.collect(art.dispatch(b)),
-                                   [0] * len(b)), tiles, buckets)}
-    for per_shape in refs.values():
-        for anns in per_shape.values():
-            for i, image_anns in enumerate(anns):
-                for a in image_anns:
-                    a["image_id"] = image_ids[i]
 
     def probs_at(b):
         with torch.inference_mode():
@@ -2447,15 +2502,43 @@ def serving_phase(smi, prepared):
                 pipe.loader.infer_preprocess(b)), (TILE, TILE))[..., 1]
         return list(p.float().cpu().numpy())
 
-    probs = by_batch_shape(probs_at, tiles, buckets)
-    band = max(float(np.abs(np.stack(probs[b]) - np.stack(probs[top])).max())
-               for b in buckets)
-    print(f"serving: (d) max |probability| difference between batch shapes "
-          f"{buckets} on the {len(tiles)} val tiles: {band:.3e}")
+    def references(tiles):
+        """(each serve's answers at each batch shape, the probabilities at
+        each shape, the band) of `tiles`."""
+        refs = {"pipeline": by_batch_shape(
+                    lambda b: annotate(live_serve(
+                        pipe.loader.infer_preprocess(b)), [0] * len(b)),
+                    tiles, buckets),
+                "artifact": by_batch_shape(
+                    lambda b: annotate(art.collect(art.dispatch(b)),
+                                       [0] * len(b)), tiles, buckets)}
+        for per_shape in refs.values():
+            for anns in per_shape.values():
+                for i, image_anns in enumerate(anns):
+                    for a in image_anns:
+                        a["image_id"] = image_ids[i]
+        probs = by_batch_shape(probs_at, tiles, buckets)
+        band = max(float(np.abs(np.stack(probs[b])
+                                - np.stack(probs[top])).max())
+                   for b in buckets)
+        return refs, probs, band
 
-    def check(name, i, answer, shapes=buckets):
+    jpeg_bodies = [jpeg.encode(t, quality=95, sampling="4:2:0")
+                   for t in tiles]
+    jpeg_tiles = native_decode.assemble(
+        [native_decode.read_bytes(b) for b in jpeg_bodies], "cpu").numpy()
+    kinds = {"PNG": ([p.read_bytes() for p in paths], "image/png",
+                     references(tiles)),
+             "JPEG": (jpeg_bodies, "image/jpeg", references(jpeg_tiles))}
+    for kind, (_, _, (_, _, band)) in kinds.items():
+        print(f"serving: (d) max |probability| difference between batch "
+              f"shapes {buckets} on the {len(tiles)} val tiles as {kind}: "
+              f"{band:.3e}")
+
+    def check(kind, name, i, answer, shapes=buckets):
         """(the first of `shapes` whose answer it equals, or None, and the
         pixels excused near the threshold)."""
+        refs, probs, band = kinds[kind][2]
         for b in shapes:
             if same_annotations(answer, refs[name][b][i]):
                 return b, 0
@@ -2463,9 +2546,10 @@ def serving_phase(smi, prepared):
             return None, near_threshold_difference(
                 answer, refs[name][top][i], probs[top][i], band)
         except AssertionError as e:
-            raise AssertionError(f"serve {name}: image {image_ids[i]}: {e}")
+            raise AssertionError(f"serve {name}: {kind} image "
+                                 f"{image_ids[i]}: {e}")
 
-    children = {}
+    children, decoded = {}, {}
     try:
         for name, args in (("pipeline", ["-p", "unet_weighted"]),
                            ("artifact", ["--artifact",
@@ -2480,29 +2564,31 @@ def serving_phase(smi, prepared):
             health = wait_healthy(proc, port, log)
             print(f"serving: (d) `serve` over the {name} answered /v1/health "
                   f"after {time.perf_counter() - start:.2f} s more: {health}")
-            for concurrency in SERVE_CONCURRENCY:
-                answers, rps, p50, p99, occupancy = drive_daemon(
-                    port, bodies, image_ids, concurrency)
-                matched = {b: 0 for b in buckets + [None]}
-                pixels = 0
-                for i, answer in enumerate(answers):
-                    b, n = check(name, i, answer)
-                    matched[b] += 1
-                    pixels += n
-                print(f"serving: (d) serve {name}, concurrency "
-                      f"{concurrency}: {len(bodies)} PNG requests, "
-                      f"{rps:.2f} requests/s, latency p50 {p50:.2f} ms p99 "
-                      f"{p99:.2f} ms (client clock), mean batch occupancy "
-                      f"{occupancy:.2f}; answers equal to the one at batch "
-                      f"shape {matched} (None: {pixels} pixels on the other "
-                      f"side of the threshold, all within the band) on "
-                      f"{smi}")
+            for kind, (bodies, content_type, _) in kinds.items():
+                for concurrency in SERVE_CONCURRENCY:
+                    answers, rps, p50, p99, occupancy = drive_daemon(
+                        port, bodies, image_ids, concurrency, content_type)
+                    matched = {b: 0 for b in buckets + [None]}
+                    pixels = 0
+                    for i, answer in enumerate(answers):
+                        b, n = check(kind, name, i, answer)
+                        matched[b] += 1
+                        pixels += n
+                    print(f"serving: (d) serve {name}, concurrency "
+                          f"{concurrency}: {len(bodies)} {kind} requests, "
+                          f"{rps:.2f} requests/s, latency p50 {p50:.2f} ms "
+                          f"p99 {p99:.2f} ms (client clock), mean batch "
+                          f"occupancy {occupancy:.2f}; answers equal to the "
+                          f"one at batch shape {matched} (None: {pixels} "
+                          f"pixels on the other side of the threshold, all "
+                          f"within the band) on {smi}")
             start = time.perf_counter()
             answer = http_json(f"http://127.0.0.1:{port}/v1/predict",
-                               bodies[0], {"Content-Type": "image/png",
-                                           "X-Image-Id": "1"})["annotations"]
+                               kinds["PNG"][0][0],
+                               {"Content-Type": "image/png",
+                                "X-Image-Id": "1"})["annotations"]
             lone = (time.perf_counter() - start) * 1e3
-            lone_shape = check(name, 0, answer)
+            lone_shape = check("PNG", name, 0, answer)
             stats = http_json(f"http://127.0.0.1:{port}/v1/stats")
             print(f"serving: (d) serve {name}: a lone request in "
                   f"{lone:.2f} ms (batch shape / excused pixels "
@@ -2517,7 +2603,7 @@ def serving_phase(smi, prepared):
         for a in json.loads(prediction.read_text()):
             got_dir[a["image_id"]].append({**a, "image_id":
                                            a["image_id"] + 1})
-        shapes = [check("pipeline", i, anns, [top])[0]
+        shapes = [check("PNG", "pipeline", i, anns, [top])[0]
                   for i, anns in enumerate(got_dir)]
         print(f"serving: (d) predict_on_dir: {shapes.count(top)} of "
               f"{len(shapes)} images equal to the batch-{top} answers, the "
@@ -2530,8 +2616,15 @@ def serving_phase(smi, prepared):
                 except AssertionError:
                     raise
                 count(got)
-                print(f"serving: (d) serve {name} stopped; its CCL launches "
-                      f"{got}")
+                decoded[name] = {k: got[k] for k in JPEG_KERNELS}
+                print(f"serving: (d) serve {name} stopped; its CCL and JPEG "
+                      f"launches {got}")
+    for name, got in decoded.items():
+        if not all(got.values()):
+            raise AssertionError(f"serve {name} decoded the JPEG bodies "
+                                 f"without J1/J2: {got}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
     print(f"serving: phase 11 took {time.perf_counter() - phase_start:.2f} s "
           f"(host clock)")
     return launches
@@ -3708,7 +3801,186 @@ def spatial_phase(smi, prepared):
     return launches
 
 
+def jpeg_phase(smi, png_run):
+    """Phase 16: the port's JPEG decoder on the card. Returns (max |kernel
+    - plain| per kernel, (ms, plain ms, library ms) per kernel, the main
+    path's launches per kernel, the bound per kernel)."""
+    import hashlib
+
+    from mapping_tpu_torch import main as cli
+    from mapping_tpu_torch.infer.daemon import decode_request_image
+    from mapping_tpu_torch.kernels import bounds, jpeg as J
+    from mapping_tpu_torch.utils import jpeg, native_decode
+
+    begin = time.perf_counter()
+    err = {"jpeg_idct": 0, "jpeg_color": 0}
+
+    def check(coef, quant, geometry, what):
+        """J1 and J2 on the card against the plain version on the CPU;
+        returns the card's RGB on the host."""
+        planes_plain = J.idct_plain(coef, quant, geometry)
+        rgb_plain = J.color_plain(planes_plain, geometry)
+        planes = J.idct(coef.to(DEVICE), quant.to(DEVICE), geometry)
+        rgb = J.color(planes, geometry).cpu()
+        for name, got, want in (("jpeg_idct", planes.cpu(), planes_plain),
+                                ("jpeg_color", rgb, rgb_plain)):
+            e = int((got.int() - want.int()).abs().max()) if got.numel() \
+                else 0
+            err[name] = max(err[name], e)
+            if e:
+                raise AssertionError(f"{what}: {name} differs from the "
+                                     f"plain version by {e}")
+        return rgb
+
+    # (a) the corpus: libjpeg's digests, and the refused kinds
+    manifest = json.loads((JPEG_CORPUS / "manifest.json").read_text())
+    decoded = []
+    for name, entry in sorted(manifest.items()):
+        data = (JPEG_CORPUS / name).read_bytes()
+        if hashlib.sha256(data).hexdigest() != entry["sha256"]:
+            raise AssertionError(f"{name}: not the committed file")
+        if "refused" in entry:
+            try:
+                native_decode.decode_rgb_batch([JPEG_CORPUS / name], DEVICE)
+            except ValueError as e:
+                if entry["refused"] not in str(e):
+                    raise AssertionError(f"{name}: {e}") from e
+                print(f"jpeg: (a) {name} refused: {e}")
+                continue
+            raise AssertionError(f"{name} decoded; it should be refused")
+        c = jpeg.read_coefficients(data)
+        rgb = check(torch.from_numpy(c.coef)[None],
+                    torch.from_numpy(c.quant)[None], c.geometry, name)
+        if hashlib.sha256(rgb[0].numpy().tobytes()).hexdigest() \
+                != entry["decode_sha256"]:
+            raise AssertionError(f"{name}: the card's decode is not "
+                                 f"libjpeg's")
+        decoded.append(f"{name} {c.geometry.factors} {c.geometry.color}")
+    print(f"jpeg: (a) {len(decoded)} corpus files decode on the card to "
+          f"libjpeg's digests, J1 and J2 = plain exactly: "
+          f"{'; '.join(decoded)}")
+
+    # (b) phase 8's val split as JPEG: the card's batch = the CPU's, then
+    # `evaluate` through the CLI on phase 9 (a)'s weights
+    shutil.rmtree(JPEG_DIR, ignore_errors=True)
+    data, experiment = JPEG_DIR / "data", JPEG_DIR / "experiment"
+    write_split(data, "val", EVAL_TILES, np.random.RandomState(8),
+                fmt="jpeg")
+    paths = sorted((data / "val" / "images").glob("*.jpg"))
+    on_card = native_decode.decode_rgb_batch(paths, DEVICE)
+    on_cpu = native_decode.decode_rgb_batch(paths, "cpu")
+    if not torch.equal(on_card.cpu(), on_cpu):
+        raise AssertionError("the val tiles decode differently on the card")
+    served = native_decode.DeviceDecoder(DEVICE)  # the daemon's
+    for i, path in enumerate(paths[:BATCH]):
+        tile = decode_request_image(path.read_bytes(), "image/jpeg",
+                                    (TILE, TILE), served)
+        if not (isinstance(tile, torch.Tensor) and tile.is_cuda
+                and torch.equal(tile.cpu(), on_cpu[i])):
+            raise AssertionError(f"{path.name}: the daemon's decode differs "
+                                 f"or left the card")
+    print(f"jpeg: (b) {len(paths)} val tiles (quality 95, 4:2:0) decode on "
+          f"the card equal to the CPU decode, exactly; so do {BATCH} of "
+          f"them as request bodies through the daemon's decoder, their "
+          f"tiles left on the card for the batcher")
+    (experiment / "transformers").mkdir(parents=True)
+    shutil.copy2(TRAIN_DIR / "full" / "transformers" / "unet.pt",
+                 experiment / "transformers" / "unet.pt")
+    config = write_config("jpeg", {
+        "data_dir": str(data), "meta_dir": str(JPEG_DIR / "meta"),
+        "experiment_dir": str(experiment), "device": DEVICE,
+        **EVAL_PARAMS}, where=JPEG_DIR)
+    cli.main(["--config", config, "prepare_metadata", "-val"])
+    log = JPEG_DIR / "evaluate.log"
+    rc, seconds, rss = run_child(
+        [sys.executable, "-c", JPEG_CHILD, "--config", config, "evaluate",
+         "-p", "unet_weighted"], log)
+    last = log.read_text().strip().splitlines()[-1]
+    if rc != 0 or not last.startswith("jpeg "):
+        raise AssertionError(f"the JPEG evaluate failed ({rc}):\n"
+                             f"{log.read_text()[-3000:]}")
+    child = json.loads(last[len("jpeg "):])
+    check_prediction(experiment / "prediction.json",
+                     set(range(1, EVAL_TILES + 1)), "JPEG evaluate")
+    ap, ar = last_scores(experiment)
+    if min(child["jpeg"].values()) < 1 or min(child["ccl"].values()) < 1:
+        raise AssertionError(f"the JPEG evaluate launched J1/J2 "
+                             f"{child['jpeg']}, CCL {child['ccl']}")
+    t, cold = child["timings"], child["cold"]
+    print(f"jpeg: (b) `evaluate -p unet_weighted` on the JPEG tiles, twice "
+          f"in a child: exit 0 in {seconds:.2f} s, peak RSS {rss:.0f} MiB, "
+          f"AP/AR {ap}/{ar}; the second run's launches {child['jpeg']} "
+          f"{child['ccl']}, {t['images'] / t['total_s']:.2f} images/s, "
+          f"decode_s {t['decode_s']:.4f} (to J2's end), device_s "
+          f"{t['device_s']:.4f}, annotation_s {t['annotation_s']:.4f}, "
+          f"cocoeval_s {t['cocoeval_s']:.4f}; the first run's "
+          f"{cold['images'] / cold['total_s']:.2f} images/s, decode_s "
+          f"{cold['decode_s']:.4f}, device_s {cold['device_s']:.4f}; phase "
+          f"8's PNG run in process: "
+          f"{png_run['images'] / png_run['total_s']:.2f} images/s, decode_s "
+          f"{png_run['decode_s']:.4f} (host clock) on {smi}")
+
+    # (c) times at the serving batch (20 tiles of 300^2, 4:2:0)
+    items = [jpeg.read_coefficients(p.read_bytes()) for p in paths[:BATCH]]
+    g = items[0].geometry
+    coef = torch.from_numpy(np.stack([c.coef for c in items])).to(DEVICE)
+    quant = torch.from_numpy(np.stack([c.quant for c in items])).to(DEVICE)
+    planes = J.idct(coef, quant, g)
+    timed = in_turns(
+        {"jpeg_idct": lambda: J.idct(coef, quant, g),
+         "jpeg_color": lambda: J.color(planes, g),
+         "plain_idct": lambda: J.idct_plain(coef, quant, g),
+         "plain_color": lambda: J.color_plain(planes, g)},
+        {"jpeg_idct": graph_ms, "jpeg_color": graph_ms,
+         "plain_idct": cuda_ms, "plain_color": cuda_ms},
+        {"jpeg_idct": JPEG_REPS, "jpeg_color": JPEG_REPS,
+         "plain_idct": JPEG_PLAIN_REPS, "plain_color": JPEG_PLAIN_REPS})
+    blobs = [p.read_bytes() for p in paths] * (
+        -(-JPEG_ENTROPY_TILES // len(paths)))
+    blobs = blobs[:JPEG_ENTROPY_TILES]
+    start = time.perf_counter()
+    for b in blobs:
+        jpeg.read_coefficients(b)
+    one = (time.perf_counter() - start) / len(blobs) * 1e3
+    with ThreadPoolExecutor(8) as pool:
+        start = time.perf_counter()
+        list(pool.map(jpeg.read_coefficients, blobs))
+        eight = (time.perf_counter() - start) / len(blobs) * 1e3
+    n_comp, pb = len(g.factors), J.plane_bytes(g)
+    bound = {"jpeg_idct": bounds.jpeg_idct(BATCH, g.n_blocks, n_comp, pb),
+             "jpeg_color": bounds.jpeg_color(BATCH, pb, g.height, g.width)}
+    stage = bounds.jpeg_pixels(BATCH, g.n_blocks, n_comp, g.height, g.width)
+    times = {"jpeg_idct": (min(timed["jpeg_idct"]), min(timed["plain_idct"]),
+                           None),
+             "jpeg_color": (min(timed["jpeg_color"]),
+                            min(timed["plain_color"]), None)}
+    print(f"jpeg: (c) at ({BATCH}, {TILE}^2, 4:2:0), {g.n_blocks} blocks a "
+          f"tile: J1 {timed['jpeg_idct']} ms, J2 {timed['jpeg_color']} ms "
+          f"(CUDA-graph replays, in turns), plain J1 {timed['plain_idct']} "
+          f"ms, plain J2 {timed['plain_color']} ms; bound J1 "
+          f"{bound['jpeg_idct'][0]:.5f} ms, J2 {bound['jpeg_color'][0]:.5f} "
+          f"ms, J1 + J2 as one function {stage[0]:.5f} ms ({stage[1]}); "
+          f"host Huffman decode {one:.4f} ms a tile on 1 thread, "
+          f"{eight:.4f} on 8 (host clock) on {smi}")
+    seconds = time.perf_counter() - begin
+    print(f"jpeg: phase 16 took {seconds:.2f} s")
+    if seconds > JPEG_BUDGET_S:
+        raise AssertionError(f"phase 16 took {seconds:.2f} s, over its "
+                             f"{JPEG_BUDGET_S} s")
+    return err, times, dict(child["jpeg"]), bound
+
+
 def main():
+    start = time.perf_counter()
+    last = [start]
+
+    def lap(phase):
+        """Prints the phase's seconds and the script's so far."""
+        now = time.perf_counter()
+        print(f"timing: phases to {phase} took {now - last[0]:.1f} s, "
+              f"{now - start:.1f} s since the start")
+        last[0] = now
+
     smi = card()
     from mapping_tpu_torch.kernels import bounds
 
@@ -3717,21 +3989,35 @@ def main():
     err, times = kernel_phase(gen)
     launches = slice_phase(gen, smi)
     err["conv_dw"], times["conv_dw"] = conv_dw_phase()
+    lap(5)
     prepared = prepare_phase(smi)
+    lap(6)
     launches["conv_dw"] = train_phase(gen, smi, prepared)["conv_dw"]
-    for phase in (prepared["launches"], evaluate_phase(gen, smi),
-                  train_cli_phase(smi, prepared),
-                  scoring_phase(smi, prepared),
-                  serving_phase(smi, prepared), zoo_phase(smi, prepared),
-                  quantize_phase(gen, smi, prepared),
-                  parallel_phase(smi, prepared),
-                  spatial_phase(smi, prepared)):
-        for name, n in phase.items():
-            launches[name] += n
+    lap(7)
+    evaluated, png_run = evaluate_phase(gen, smi)
+    lap(8)
+    phases = ((9, lambda: train_cli_phase(smi, prepared)),
+              (10, lambda: scoring_phase(smi, prepared)),
+              (11, lambda: serving_phase(smi, prepared)),
+              (12, lambda: zoo_phase(smi, prepared)),
+              (13, lambda: quantize_phase(gen, smi, prepared)),
+              (14, lambda: parallel_phase(smi, prepared)),
+              (15, lambda: spatial_phase(smi, prepared)))
+    counted = [prepared["launches"], evaluated]
+    for number, phase in phases:
+        counted.append(phase())
+        lap(number)
+    jpeg_err, jpeg_times, jpeg_launches, bound = jpeg_phase(smi, png_run)
+    lap(16)
+    for counts in counted + [jpeg_launches]:
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    err.update(jpeg_err)
+    times.update(jpeg_times)
     n, c, h, w = DW_TIMED[DW_MAIN]
-    bound = {"ccl_label_raw": bounds.ccl_label_raw(BATCH, TILE, TILE),
-             "ccl_renumber": bounds.ccl_renumber(BATCH, TILE, TILE),
-             "conv_dw": bounds.conv_dw(n, c, h, w, 3)}
+    bound.update({"ccl_label_raw": bounds.ccl_label_raw(BATCH, TILE, TILE),
+                  "ccl_renumber": bounds.ccl_renumber(BATCH, TILE, TILE),
+                  "conv_dw": bounds.conv_dw(n, c, h, w, 3)})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

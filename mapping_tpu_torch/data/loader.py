@@ -1,10 +1,15 @@
 """Host decode, batch preprocessing on the device, and the batch flows.
 
 Counterpart of mapping_tpu/data/loader.py:
-- host decode: `load_image` (JPEG/PNG tiles) and `load_target` (a mask
-  PNG and its distance and size pickles), on a thread pool where the
-  native decoder serves, with the next batches decoded on a worker thread
-  while the device runs (`_Prefetcher`);
+- decode: `load_image` (a JPEG/PNG tile to a host array) and
+  `load_target` (a mask PNG and its distance and size pickles); a file
+  batch's images go through `utils/native_decode` (`_assemble`): the host
+  half (a JPEG's Huffman decode) on a thread pool where the decoder
+  releases the GIL, then one JPEG pixel-stage call a geometry straight
+  onto the loader's device (the CUDA kernels J1 + J2 on a card, on the
+  loader's own stream, the consumer waiting on an event recorded after
+  them), with the next batches decoded on a worker thread while the
+  device runs (`_Prefetcher`);
 - the device preprocess of both loader modes: `infer_batch_resize`
   (`_infer_batch_resize`), `infer_batch_pad` (`_infer_batch_pad`, the
   `crop_and_pad` mode), `train_batch_resize`, `train_batch_crop`,
@@ -23,9 +28,10 @@ Targets are (B, H, W, 3) [mask, distance, sqrt(size)], uint16 on the host
 draws (augmentation, crops) come from a host torch.Generator seeded with
 `seed`. A batch of tiles of mixed sizes is resized on the host to `size`,
 as the JAX loader does through Pillow: the images by Pillow's bilinear
-(`utils/resize.resize_bilinear_u8`), the targets per channel in float32,
-nearest for the mask and size channels and bilinear for the distance
-(`resize_nearest_f32`, `resize_bilinear_f32`); such a batch's targets
+(`utils/resize.resize_bilinear_u8`, in `native_decode.assemble`), the
+targets per channel in float32, nearest for the mask and size channels
+and bilinear for the distance (`resize_nearest_f32`,
+`resize_bilinear_f32`); such a batch's targets
 are float32, a batch of one size keeps uint16.
 
 Data parallel (`shard` = (rank, world) on the loader or the in-memory
@@ -58,7 +64,6 @@ from mapping_tpu_torch.data.augment import (PAD_FUNCTION, apply_fast_augment,
                                             sample_random_crop)
 from mapping_tpu_torch.utils import native_decode, ndpickle, png
 from mapping_tpu_torch.utils.resize import (resize_bilinear_f32,
-                                            resize_bilinear_u8,
                                             resize_nearest_f32)
 
 
@@ -294,8 +299,9 @@ class _Prefetcher:
 
 
 class _EvalFlow:
-    """One pass over the host batches of `make_batch`, (images, targets or
-    None), each preprocessed on the loader's device."""
+    """One pass over the batches of `make_batch`, (images, targets or
+    None, ready event or None), each preprocessed on the loader's
+    device."""
 
     def __init__(self, loader, make_batch, steps, n_images):
         self.loader, self.make_batch = loader, make_batch
@@ -304,8 +310,9 @@ class _EvalFlow:
     def __iter__(self):
         prefetcher = _Prefetcher(self.make_batch, self.steps)
         try:
-            for image_b, target_b in prefetcher:
-                yield self.loader.eval_preprocess(image_b, target_b)
+            for image_b, target_b, ready in prefetcher:
+                yield self.loader.eval_preprocess(
+                    native_decode.take(image_b, ready), target_b)
         finally:
             prefetcher.cancel()
 
@@ -333,10 +340,11 @@ class _FileTrainFlow:
 
     def __iter__(self):
         prefetcher, self._next = self._next or self._start(), None
-        for batch_id, (image_b, target_b) in enumerate(prefetcher):
+        for batch_id, (image_b, target_b, ready) in enumerate(prefetcher):
             if batch_id + 1 == self.steps:
                 self._next = self._start()
-            yield self.loader.train_preprocess(image_b, target_b)
+            yield self.loader.train_preprocess(
+                native_decode.take(image_b, ready), target_b)
 
     def __len__(self):
         return self.steps
@@ -386,6 +394,7 @@ class SegmentationLoader:
         self._lock = threading.Lock()
         self._np_rng = np.random.RandomState(seed)
         self._generator = torch.Generator().manual_seed(seed)
+        self._decoder = native_decode.DeviceDecoder(self.device)
         self.decode_seconds = 0.0
 
     def _cached(self, load, path):
@@ -396,39 +405,47 @@ class SegmentationLoader:
             hit = self._cache[path] = load(path)
         return hit
 
-    def _decode_many(self, load, paths):
-        """Decode files on up to 8 threads when the native decoder serves
-        them: it releases the GIL for the whole call. The stdlib PNG reader
-        holds the GIL between its numpy calls, and threads contending for
-        it decode slower than one thread, so without the native decoder
-        the files are decoded in turn."""
+    def _decode_many(self, load, paths, threaded):
+        """Decode files on up to 8 threads when `threaded` (the decoder
+        releases the GIL: a JPEG's Huffman decode, libpng). The stdlib PNG
+        reader holds the GIL between its numpy calls, and threads
+        contending for it decode slower than one thread, so its files are
+        decoded in turn."""
         paths = list(paths)
         workers = min(8, os.cpu_count() or 1)
-        if len(paths) <= 1 or workers <= 1 or not native_decode.available():
+        if len(paths) <= 1 or workers <= 1 or not threaded:
             return [self._cached(load, p) for p in paths]
         with ThreadPoolExecutor(max_workers=workers) as ex:
             return list(ex.map(lambda p: self._cached(load, p), paths))
 
     def _assemble(self, image_paths, target_paths, idxs):
-        """(images (B, H, W, 3) uint8, targets (B, H, W, 3) or None) of
-        the files at `idxs`; targets uint16, or float32 for a batch of
-        mixed sizes, which is resized to `size` on the host."""
+        """(images (B, H, W, 3) uint8 on the loader's device, targets
+        (B, H, W, 3) on the host or None, ready: the event of
+        `native_decode.DeviceDecoder`) of the files at `idxs`: the files'
+        host decode on the threads, then one pixel-stage call per JPEG
+        geometry onto the device, on the loader's own stream on a card
+        (so `decode_seconds` runs to the kernels' end). Targets
+        are uint16, or float32 for a batch of mixed sizes, which is
+        resized to `size` on the host (the images too, there). The
+        `load_in_memory` cache holds the host halves, not device tiles."""
         start = time.perf_counter()
-        images = self._decode_many(load_image, np.asarray(image_paths)[idxs])
-        mixed = len({im.shape for im in images}) > 1
-        if mixed:
-            images = [resize_bilinear_u8(im, self.size) for im in images]
+        paths = np.asarray(image_paths)[idxs]
+        items = self._decode_many(
+            native_decode.read_image, paths,
+            all(native_decode.releases_gil(p) for p in paths))
+        mixed = len({native_decode.image_size(it) for it in items}) > 1
         targets = None
         if target_paths is not None:
             targets = self._decode_many(load_target,
-                                        np.asarray(target_paths)[idxs])
+                                        np.asarray(target_paths)[idxs],
+                                        native_decode.available())
             if mixed:
                 targets = [resize_target_f32(t, self.size) for t in targets]
             targets = np.stack(targets)
-        batch = np.stack(images)
+        images, ready = self._decoder(items, self.size if mixed else None)
         with self._lock:
             self.decode_seconds += time.perf_counter() - start
-        return batch, targets
+        return images, targets, ready
 
     def infer_preprocess(self, image_u8_batch):
         """(B, H, W, 3) uint8 (numpy or tensor) -> normalised float32
@@ -489,7 +506,8 @@ class SegmentationLoader:
         """(flow, steps) over (N, H, W, 3) uint8 tiles in host memory."""
         images_u8 = np.asarray(images_u8)
         return self._eval_gen(len(images_u8),
-                              lambda idxs: (images_u8[idxs], None), False)
+                              lambda idxs: (images_u8[idxs], None, None),
+                              False)
 
     def _file_flow(self, X, y):
         X = list(X)

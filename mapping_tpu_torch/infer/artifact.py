@@ -165,6 +165,17 @@ def _refuse_jax_artifact(directory, manifest):
             f"pipeline with `python3 -m mapping_tpu_torch.main export`")
 
 
+def _as_tiles(images_u8) -> torch.Tensor:
+    """A batch of tiles as a uint8 tensor: a host array is converted (as
+    np.ascontiguousarray(..., uint8)), a tensor must be uint8 already."""
+    if not isinstance(images_u8, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(images_u8,
+                                                     dtype=np.uint8))
+    if images_u8.dtype != torch.uint8:
+        raise ValueError(f"expected uint8 tiles, got {images_u8.dtype}")
+    return images_u8
+
+
 class ArtifactServe:
     """A loaded artifact: callable (B, H, W, 3) uint8 -> numpy
     (labels (B, L, th, tw) int16, scores, areas [, features]).
@@ -247,9 +258,9 @@ class ArtifactServe:
         return self
 
     def _replay(self, programs, device, images_u8):
-        """Enqueue one bucket-size batch on `device`; returns its output
-        tensors there (not synchronised)."""
-        x = torch.from_numpy(images_u8).to(device)
+        """Enqueue one bucket-size batch (a uint8 tensor on any device) on
+        `device`; returns its output tensors there (not synchronised)."""
+        x = images_u8.to(device)
         # TF32 off, as the live float32 forward runs (a bf16 program has no
         # float32 conv or matmul for it to change)
         with torch.no_grad(), _no_tf32(True):
@@ -260,8 +271,8 @@ class ArtifactServe:
         bucket = next(b for b in self._buckets if b >= batch)
         pad = bucket - batch
         if pad:
-            images_u8 = np.concatenate(
-                [images_u8, np.repeat(images_u8[-1:], pad, axis=0)])
+            images_u8 = torch.cat([images_u8,
+                                   images_u8[-1:].repeat((pad, 1, 1, 1))])
         device, programs = replica or (self.device, self._programs)
         return self._replay(programs, device, images_u8), batch
 
@@ -271,15 +282,17 @@ class ArtifactServe:
         return [o.cpu().numpy()[:batch] for o in outs]
 
     def __call__(self, images_u8):
-        images_u8 = np.ascontiguousarray(images_u8, dtype=np.uint8)
+        """Outputs of (B, H, W, 3) uint8 tiles: a host array, or a tensor
+        on any device (the decoder's device batch)."""
+        images_u8 = _as_tiles(images_u8)
         if images_u8.ndim != 4 or images_u8.shape[-1] != 3 \
                 or images_u8.shape[0] == 0:
             raise ValueError(f"expected non-empty (B, H, W, 3) uint8, got "
-                             f"{images_u8.shape}")
+                             f"{tuple(images_u8.shape)}")
         if images_u8.shape[1:3] != self.image_hw:
             raise ValueError(
                 f"artifact expects {self.image_hw} tiles, got "
-                f"{images_u8.shape[1:3]} (resize on host first)")
+                f"{tuple(images_u8.shape[1:3])} (resize on host first)")
         top = self._buckets[-1]
         replicas = self._replicas or [None]
         chunks = []
@@ -306,7 +319,7 @@ class ArtifactServe:
     # the daemon's dispatch/collect protocol (FusedServe's): dispatch
     # enqueues a batch of exactly one bucket's size, collect copies back
     def dispatch(self, images_u8):
-        images_u8 = np.ascontiguousarray(images_u8, dtype=np.uint8)
+        images_u8 = _as_tiles(images_u8)
         batch = images_u8.shape[0]
         if batch not in self._programs:
             raise ValueError(f"no exported program for batch {batch}; "
@@ -401,17 +414,17 @@ def predict_paths_with_artifact(art: ArtifactServe, ids, paths,
                                 chunk_images: int = 0, timings=None):
     """COCO result annotations for (image_id, file path) pairs through a
     loaded artifact: the engine of `predict_on_dir --artifact` and
-    `evaluate --artifact`. Images decode on the host (data/loader.
-    load_image) and are resized to the artifact's tile there when they
-    differ (utils/resize); chunk k + 1 decodes on a look-ahead thread while
-    chunk k runs. `timings` gets the host seconds of decode (on that
-    thread), device (the replay, copies included) and annotation + RLE
-    (with the scoring rescore and NMS of a scoring artifact)."""
+    `evaluate --artifact`. Images decode through utils/native_decode (a
+    JPEG's Huffman decode on the host, its pixel stage on the artifact's
+    device, on a stream of its own on a card) and are resized to the
+    artifact's tile on the host when they differ (utils/resize); chunk
+    k + 1 decodes on a look-ahead thread while chunk k runs. `timings`
+    gets the seconds of decode (on that thread, to the pixel stage's
+    end), device (the replay, copies included) and annotation + RLE (with
+    the scoring rescore and NMS of a scoring artifact)."""
     from mapping_tpu_torch.constants import CATEGORY_IDS
-    from mapping_tpu_torch.data import loader
     from mapping_tpu_torch.infer.annotations import labeled_to_annotations
     from mapping_tpu_torch.utils import native_decode
-    from mapping_tpu_torch.utils.resize import resize_bilinear_u8
 
     timings = {} if timings is None else timings
     convert = art.converter()
@@ -422,32 +435,30 @@ def predict_paths_with_artifact(art: ArtifactServe, ids, paths,
     chunk = int(chunk_images) or 4 * max(art.manifest["batch_buckets"])
     decode_s = device_s = annotation_s = 0.0
 
-    def _decode_tile(p):
-        arr = loader.load_image(p)
-        if arr.shape[:2] != (h, w):
-            arr = resize_bilinear_u8(arr, (h, w))
-        return arr
+    decoder = native_decode.DeviceDecoder(art.device)
 
     def _decode_chunk(start):
         begin = time.perf_counter()
         chunk_paths = paths[start:start + chunk]
         workers = min(8, os.cpu_count() or 1)
-        # threads only for the native decoder, which releases the GIL (the
-        # loader's rule, data/loader.SegmentationLoader._decode_many)
-        if len(chunk_paths) <= 1 or workers <= 1 \
-                or not native_decode.available():
-            images = np.stack([_decode_tile(p) for p in chunk_paths])
+        # threads only where the decoder releases the GIL (the loader's
+        # rule, data/loader.SegmentationLoader._decode_many)
+        if len(chunk_paths) <= 1 or workers <= 1 or not all(
+                native_decode.releases_gil(p) for p in chunk_paths):
+            items = [native_decode.read_image(p) for p in chunk_paths]
         else:
             with ThreadPoolExecutor(max_workers=workers) as ex:
-                images = np.stack(list(ex.map(_decode_tile, chunk_paths)))
-        return images, time.perf_counter() - begin
+                items = list(ex.map(native_decode.read_image, chunk_paths))
+        images, ready = decoder(items, (h, w))
+        return images, ready, time.perf_counter() - begin
 
     prediction = []
     with ThreadPoolExecutor(max_workers=1,
                             thread_name_prefix="artifact-decode") as ahead:
         future = ahead.submit(_decode_chunk, 0)
         for start in range(0, len(paths), chunk):
-            images, seconds = future.result()
+            images, ready, seconds = future.result()
+            images = native_decode.take(images, ready)
             decode_s += seconds
             if start + chunk < len(paths):
                 future = ahead.submit(_decode_chunk, start + chunk)

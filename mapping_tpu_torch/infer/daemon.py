@@ -5,11 +5,12 @@ of the same serve program the pipelines run (infer/serving.py FusedServe,
 or an exported artifact, infer/artifact.py):
 
  - requests POST one image each (JPEG/PNG bytes or a .npy array); HTTP
-   handler threads decode them (utils/native_decode.decode_rgb_bytes: the
-   native in-memory decoder, which releases the GIL, else the standard
-   library PNG reader; a JPEG without the native decoder is a 400 naming
-   it) and resize them on the host to the tile size when they differ
-   (utils/resize, Pillow's bilinear resample);
+   handler threads decode them (utils/native_decode: a JPEG through the
+   port's decoder, its Huffman decode on the host and its pixel stage on
+   the serving device, where a tile of the daemon's size stays for the
+   batcher; a PNG through libpng or the standard-library reader; a body
+   either refuses is a 400) and resize them on the host to the tile size
+   when they differ (utils/resize, Pillow's bilinear resample);
  - a microbatcher coalesces requests up to the pipeline's
    `batch_size_inference` (waiting at most `max_wait_ms` after the first
    request of a batch) and pads the ragged tail by repeating rows up to the
@@ -51,6 +52,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from mapping_tpu_torch.infer.annotations import labeled_to_annotations
 
@@ -74,10 +76,12 @@ class Microbatcher:
     """Coalesce single-image requests into fixed-shape device batches.
 
     serve: dispatch/collect (FusedServe, or ArtifactServe). preprocess:
-    maps a stacked uint8 (B, H, W, 3) batch to the serve program's input
-    (the loader's `infer_preprocess`; the identity for an artifact). Two
-    worker threads connect through a depth-1 handle queue: the batcher
-    dispatches, the collector copies back, one batch always in flight.
+    maps a stacked uint8 (B, H, W, 3) tensor (on the serving device where
+    a request's tile was decoded there, else on the host) to the serve
+    program's input (the loader's `infer_preprocess`; the identity for an
+    artifact). Two worker threads connect through a depth-1 handle queue:
+    the batcher dispatches, the collector copies back, one batch always in
+    flight.
     """
 
     def __init__(self, serve, preprocess, batch_size: int,
@@ -251,14 +255,10 @@ class Microbatcher:
             if not batch:
                 continue
             try:
-                images = np.stack([p.image for p in batch])
                 bucket = next(b for b in self._buckets if b >= len(batch))
                 pad = bucket - len(batch)
-                if pad:
-                    # repeat the last row up to the bucket's shape
-                    images = np.concatenate(
-                        [images, np.repeat(images[-1:], pad, axis=0)])
-                    self.stats["images_padded"] += pad
+                images = _stack([p.image for p in batch], pad)
+                self.stats["images_padded"] += pad
                 self.stats["bucket_batches"][str(bucket)] += 1
                 handle = self._serve.dispatch(self._preprocess(images))
                 self._inflight.put((handle, batch))
@@ -300,6 +300,20 @@ class Microbatcher:
         return labeled_to_annotations(
             image_id, np.asarray(outs[0][i]), np.asarray(outs[1][i]),
             self._cat_ids, self._cat_layers)
+
+
+def _stack(images, pad):
+    """(len(images) + pad, H, W, 3) uint8 tensor of the requests' tiles,
+    the last repeated `pad` times: on the device of the tiles the decoder
+    left on a card, else on the host. A card's tile is made safe for the
+    current stream (`native_decode.take`)."""
+    from mapping_tpu_torch.utils import native_decode
+
+    tiles = [native_decode.take(torch.as_tensor(im)) for im in images]
+    device = next((t.device for t in tiles if t.is_cuda),
+                  torch.device("cpu"))
+    tiles = [t.to(device) for t in tiles]
+    return torch.stack(tiles + tiles[-1:] * pad)
 
 
 class RequestError(ValueError):
@@ -357,14 +371,19 @@ def parse_serve_buckets(params):
 
 
 def decode_request_image(body: bytes, content_type: str,
-                         target_hw) -> np.ndarray:
-    """Request bytes -> (H, W, 3) uint8 at the daemon's tile shape.
+                         target_hw, decoder=None):
+    """Request bytes -> (H, W, 3) uint8 at the daemon's tile shape: a
+    host array, or a tensor on the serving device.
 
     .npy arrays pass through (uint8, floats in [0, 1] scaled to 255, or
     integers in [0, 255]; anything else is a RequestError rather than a
-    silent truncation); image bytes decode through
-    utils/native_decode.decode_rgb_bytes. A tile of another size is
-    resized on the host (utils/resize, Pillow's bilinear)."""
+    silent truncation); image bytes decode through utils/native_decode.
+    A JPEG has its pixel stage run by `decoder` (the daemon's
+    `native_decode.DeviceDecoder`: J1 + J2 on a stream of their own on a
+    card, finished when this returns), and a tile of the daemon's size
+    stays on that device for the batcher; None decodes it on the host. A
+    tile of another size is resized on the host (utils/resize, Pillow's
+    bilinear)."""
     from mapping_tpu_torch.utils import native_decode
     from mapping_tpu_torch.utils.resize import resize_bilinear_u8
 
@@ -395,16 +414,23 @@ def decode_request_image(body: bytes, content_type: str,
             raise RequestError(f"unsupported array dtype {arr.dtype}")
     else:
         try:
-            arr = native_decode.decode_rgb_bytes(body)
+            item = native_decode.read_bytes(body)
         except Exception as exc:
             raise RequestError(
                 f"undecodable image bytes: {exc!r}") from exc
+        if decoder is None or isinstance(item, np.ndarray):
+            arr = native_decode.to_rgb(item)
+        else:
+            tile = decoder([item])[0][0]
+            if tuple(tile.shape[:2]) == (h, w):
+                return tile
+            arr = tile.cpu().numpy()
     if arr.shape[:2] != (h, w):
         arr = resize_bilinear_u8(arr, (h, w))
     return arr
 
 
-def _make_handler(batcher: Microbatcher, target_hw, info: dict):
+def _make_handler(batcher: Microbatcher, target_hw, info: dict, decoder):
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code, payload):
             body = json.dumps(payload).encode("utf-8")
@@ -436,7 +462,8 @@ def _make_handler(batcher: Microbatcher, target_hw, info: dict):
                 length = int(self.headers.get("Content-Length", 0))
                 body = self.rfile.read(length)
                 image = decode_request_image(
-                    body, self.headers.get("Content-Type", ""), target_hw)
+                    body, self.headers.get("Content-Type", ""), target_hw,
+                    decoder)
                 image_id = int(self.headers.get("X-Image-Id", 0))
                 t0 = time.perf_counter()
                 annotations = batcher.submit(image, image_id=image_id)
@@ -464,10 +491,15 @@ def _make_handler(batcher: Microbatcher, target_hw, info: dict):
 class ServingDaemon:
     """HTTP server around a Microbatcher; see module docstring."""
 
-    def __init__(self, batcher: Microbatcher, target_hw, info: dict,
-                 host: str = "127.0.0.1", port: int = 8000):
+    def __init__(self, batcher: Microbatcher, target_hw, info: dict, *,
+                 device, host: str = "127.0.0.1", port: int = 8000):
+        """`device`: the serving device, where a JPEG body's pixel stage
+        runs (the serve program's)."""
+        from mapping_tpu_torch.utils.native_decode import DeviceDecoder
+
         self.batcher = batcher
-        handler = _make_handler(batcher, target_hw, info)
+        handler = _make_handler(batcher, target_hw, info,
+                                DeviceDecoder(device))
         self.server = ThreadingHTTPServer((host, port), handler)
         self.port = self.server.server_address[1]
 
@@ -595,7 +627,8 @@ def daemon_from_pipeline(pipeline, config, host="127.0.0.1", port=8000,
             "scoring_model": scoring is not None,
             "pipeline": (type(scoring).__name__ if scoring is not None
                          else type(pipeline).__name__)}
-    return ServingDaemon(batcher, tile, info, host=host, port=port)
+    return ServingDaemon(batcher, tile, info, host=host, port=port,
+                         device=pipeline.loader.device)
 
 
 def daemon_from_artifact(directory, host="127.0.0.1", port=8000,
@@ -630,4 +663,5 @@ def daemon_from_artifact(directory, host="127.0.0.1", port=8000,
             "pipeline": manifest["pipeline"],
             "artifact": os.fspath(directory),
             "artifact_device": manifest["exported_on_device"]}
-    return ServingDaemon(batcher, tile, info, host=host, port=port)
+    return ServingDaemon(batcher, tile, info, host=host, port=port,
+                         device=art.device)

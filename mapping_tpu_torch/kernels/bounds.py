@@ -61,3 +61,22 @@ def int8_conv(rows, k, n, in_bytes):
     if by_ops > by_bytes:
         return 1e3 * by_ops, "operations"
     return 1e3 * by_bytes, "bytes"
+
+
+def jpeg_idct(n, blocks, comps, plane_bytes):
+    """J1: (n, blocks, 64) int16 coefficients and (n, comps, 64) int32
+    quant tables in, (n, plane_bytes) uint8 component planes out."""
+    return bound_ms(0, n * (blocks * 128 + comps * 256 + plane_bytes))
+
+
+def jpeg_color(n, plane_bytes, h, w):
+    """J2: (n, plane_bytes) uint8 planes in, (n, h, w, 3) uint8 RGB out."""
+    return bound_ms(0, n * (plane_bytes + 3 * h * w))
+
+
+def jpeg_pixels(n, blocks, comps, h, w):
+    """The pixel stage as one function (J1 + J2 with the planes kept on
+    chip): coefficients and quant tables in, RGB out. At the serving batch
+    (20 tiles of 300^2 at 4:2:0, 2,166 blocks a tile) 5.56 MB in and 5.40
+    MB out: 0.0033 ms."""
+    return bound_ms(0, n * (blocks * 128 + comps * 256 + 3 * h * w))

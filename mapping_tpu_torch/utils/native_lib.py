@@ -1,4 +1,5 @@
-"""Build the repository's C++ host libraries (cpp/*.cpp) and load them.
+"""Build the repository's C++ host libraries (cpp/*.cpp, and the port's
+own csrc/*.cpp) and load them.
 
 Counterpart of mapping_tpu/utils/native_lib.py. The sources are built as
 they are, with g++, into `build/` at the root of the checkout, named by a
@@ -28,13 +29,15 @@ class NativeLibraryUnavailable(RuntimeError):
 
 
 class NativeLib:
-    """A C++ source under cpp/, compiled and loaded on first use.
+    """A C++ source under `src_dir` (the root cpp/ by default),
+    compiled and loaded on first use.
 
     register(lib) declares the argtypes and restypes once after loading;
     `link` are the linker flags (e.g. -ljpeg)."""
 
-    def __init__(self, src_name: str, name: str, register, link=()):
-        self.src = CPP_DIR / src_name
+    def __init__(self, src_name: str, name: str, register, link=(),
+                 src_dir: Path = CPP_DIR):
+        self.src = Path(src_dir) / src_name
         self.name = name
         self._register = register
         self._link = tuple(link)

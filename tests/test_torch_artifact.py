@@ -513,7 +513,7 @@ def test_cli_serve_artifact_in_a_subprocess(workspace, exported):
 def test_predict_paths_decodes_the_next_chunk_during_compute(monkeypatch):
     """Chunk k + 1 decodes on the look-ahead thread while chunk k runs: at
     least two decodes fall inside a replay window."""
-    from mapping_tpu_torch.data import loader
+    from mapping_tpu_torch.utils import native_decode
 
     events = []
     lock = threading.Lock()
@@ -524,9 +524,10 @@ def test_predict_paths_decodes_the_next_chunk_during_compute(monkeypatch):
             events.append(("decode", time.monotonic()))
         return np.zeros((8, 8, 3), np.uint8)
 
-    monkeypatch.setattr(loader, "load_image", fake_load)
+    monkeypatch.setattr(native_decode, "read_image", fake_load)
 
     class StubArt:
+        device = torch.device("cpu")
         image_hw = (8, 8)
         manifest = {"batch_buckets": [2], "category_layers": [1, 1],
                     "max_instances": 4}

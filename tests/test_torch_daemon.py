@@ -45,6 +45,7 @@ from mapping_tpu_torch.infer.daemon import (Microbatcher, OverloadedError,
                                             decode_request_image)
 from mapping_tpu_torch.infer.serving import FusedServe
 from mapping_tpu_torch.ops import rle as rle_ops
+from mapping_tpu_torch.utils import native_decode
 
 torch.set_num_threads(2)
 
@@ -296,25 +297,29 @@ def test_decode_png_and_host_resize_match_jax():
 
 def test_decode_without_the_native_decoder(monkeypatch):
     """Without the native decoder (as on the card's machine) a PNG decodes
-    through the standard-library reader, and a JPEG is a RequestError that
-    names the missing library."""
+    through the standard-library reader and a JPEG through the port's own
+    decoder, equal to the JAX daemon's libjpeg decode; bytes that are
+    neither are a RequestError."""
     from PIL import Image
 
-    from mapping_tpu_torch.utils import native_decode
     from mapping_tpu_torch.utils.native_lib import NativeLibraryUnavailable
+
+    img = _images(1, h=32, w=32, seed=2)[0]
+    png, jpeg = io.BytesIO(), io.BytesIO()
+    Image.fromarray(img).save(png, format="PNG")
+    Image.fromarray(img).save(jpeg, format="JPEG")
+    want_jpeg = jax_daemon.decode_request_image(jpeg.getvalue(),
+                                                "image/jpeg", (32, 32))
 
     def unavailable():
         raise NativeLibraryUnavailable("no decode library")
 
     monkeypatch.setattr(native_decode, "load", unavailable)
-    img = _images(1, h=32, w=32, seed=2)[0]
-    png, jpeg = io.BytesIO(), io.BytesIO()
-    Image.fromarray(img).save(png, format="PNG")
-    Image.fromarray(img).save(jpeg, format="JPEG")
     np.testing.assert_array_equal(
         decode_request_image(png.getvalue(), "image/png", (32, 32)), img)
-    with pytest.raises(RequestError, match="native decoder"):
-        decode_request_image(jpeg.getvalue(), "image/jpeg", (32, 32))
+    np.testing.assert_array_equal(
+        decode_request_image(jpeg.getvalue(), "image/jpeg", (32, 32)),
+        want_jpeg)
     with pytest.raises(RequestError):
         decode_request_image(b"not an image", "image/png", (32, 32))
 
@@ -349,7 +354,8 @@ def test_http_round_trip_matches_the_jax_daemon():
                                 max_wait_ms=30.0),
         HW, {"batch_size": 4}, port=0)
     server = ServingDaemon(_batcher(), HW,
-                           {"batch_size": 4, "image_hw": list(HW)}, port=0)
+                           {"batch_size": 4, "image_hw": list(HW)},
+                           device="cpu", port=0)
     server.start_background()
     jax_server.start_background()
     try:
@@ -371,6 +377,65 @@ def test_http_round_trip_matches_the_jax_daemon():
     finally:
         server.shutdown()
         jax_server.shutdown()
+
+
+def test_http_jpeg_body_matches_the_jax_daemon():
+    """A JPEG body of the tile's size: the port's daemon runs its pixel
+    stage on the serving device and batches the tile from there; the
+    answer equals the JAX daemon's, which decodes it with libjpeg."""
+    from PIL import Image
+
+    img = _images(1, seed=19)[0]
+    body = io.BytesIO()
+    Image.fromarray(img).save(body, format="JPEG", quality=90)
+    headers = {"Content-Type": "image/jpeg", "X-Image-Id": "3"}
+    tile = decode_request_image(body.getvalue(), "image/jpeg", HW,
+                                native_decode.DeviceDecoder("cpu"))
+    assert isinstance(tile, torch.Tensor) and tile.dtype == torch.uint8
+    np.testing.assert_array_equal(tile.numpy(),
+                                  jax_daemon.decode_request_image(
+                                      body.getvalue(), "image/jpeg", HW))
+    jax_server = jax_daemon.ServingDaemon(
+        jax_daemon.Microbatcher(_jax_serve(), _jax_preprocess, 4,
+                                category_ids=CAT_IDS,
+                                category_layers=CAT_LAYERS,
+                                max_wait_ms=30.0),
+        HW, {"batch_size": 4}, port=0)
+    server = ServingDaemon(_batcher(), HW, {"batch_size": 4}, device="cpu",
+                           port=0)
+    server.start_background()
+    jax_server.start_background()
+    try:
+        got = _post(f"http://127.0.0.1:{server.port}/v1/predict",
+                    body.getvalue(), headers)
+        want = _post(f"http://127.0.0.1:{jax_server.port}/v1/predict",
+                     body.getvalue(), headers)
+        assert got["annotations"]
+        _assert_same_annotations(got["annotations"], want["annotations"])
+    finally:
+        server.shutdown()
+        jax_server.shutdown()
+
+
+def test_host_arrays_and_decoder_tiles_batch_together():
+    """One batch of host arrays and tensor tiles (the decoder's, as a
+    JPEG body leaves them): they stack on one device, and every caller
+    gets the JAX oracle's answer for its image."""
+    imgs = _images(4, seed=17)
+    b = _batcher(batch_size=4, max_wait_ms=300.0)
+    results = [None] * 4
+
+    def call(i):
+        image = imgs[i] if i % 2 else torch.from_numpy(imgs[i].copy())
+        results[i] = b.submit(image, timeout=120)
+
+    try:
+        _run_clients(call, 4)
+    finally:
+        b.close()
+    for i in range(4):
+        _assert_same_annotations(results[i], _expected(imgs[i]))
+    assert b.stats["requests"] / b.stats["batches"] > 1.0
 
 
 def _status(url, body=None, headers=None, timeout=30):
@@ -401,7 +466,7 @@ def test_http_error_codes(case, code):
                      category_ids=CAT_IDS, category_layers=CAT_LAYERS,
                      max_wait_ms=0.1, max_pending=1,
                      request_timeout=0.3 if case == "timeout" else 60.0)
-    server = ServingDaemon(b, HW, {}, port=0)
+    server = ServingDaemon(b, HW, {}, device="cpu", port=0)
     server.start_background()
     base = f"http://127.0.0.1:{server.port}"
     npy = {"Content-Type": "application/x-npy"}

@@ -137,8 +137,10 @@ def test_png_reader_refuses_other_formats():
 def test_without_native_decoder_png_decodes_and_jpeg_raises(val_split,
                                                              tmp_path,
                                                              monkeypatch):
-    """No silent skip: without libjpeg a JPEG raises, naming the library;
-    a PNG goes through the stdlib reader and decodes the same."""
+    """Without libjpeg / libpng (as on the card's machine) a PNG goes
+    through the stdlib reader and decodes the same, and a JPEG decodes
+    through the port's own decoder, equal to the JAX package's libjpeg
+    decode; bytes that are neither still raise."""
     png_path = tmp_path / "tile.png"
     Image.fromarray(jax_load_image(val_split["images"][0])).save(png_path)
     native_rgb = load_image(png_path)
@@ -148,8 +150,12 @@ def test_without_native_decoder_png_decodes_and_jpeg_raises(val_split,
 
     monkeypatch.setattr(native_decode, "load", unavailable)
     np.testing.assert_array_equal(load_image(png_path), native_rgb)
-    with pytest.raises(RuntimeError, match="cpp/decode.cpp with libjpeg"):
-        load_image(val_split["images"][0])
+    for path in val_split["images"]:
+        np.testing.assert_array_equal(load_image(path), jax_load_image(path))
+    other = tmp_path / "tile.gif"
+    other.write_bytes(b"GIF89a" + bytes(64))
+    with pytest.raises(ValueError, match="not a JPEG or PNG"):
+        load_image(other)
 
 
 def test_native_library_that_fails_to_build_raises():

@@ -280,12 +280,12 @@ def test_mixed_tile_sizes_raise(tmp_path, size):
     jax_loader, loader = _loaders("resize", size=size)
     idxs = np.arange(3)
     want_x, want_y = jax_loader._assemble(images, masks, idxs)
-    got_x, got_y = loader._assemble(images, masks, idxs)
-    assert got_x.dtype == np.uint8 and got_y.dtype == np.float32
+    got_x, got_y, _ = loader._assemble(images, masks, idxs)
+    assert got_x.dtype == torch.uint8 and got_y.dtype == np.float32
     assert got_x.shape == size_b(size, 3) and got_y.shape == size_b(size, 3)
-    np.testing.assert_array_equal(got_x, want_x)
+    np.testing.assert_array_equal(got_x.numpy(), want_x)
     np.testing.assert_array_equal(got_y, want_y)
-    same_x, same_y = loader._assemble(images, masks, np.array([1]))
+    same_x, same_y, _ = loader._assemble(images, masks, np.array([1]))
     assert same_y.dtype == np.uint16 and same_x.shape == (1, 256, 256, 3)
     np.testing.assert_array_equal(
         same_y, jax_loader._assemble(images, masks, np.array([1]))[1])
