@@ -6,9 +6,9 @@ Counterpart of mapping_tpu/data/loader.py:
   batch's images go through `utils/native_decode` (`_assemble`): the host
   half (a JPEG's Huffman decode) on a thread pool where the decoder
   releases the GIL, then one JPEG pixel-stage call a geometry straight
-  onto the loader's device (the CUDA kernels J1 + J2 on a card, on the
-  loader's own stream, the consumer waiting on an event recorded after
-  them), with the next batches decoded on a worker thread while the
+  onto the loader's device (the CUDA kernel `jpeg_pixels` on a card, on
+  the loader's own stream, the consumer waiting on an event recorded
+  after it), with the next batches decoded on a worker thread while the
   device runs (`_Prefetcher`);
 - the device preprocess of both loader modes: `infer_batch_resize`
   (`_infer_batch_resize`), `infer_batch_pad` (`_infer_batch_pad`, the

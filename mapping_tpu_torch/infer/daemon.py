@@ -379,8 +379,8 @@ def decode_request_image(body: bytes, content_type: str,
     integers in [0, 255]; anything else is a RequestError rather than a
     silent truncation); image bytes decode through utils/native_decode.
     A JPEG has its pixel stage run by `decoder` (the daemon's
-    `native_decode.DeviceDecoder`: J1 + J2 on a stream of their own on a
-    card, finished when this returns), and a tile of the daemon's size
+    `native_decode.DeviceDecoder`: `jpeg_pixels` on a stream of its own on
+    a card, finished when this returns), and a tile of the daemon's size
     stays on that device for the batcher; None decodes it on the host. A
     tile of another size is resized on the host (utils/resize, Pillow's
     bilinear)."""

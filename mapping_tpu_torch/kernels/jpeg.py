@@ -1,35 +1,42 @@
-"""The JPEG pixel stage: CUDA kernels (csrc/jpeg_pixels.cu) and their plain
+"""The JPEG pixel stage: one CUDA kernel (csrc/jpeg_pixels.cu) and its plain
 PyTorch version.
 
 `pixels(coef, quant, geometry)` turns a batch of quantised coefficient
 blocks (`utils/jpeg.read_coefficients`, one geometry for the batch) into
 (B, H, W, 3) uint8 RGB, equal bit for bit to libjpeg-turbo's default decode:
-- J1 `jpeg_idct`: the coefficients times the component's quant table,
-  libjpeg's `jpeg_idct_islow` (jidctint.c: CONST_BITS 13, PASS1_BITS 2,
-  columns then rows, 64-bit products, a 32-bit workspace), +128 and the
-  masked range-limit table (jdmaster.c `prepare_range_limit_table`) ->
-  uint8 component planes padded to whole MCUs;
-- J2 `jpeg_color`: libjpeg-turbo's upsampling of each plane (jdsample.c:
-  `h2v1_fancy_upsample`, `h2v2_fancy_upsample` where the component is more
-  than 2 samples wide, else replication; `h1v2_fancy_upsample`; a copy at
-  1x1), with the row above the first and below the last real row being
-  that row (jdmainct.c), then `ycc_rgb_convert` (jdcolor.c: FIX(1.40200),
-  FIX(0.71414), FIX(0.34414), FIX(1.77200), SCALEBITS 16), or a copy of a
-  grey or RGB stream -> RGB cropped to the image.
+- the IDCT (`idct_plain`): the coefficients times the component's quant
+  table, libjpeg's `jpeg_idct_islow` (jidctint.c: CONST_BITS 13,
+  PASS1_BITS 2, columns then rows, 64-bit products, a 32-bit workspace),
+  +128 and the masked range-limit table (jdmaster.c
+  `prepare_range_limit_table`) -> uint8 component planes padded to whole
+  MCUs;
+- the colour stage (`color_plain`): libjpeg-turbo's upsampling of each
+  plane (jdsample.c: `h2v1_fancy_upsample`, `h2v2_fancy_upsample` where
+  the component is more than 2 samples wide, else replication;
+  `h1v2_fancy_upsample`; a copy at 1x1), with the row above the first and
+  below the last real row being that row (jdmainct.c), then
+  `ycc_rgb_convert` (jdcolor.c: FIX(1.40200), FIX(0.71414), FIX(0.34414),
+  FIX(1.77200), SCALEBITS 16), or a copy of a grey or RGB stream -> RGB
+  cropped to the image.
 
-Neither kernel replaces a TPU kernel: the JAX package decodes on the host
-with libjpeg (cpp/decode.cpp). They are the port's way to decode the JPEG
-tiles of CrowdAI on a machine without libjpeg, and they move the IDCT,
-upsampling and colour work off the host. The stage is bound by bytes
+On the card both run in one kernel, `jpeg_pixels`: a CTA decodes a band
+of MCU rows of one image into component planes in shared memory and
+writes the band's RGB, so the planes never reach device memory. It
+replaces no TPU kernel: the JAX package decodes on the host with libjpeg
+(cpp/decode.cpp). It is the port's way to decode the JPEG tiles of
+CrowdAI on a machine without libjpeg, and it moves the IDCT, upsampling
+and colour work off the host. Its bound counts bytes
 (`kernels/bounds.jpeg_pixels`: 128 bytes of coefficients a block in, 3
-bytes a pixel out); J1 runs one thread per 8x8 block and J2 one thread per
-pair of output pixels, so the planes between them make a round trip
-through device memory, which fusing the two would save.
+bytes a pixel out); its work is integer instructions, so its IDCT runs
+in 32-bit arithmetic where that is exact (`islow_gain`, `PASS1_LIMIT`)
+and in 64 bits elsewhere.
 
-The wrapper takes CUDA tensors to the kernels and CPU tensors to the
-plain version, by the tensors' device alone; it launches on the current
-stream, never synchronises, allocates with torch.empty, and adds one to
-`LAUNCHES[name]` at each launch.
+The wrapper takes CUDA tensors to the kernel and CPU tensors to the
+plain version, by the tensors' device alone; on both it refuses quant
+values past +-QUANT_MAX. It launches on the current stream, synchronises
+only to read that check's one bool back (not under CUDA-graph capture),
+allocates with torch.empty, and adds one to `LAUNCHES[name]` at each
+launch.
 """
 
 import ctypes
@@ -40,11 +47,15 @@ from mapping_tpu_torch.kernels.build import CSRC, build_shared_library
 
 LIBRARY = "mapping_jpeg"
 SOURCES = [CSRC / "jpeg_pixels.cu"]
-LAUNCHES = {"jpeg_idct": 0, "jpeg_color": 0}
-#: ints of the geometry record passed to the kernels (JpegGeom in
-#: csrc/jpeg_pixels.cu): 6 scalars, then 10 arrays of 3
-GEOM_INTS = 6 + 10 * 3
+LAUNCHES = {"jpeg_pixels": 0}
+#: ints of the geometry record passed to the kernel (JpegGeom in
+#: csrc/jpeg_pixels.cu): 9 scalars, then 8 arrays of 3
+GEOM_INTS = 9 + 8 * 3
 COLORS = {"gray": 0, "ycc": 1, "rgb": 2}
+
+#: the largest |quant value| taken: a DQT entry has 8 or 16 bits, and the
+#: kernel's dequantised coefficients fit an int up to here
+QUANT_MAX = 65535
 
 #: the plain version works on at most this many values at a time (an
 #: IDCT chunk's coefficients, a colour band's pixels), so that its int64
@@ -66,11 +77,9 @@ def library():
     if _library is None:
         built = build_shared_library(LIBRARY, SOURCES)
         lib = ctypes.CDLL(str(built.path))
-        lib.jpeg_idct.argtypes = [ctypes.c_void_p] * 3 + [
+        lib.jpeg_pixels.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        lib.jpeg_color.argtypes = [ctypes.c_void_p] * 2 + [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        lib.jpeg_idct.restype = lib.jpeg_color.restype = ctypes.c_int
+        lib.jpeg_pixels.restype = ctypes.c_int
         _library = (lib, built)
     return _library
 
@@ -88,24 +97,18 @@ def plane_bytes(geometry):
 def geometry_record(geometry):
     """The JpegGeom ints of csrc/jpeg_pixels.cu."""
     n = len(geometry.factors)
-    shapes = plane_shapes(geometry)
-    offsets, off = [], 0
-    for r, c in shapes:
-        offsets.append(off)
-        off += r * c
 
     def pad(values):
         return list(values) + [0] * (3 - n)
 
     fancy = [int(rh == 1 or cw > 2) for (rh, _), (_, cw)
              in zip(geometry.ratios, geometry.sampled)]
-    rec = [n, geometry.height, geometry.width, geometry.n_blocks, off,
-           COLORS[geometry.color]]
-    rec += pad(bx for _, bx in geometry.blocks)
-    rec += pad(by for by, _ in geometry.blocks)
+    rec = [n, geometry.height, geometry.width, geometry.n_blocks,
+           COLORS[geometry.color], *geometry.mcus, geometry.hmax,
+           geometry.vmax]
+    rec += pad(h for h, _ in geometry.factors)
+    rec += pad(v for _, v in geometry.factors)
     rec += pad(geometry.first_block)
-    rec += pad(offsets)
-    rec += pad(c for _, c in shapes)
     rec += pad(h for h, _ in geometry.sampled)
     rec += pad(w for _, w in geometry.sampled)
     rec += pad(r for r, _ in geometry.ratios)
@@ -121,9 +124,11 @@ def _descale(x, n):
     return (x + (1 << (n - 1))) >> n
 
 
-def _islow_1d(d, shift):
-    """One pass of jpeg_idct_islow over 8 int64 tensors (one per input
-    coefficient along the pass); the 8 outputs descaled by `shift`."""
+def _islow_1d(d, shift, pre=False):
+    """One pass of jpeg_idct_islow over 8 integer tensors (one per input
+    coefficient along the pass, int64 as the C definition; in int32 the
+    arithmetic is modulo 2^32); the 8 outputs descaled by `shift`, or
+    before the descale with `pre`."""
     z2, z3 = d[2], d[6]
     z1 = (z2 + z3) * 4433
     tmp2 = z1 + z3 * -15137
@@ -140,9 +145,36 @@ def _islow_1d(d, shift):
     z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
     t0, t1 = t0 + z1 + z3, t1 + z2 + z4
     t2, t3 = t2 + z2 + z3, t3 + z1 + z4
-    return [_descale(v, shift) for v in (
-        tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
-        tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
+    out = (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+           tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)
+    return list(out) if pre else [_descale(v, shift) for v in out]
+
+
+def islow_weights():
+    """(8, 8) int64: one islow pass as the linear map it is. Output o
+    before its descale is sum_i W[o, i] d_i exactly, every step of the
+    pass being an integer sum or a product by a constant
+    (csrc/jpeg_pixels.cu kIslow, which decodes a halo block's one row as
+    these dot products)."""
+    eye = torch.eye(8, dtype=torch.int64)
+    return torch.stack([torch.stack(_islow_1d(list(eye[k]), 0, pre=True))
+                        for k in range(8)], dim=1)
+
+
+def islow_gain():
+    """The largest sum of |weight| over the outputs of one islow pass:
+    61,214. With every input |d| <= M, |T| <= 61,214 M."""
+    return int(islow_weights().abs().sum(dim=1).max())
+
+
+#: the largest input |d| for which the first pass computes in 32-bit
+#: arithmetic (modulo 2^32) what the C definition's 64-bit JLONG does: it
+#: keeps (T + 2^10) >> 11 as a C int, so T + 2^10 must fit an int32:
+#: (2^31 - 1 - 2^10) // islow_gain() (csrc/jpeg_pixels.cu kPass1Max); a
+#: column past it takes the kernel's 64-bit path. The second pass needs no
+#: bound: the range limit reads bits 18..27 of its sum, which are exact
+#: modulo 2^32 for any inputs
+PASS1_LIMIT = (2 ** 31 - 1 - 2 ** 10) // 61214
 
 
 def range_limit(x):
@@ -167,7 +199,7 @@ def idct_blocks(blocks, quant):
 
 
 def idct_plain(coef, quant, geometry):
-    """The plain J1: (B, n_blocks, 64) int16 and (B, n_comp, 64) int32 ->
+    """The plain IDCT: (B, n_blocks, 64) int16 and (B, n_comp, 64) int32 ->
     (B, plane_bytes) uint8, each component's plane row-major; at most
     PLAIN_VALUES // 64 blocks at a time."""
     b = coef.shape[0]
@@ -220,8 +252,8 @@ def _upsample(p, ch, cw, rh, rv, y, width):
 
 
 def color_plain(planes, geometry):
-    """The plain J2: (B, plane_bytes) uint8 -> (B, H, W, 3) uint8, in
-    bands of at most PLAIN_VALUES output pixels."""
+    """The plain colour stage: (B, plane_bytes) uint8 -> (B, H, W, 3)
+    uint8, in bands of at most PLAIN_VALUES output pixels."""
     b = planes.shape[0]
     h, w = geometry.height, geometry.width
     band = max(1, PLAIN_VALUES // max(b * w, 1))
@@ -231,7 +263,7 @@ def color_plain(planes, geometry):
 
 
 def _color_rows(planes, geometry, y):
-    """Rows `y` of the plain J2's output."""
+    """Rows `y` of the plain colour stage's output."""
     b = planes.shape[0]
     comps, off = [], 0
     for (rows, cols), (ch, cw), (rh, rv) in zip(
@@ -256,7 +288,7 @@ def pixels_plain(coef, quant, geometry):
     return color_plain(idct_plain(coef, quant, geometry), geometry)
 
 
-# --- the kernels -------------------------------------------------------------
+# --- the kernel --------------------------------------------------------------
 
 def _check(x, dtype, shape, what):
     if x.device.type != "cuda":
@@ -270,58 +302,56 @@ def _check(x, dtype, shape, what):
         raise ValueError(f"{what}: needs a contiguous tensor")
 
 
-def _launch(fn, name, device, *args):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+def check_quant(quant):
+    """Refuses quant tables past +-QUANT_MAX, which no JPEG holds. Under
+    CUDA-graph capture nothing can be read back, so the check is left to
+    the calls made before the capture."""
+    if quant.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    if bool(((quant > QUANT_MAX) | (quant < -QUANT_MAX)).any()):
+        raise ValueError(f"jpeg_pixels: quant values past +-{QUANT_MAX}; "
+                         f"a JPEG's tables have at most 16 bits")
 
 
-def idct(coef, quant, geometry):
-    """J1 on CUDA tensors: (B, n_blocks, 64) int16 and (B, n_comp, 64)
-    int32 -> (B, plane_bytes) uint8 planes."""
+def pixels_cuda(coef, quant, geometry):
+    """The kernel on CUDA tensors: (B, n_blocks, 64) int16 coefficients
+    (16-byte aligned) and (B, n_comp, 64) int32 quant tables -> (B, H, W,
+    3) uint8 RGB, one launch."""
     b = coef.shape[0]
-    _check(coef, torch.int16, (b, geometry.n_blocks, 64), "jpeg_idct")
-    _check(quant, torch.int32, (b, len(geometry.factors), 64), "jpeg_idct")
+    _check(coef, torch.int16, (b, geometry.n_blocks, 64), "jpeg_pixels")
+    _check(quant, torch.int32, (b, len(geometry.factors), 64),
+           "jpeg_pixels")
     if quant.device != coef.device:
-        raise ValueError("jpeg_idct: coefficients and quant tables on "
+        raise ValueError("jpeg_pixels: coefficients and quant tables on "
                          "different devices")
-    if b * geometry.n_blocks >= 2 ** 31 \
-            or b * plane_bytes(geometry) >= 2 ** 40:
-        raise ValueError("jpeg_idct: batch too large")
-    planes = torch.empty((b, plane_bytes(geometry)), dtype=torch.uint8,
-                         device=coef.device)
-    if b:
-        rec = geometry_record(geometry)  # alive until the launch returns
-        _launch(library()[0].jpeg_idct, "jpeg_idct", coef.device,
-                coef.data_ptr(), quant.data_ptr(), planes.data_ptr(), b,
-                ctypes.addressof(rec))
-    return planes
-
-
-def color(planes, geometry):
-    """J2 on a CUDA tensor: (B, plane_bytes) uint8 -> (B, H, W, 3)
-    uint8."""
-    b = planes.shape[0]
-    _check(planes, torch.uint8, (b, plane_bytes(geometry)), "jpeg_color")
+    if coef.data_ptr() % 16:
+        raise ValueError("jpeg_pixels: the coefficients must be 16-byte "
+                         "aligned")
+    if b * geometry.n_blocks >= 2 ** 31:
+        raise ValueError("jpeg_pixels: batch too large")
+    check_quant(quant)
     out = torch.empty((b, geometry.height, geometry.width, 3),
-                      dtype=torch.uint8, device=planes.device)
-    if b * geometry.height * ((geometry.width + 1) // 2) >= 2 ** 31:
-        raise ValueError("jpeg_color: batch too large")
+                      dtype=torch.uint8, device=coef.device)
     if b:
         rec = geometry_record(geometry)  # alive until the launch returns
-        _launch(library()[0].jpeg_color, "jpeg_color", planes.device,
-                planes.data_ptr(), out.data_ptr(), b, ctypes.addressof(rec))
+        with torch.cuda.device(coef.device):
+            stream = torch.cuda.current_stream(coef.device).cuda_stream
+            err = library()[0].jpeg_pixels(
+                coef.data_ptr(), quant.data_ptr(), out.data_ptr(), b,
+                ctypes.addressof(rec), stream)
+        if err != 0:
+            raise RuntimeError(f"jpeg_pixels: CUDA launch failed with "
+                               f"error {err}")
+        LAUNCHES["jpeg_pixels"] += 1
     return out
 
 
 def pixels(coef, quant, geometry):
     """(B, n_blocks, 64) int16 coefficients and (B, n_comp, 64) int32
     quant tables of images of one geometry -> (B, H, W, 3) uint8 RGB on
-    their device: J1 then J2 for CUDA tensors, the plain version for CPU
+    their device: the kernel for CUDA tensors, the plain version for CPU
     tensors."""
     if coef.device.type == "cpu" and quant.device.type == "cpu":
+        check_quant(quant)
         return pixels_plain(coef, quant, geometry)
-    return color(idct(coef, quant, geometry), geometry)
+    return pixels_cuda(coef, quant, geometry)

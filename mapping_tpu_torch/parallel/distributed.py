@@ -7,8 +7,9 @@ part of the port.
 
 - `spawn(fn, devices, *args)` starts one process per device with the
   spawn start method (a forked process cannot use CUDA once the parent
-  initialised it), makes each a rank of a process group over a free local
-  TCP port, runs fn(*args) there and returns the ranks' return values.
+  initialised it), makes each a rank of a process group whose rendezvous
+  store the parent serves on a local TCP port it holds from the start,
+  runs fn(*args) there and returns the ranks' return values.
   A rank that raises makes `spawn` raise (the others are stopped).
 - The backend: NCCL when every rank has a card of its own; gloo on the
   CPU and when ranks share a card (NCCL refuses two ranks on one device).
@@ -32,7 +33,6 @@ gives the gradient of the single-process step on the global batch.
 
 import datetime
 import os
-import socket
 import tempfile
 from typing import Callable, List, Optional, Sequence
 
@@ -61,13 +61,6 @@ def backend_for(devices: Sequence) -> str:
                      f"{[str(d) for d in devices]}")
 
 
-def free_port() -> int:
-    """A TCP port on localhost that nothing listens on now."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def is_active() -> bool:
     return dist.is_available() and dist.is_initialized()
 
@@ -92,7 +85,8 @@ def barrier():
 
 def init(rank_: int, devices: Sequence, address: str,
          backend: Optional[str] = None) -> Mesh:
-    """Join the process group at `address` as rank `rank_` of
+    """Join the process group whose rendezvous store listens at `address`
+    (tcp://host:port, served by another process) as rank `rank_` of
     len(devices), bound to devices[rank_]; returns the group's mesh."""
     devices = [torch.device(d) for d in devices]
     device = devices[rank_]
@@ -103,9 +97,12 @@ def init(rank_: int, devices: Sequence, address: str,
         torch.cuda.set_device(device)
     else:  # CPU ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // len(devices)))
-    dist.init_process_group(backend or backend_for(devices),
-                            init_method=address, world_size=len(devices),
-                            rank=rank_, timeout=TIMEOUT)
+    host, port = address[len("tcp://"):].rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), len(devices), is_master=False,
+                          timeout=TIMEOUT)
+    dist.init_process_group(backend or backend_for(devices), store=store,
+                            world_size=len(devices), rank=rank_,
+                            timeout=TIMEOUT)
     _GROUP["mesh"] = Mesh(devices)
     return _GROUP["mesh"]
 
@@ -137,7 +134,12 @@ def spawn(fn: Callable, devices: Sequence, *args,
 
     devices = [str(torch.device(d)) for d in devices]
     backend = backend or backend_for(devices)
-    address = f"tcp://127.0.0.1:{free_port()}"
+    # the rendezvous store listens on a port the OS gives it here, held
+    # until the ranks are done, so that no other process can take the port
+    # before the ranks connect
+    store = dist.TCPStore("127.0.0.1", 0, len(devices), is_master=True,
+                          timeout=TIMEOUT, wait_for_workers=False)
+    address = f"tcp://127.0.0.1:{store.port}"
     with tempfile.TemporaryDirectory() as out_dir:
         mp.start_processes(_worker, args=(fn, devices, address, backend,
                                           args, out_dir),

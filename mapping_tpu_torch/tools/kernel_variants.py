@@ -4,10 +4,13 @@
         mapping_tpu_torch/tools/conv_dw_variants.json
     python3 -m mapping_tpu_torch.tools.kernel_variants ccl \
         mapping_tpu_torch/tools/ccl_variants.json
+    python3 -m mapping_tpu_torch.tools.kernel_variants jpeg \
+        mapping_tpu_torch/tools/jpeg_variants.json
 
 The JSON file maps a variant's name to a list of [old, new] string
-replacements applied to the kernel's source, csrc/conv_dw.cu or
-csrc/ccl.cu (an empty list is the source as it is; every occurrence of
+replacements applied to the kernel's source, csrc/conv_dw.cu, csrc/ccl.cu
+or csrc/jpeg_pixels.cu (an empty list is the source as it is; every
+occurrence of
 `old` is replaced). Each copy is built with the package's nvcc flags into
 build/, the copies in parallel, and ptxas' performance notes (C75xx),
 register counts, shared memory and spills are printed. Then each variant
@@ -22,6 +25,11 @@ runs as CUDA-graph replays in one process:
   that chip_smoke.py saved under build/ccl_masks/ (the serving, evaluate
   and building masks); a line per batch and entry point gives the ms of
   each and whether its labels equal the plain version's.
+- jpeg: `jpeg_pixels` on batches of 1, 20 and 256 300^2 tiles (4:2:0,
+  quality 95, seeded noise over a gradient, like chip_smoke.py's), each
+  variant timed as CUDA-graph replays of 20 calls, in turns (a, b, ...,
+  b, a); a line per batch gives each variant's ms and whether its RGB
+  equals the plain version's.
 
 Variants that skip work give wrong results by design: they tell which
 part of the kernel bounds it.
@@ -38,10 +46,12 @@ import torch
 from mapping_tpu_torch.kernels import build
 from mapping_tpu_torch.kernels import ccl as ccl_kernels
 from mapping_tpu_torch.kernels import conv_dw as dw_kernels
+from mapping_tpu_torch.kernels import jpeg as jpeg_kernels
 
 SHAPES = [(64, 32, 256, 256), (64, 64, 128, 128), (20, 32, 256, 256),
           (20, 128, 128, 128)]
-SOURCES = {"conv_dw": dw_kernels.SOURCES[0], "ccl": ccl_kernels.SOURCES[0]}
+SOURCES = {"conv_dw": dw_kernels.SOURCES[0], "ccl": ccl_kernels.SOURCES[0],
+           "jpeg": jpeg_kernels.SOURCES[0]}
 MASKS = build.BUILD_DIR / "ccl_masks"
 
 
@@ -146,12 +156,15 @@ def short_name(kernel):
     return name.split("::")[-1].replace("void ", "")
 
 
-def graph_ms(fn, reps=20):
+def graph_ms(fn, reps=20, calls=1):
+    """Device ms per call: `calls` calls captured in one CUDA graph, the
+    graph replayed `reps` times between events."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -161,7 +174,59 @@ def graph_ms(fn, reps=20):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps / calls
+
+
+def jpeg_tiles(n=20, side=300, seed=8):
+    """Coefficients of `n` seeded 300^2 tiles at quality 95, 4:2:0."""
+    import numpy as np
+
+    from mapping_tpu_torch.utils import jpeg
+
+    rng = np.random.RandomState(seed)
+    ramp = np.linspace(0, 180, side)[None, :, None]
+    return [jpeg.read_coefficients(jpeg.encode(
+        (rng.randint(0, 70, (side, side, 3)) + ramp).astype(np.uint8), 95,
+        "4:2:0")) for _ in range(n)]
+
+
+def time_jpeg(libs):
+    import numpy as np
+
+    for lib in libs.values():
+        lib.jpeg_pixels.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    items = jpeg_tiles()
+    g = items[0].geometry
+    rec = jpeg_kernels.geometry_record(g)
+    for batch in (1, 20, 256):
+        pick = [items[i % len(items)] for i in range(batch)]
+        coef = torch.from_numpy(np.stack([c.coef for c in pick])).cuda()
+        quant = torch.from_numpy(np.stack([c.quant for c in pick])).cuda()
+        want = jpeg_kernels.pixels_plain(coef, quant, g)
+        out = torch.empty_like(want)
+
+        def call(lib):
+            err = lib.jpeg_pixels(coef.data_ptr(), quant.data_ptr(),
+                                  out.data_ptr(), batch,
+                                  ctypes.addressof(rec),
+                                  torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed with error {err}")
+
+        exact = {}
+        for name, lib in libs.items():
+            out.zero_()
+            call(lib)
+            exact[name] = torch.equal(out, want)
+        names = list(libs) + list(libs)[::-1]
+        times = {name: [] for name in libs}
+        for name in names:
+            times[name].append(graph_ms(lambda: call(libs[name]), 50, 20))
+        print(f"batch {batch}: " + ", ".join(
+            f"{name} {min(t):.5f} ms "
+            f"({'exact' if exact[name] else 'wrong'})"
+            for name, t in times.items()), flush=True)
 
 
 def time_conv_dw(libs):
@@ -233,7 +298,8 @@ def main(argv=None):
     print(f"card: {smi.stdout.strip().splitlines()[0]}")
     libs = build_variants(args.kernel,
                           json.loads(args.variants.read_text()))
-    {"conv_dw": time_conv_dw, "ccl": time_ccl}[args.kernel](libs)
+    {"conv_dw": time_conv_dw, "ccl": time_ccl,
+     "jpeg": time_jpeg}[args.kernel](libs)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,8 @@ formats with libjpeg and libpng (cpp/decode.cpp). Here:
 - a JPEG decodes through the port's baseline decoder on every machine:
   the markers and the Huffman decode on the host (utils/jpeg.py over
   csrc/jpeg_entropy.cpp, which releases the GIL), then the pixel stage of
-  kernels/jpeg.py on the target device: the CUDA kernels J1 + J2 for a
-  CUDA target, the plain PyTorch version for a CPU one. The result equals
+  kernels/jpeg.py on the target device: the CUDA kernel `jpeg_pixels` for
+  a CUDA target, the plain PyTorch version for a CPU one. The result equals
   libjpeg-turbo's default decode bit for bit. libjpeg is not used;
 - a PNG decodes through cpp/decode.cpp's libpng where that library builds
   (`load`, `available`), else through utils/png.py.
@@ -132,7 +132,7 @@ def image_size(item):
 
 def assemble(items, device, size=None) -> torch.Tensor:
     """(B, H, W, 3) uint8 on `device` from `read_bytes` results: the JPEGs'
-    pixel stage runs on `device` (J1 + J2 on a card), one call per
+    pixel stage runs on `device` (`jpeg_pixels` on a card), one call per
     geometry, their coefficients copied from pinned host memory. Without
     `size` every image must have one size; with it, an image of another
     size is resized to `size` on the host (utils/resize, Pillow's
@@ -189,7 +189,7 @@ class DeviceDecoder:
     artifact's look-ahead, the daemon's handlers): on a card the pixel
     stage runs on a stream of its own, so it waits for no other work
     queued there. The call returns (images, ready), `ready` an event
-    recorded after J2 and already synchronised, so that the producer's
+    recorded after the pixel stage and already synchronised, so that the producer's
     decode time runs to the kernels' end; the consumer hands the batch to
     its own stream with `take`. On the CPU `ready` is None."""
 

@@ -274,7 +274,7 @@ def test_label_plan_covers_pixels_and_neighbour_pairs_once(shape):
     assert plan.work == 2 * n * h * w + K.renumber_plan(n, h, w)[2]
 
 
-@pytest.mark.parametrize("kernel", ["ccl", "conv_dw"])
+@pytest.mark.parametrize("kernel", ["ccl", "conv_dw", "jpeg"])
 def test_kernel_variants_patch_their_source(kernel):
     """Every replacement of tools/<kernel>_variants.json finds its string
     in the kernel's source, and every variant but the first changes it."""

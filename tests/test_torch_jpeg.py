@@ -7,8 +7,10 @@ on truncated streams and on the port encoder's files; the refused kinds
 raise naming their feature; the batch entry and the loader's batch equal
 the JAX loader's.
 
-The CUDA kernels J1 + J2 run only on the card (chip_smoke.py phase 16
-holds them equal to this plain version and to the corpus digests).
+The CUDA kernel `jpeg_pixels` runs only on the card (chip_smoke.py phase 16
+holds it equal to this plain version and to the corpus digests); here its
+geometry record is held against the CUDA struct, and the bounds under which
+its IDCT computes in 32 bits against the plain IDCT in int32 and int64.
 """
 
 import hashlib
@@ -144,7 +146,7 @@ def test_drawn_sizes_decode_as_libjpeg(tmp_path_factory, sampling, h, w,
 
 
 def test_plain_idct_is_the_dct_within_one_level():
-    """The plain J1 against a float64 inverse DCT of the dequantised
+    """The plain IDCT against a float64 inverse DCT of the dequantised
     coefficients (+128, clamped): within one level, libjpeg's integer
     rounding apart."""
     rng = np.random.RandomState(0)
@@ -272,33 +274,157 @@ def test_batch_equals_a_stack_of_single_decodes(tmp_path):
 
 
 def test_the_wrappers_take_cuda_tensors_only():
-    """A CPU tensor at the kernels' wrappers raises; `pixels` takes it to
-    the plain version by its device alone."""
+    """A CPU tensor at the kernel's wrapper raises; `pixels` takes it to
+    the plain version by its device alone, launching nothing."""
     c = jpeg.read_coefficients(jpeg.encode(_picture(16, 16, 6), 80))
     coef = torch.from_numpy(c.coef)[None]
     quant = torch.from_numpy(c.quant)[None]
     with pytest.raises(ValueError, match="CUDA"):
-        pixels.idct(coef, quant, c.geometry)
-    with pytest.raises(ValueError, match="CUDA"):
-        pixels.color(torch.zeros((1, pixels.plane_bytes(c.geometry)),
-                                 dtype=torch.uint8), c.geometry)
+        pixels.pixels_cuda(coef, quant, c.geometry)
+    assert set(pixels.LAUNCHES) == {"jpeg_pixels"}
     before = dict(pixels.LAUNCHES)
-    pixels.pixels(coef, quant, c.geometry)
+    got = pixels.pixels(coef, quant, c.geometry)
     assert pixels.LAUNCHES == before
+    assert torch.equal(got, pixels.pixels_plain(coef, quant, c.geometry))
+
+
+@pytest.mark.parametrize("value", [pixels.QUANT_MAX + 1,
+                                   -pixels.QUANT_MAX - 1, -2 ** 31])
+def test_quant_tables_past_16_bits_are_refused(value):
+    """`pixels` refuses a quant value that no DQT table holds (past
+    +-65,535, where the kernel's 32-bit dequantise would not be exact) and
+    takes the 16-bit extremes."""
+    c = jpeg.read_coefficients(jpeg.encode(_picture(16, 16, 6), 80))
+    coef = torch.from_numpy(c.coef)[None]
+    quant = torch.from_numpy(c.quant)[None].clone()
+    quant[0, -1, 0] = value
+    with pytest.raises(ValueError, match="16 bits"):
+        pixels.pixels(coef, quant, c.geometry)
+    quant[0, -1, 0] = pixels.QUANT_MAX
+    quant[0, 0, 0] = -pixels.QUANT_MAX
+    assert torch.equal(pixels.pixels(coef, quant, c.geometry),
+                       pixels.pixels_plain(coef, quant, c.geometry))
 
 
 def test_geometry_record_matches_the_cuda_struct():
     """kernels/jpeg.geometry_record lays out csrc/jpeg_pixels.cu's
-    JpegGeom: 6 scalars, then 10 arrays of 3."""
+    JpegGeom: 9 scalars, then 8 arrays of 3, with the values the kernel
+    reads (MCUs, the largest factors, each component's factors, first
+    block, real samples, ratios and fancy flag)."""
     src = (ROOT / "mapping_tpu_torch" / "csrc" / "jpeg_pixels.cu").read_text()
     body = src[src.index("struct JpegGeom {"):].split("};")[0]
     scalars = body.split(";")[0].split("{")[1].count(",") + 1
     arrays = body.count("[3]")
-    assert (scalars, arrays) == (6, 10)
-    assert pixels.GEOM_INTS == 6 + 3 * 10
+    assert (scalars, arrays) == (9, 8)
+    assert pixels.GEOM_INTS == 9 + 3 * 8
     g = jpeg.read_coefficients(jpeg.encode(_picture(9, 30, 7), 80,
                                            "4:2:2")).geometry
-    assert len(pixels.geometry_record(g)) == pixels.GEOM_INTS
+    rec = list(pixels.geometry_record(g))
+    assert len(rec) == pixels.GEOM_INTS
+    assert rec[:9] == [3, 9, 30, g.n_blocks, 1, 2, 2, 2, 1]
+    arrays = [rec[9 + 3 * i:12 + 3 * i] for i in range(8)]
+    assert arrays == [[2, 1, 1], [1, 1, 1], list(g.first_block),
+                      [9, 9, 9], [30, 15, 15], [1, 2, 2], [1, 1, 1],
+                      [1, 1, 1]]
+    gray = jpeg.read_coefficients(jpeg.encode(_picture(5, 3, 7)[..., 0],
+                                              80)).geometry
+    rec = list(pixels.geometry_record(gray))
+    assert rec[:9] == [1, 5, 3, 1, 0, 1, 1, 1, 1]
+    assert rec[9:12] == [1, 0, 0]  # unused components are zero
+
+
+def _pass(d, shift, dtype):
+    """One plain islow pass over the columns of d (8, N) in `dtype`."""
+    return torch.stack(pixels._islow_1d(
+        [torch.as_tensor(d[k], dtype=dtype) for k in range(8)], shift)
+    ).to(torch.int64)
+
+
+def test_32_bit_first_idct_pass_is_exact_within_its_bound():
+    """The kernel's 32-bit first pass (csrc/jpeg_pixels.cu kPass1Max):
+    its outputs T + 2^10 = sum(w d) + 2^10 fit an int32 while every
+    |d| <= (2^31 - 1 - 2^10) / 61,214 (the largest sum of |w| over the
+    outputs), so the pass in int32 (modulo 2^32) equals the C
+    definition's int64 on random inputs and on every output's extreme
+    corner (d = sign(w) times the bound); one past the bound, the extreme
+    output overflows and the two differ, which is why a column past it
+    takes the 64-bit path."""
+    w = pixels.islow_weights()
+    gain = pixels.islow_gain()
+    assert gain == 61214 == int(w.abs().sum(1).max())
+    limit = (2 ** 31 - 1 - 2 ** 10) // gain
+    assert pixels.PASS1_LIMIT == limit
+    src = (ROOT / "mapping_tpu_torch" / "csrc" /
+           "jpeg_pixels.cu").read_text()
+    assert f"constexpr int kPass1Max = {limit};" in src
+    rng = np.random.RandomState(11)
+    d = rng.randint(-limit, limit + 1, (8, 20000))
+    corners = torch.sign(w).T.numpy() * limit  # (inputs, outputs)
+    d = np.concatenate([d, corners, -corners], axis=1)
+    np.testing.assert_array_equal(_pass(d, 11, torch.int32).numpy(),
+                                  _pass(d, 11, torch.int64).numpy())
+    past = torch.sign(w).T.numpy() * (limit + 1)
+    worst = int(w.abs().sum(1).argmax())
+    assert _pass(past, 11, torch.int32)[worst, worst] \
+        != _pass(past, 11, torch.int64)[worst, worst]
+
+
+def test_32_bit_second_idct_pass_is_exact_after_the_range_limit():
+    """The kernel's second pass runs in int32 (modulo 2^32) for any
+    inputs: the range limit reads only the low 10 bits of (T + 2^17) >>
+    18, bits that the modular sum keeps. On int32 inputs across their
+    whole range, where the int32 outputs themselves are wrong, the range
+    limited samples equal the int64 definition's."""
+    rng = np.random.RandomState(18)
+    d = rng.randint(-2 ** 31, 2 ** 31, (8, 20000))
+    d[:, :8] = torch.sign(pixels.islow_weights()).T.numpy() * (2 ** 31 - 1)
+    got, want = _pass(d, 18, torch.int32), _pass(d, 18, torch.int64)
+    assert not torch.equal(got, want)
+    assert torch.equal(pixels.range_limit(got), pixels.range_limit(want))
+
+
+def test_halo_rows_are_the_passes_linear_form():
+    """A halo block's one needed row is decoded as dot products with the
+    pass's linear weights (csrc/jpeg_pixels.cu kIslow): those weights
+    are the plain pass's, and the dot products equal the pass in int64 on
+    random inputs up to the int32 workspace's range."""
+    src = (ROOT / "mapping_tpu_torch" / "csrc" /
+           "jpeg_pixels.cu").read_text()
+    body = src[src.index("kIslow[8][8] = {"):].split("};")[0]
+    got = [int(v) for v in body.split("=")[1].replace("{", " ").replace(
+        "}", " ").replace(",", " ").split()]
+    w = pixels.islow_weights()
+    assert got == w.flatten().tolist()
+    rng = np.random.RandomState(5)
+    d = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, (8, 5000)))
+    for shift in (11, 18):
+        want = _pass(d.numpy(), shift, torch.int64)
+        dots = w @ d  # (outputs, N), exact in int64: |sum| < 2^47
+        assert torch.equal((dots + (1 << (shift - 1))) >> shift, want)
+
+
+def test_32_bit_idct_blocks_equal_the_64_bit_definition():
+    """Whole blocks (dequantised, pass 1, the C int workspace, pass 2,
+    range limit) in int32, as the kernel computes a block whose columns
+    are within the first pass's bound, equal idct_blocks' int64: blocks
+    at JPEG magnitudes and blocks whose largest coefficient times quant
+    value sits on that bound."""
+    rng = np.random.RandomState(3)
+    coef = (rng.standard_normal((3000, 64)) * 60 /
+            (1 + np.arange(64))).round().astype(np.int16)
+    quant = rng.randint(1, 64, (3000, 64)).astype(np.int32)
+    edge = pixels.PASS1_LIMIT
+    coef[:200] = rng.choice([-1, 1], (200, 64)) * (edge // 2)
+    quant[:200] = 2
+    x = coef.astype(np.int64) * quant
+    assert np.abs(x).max() <= edge
+    cols = _pass(x.reshape(-1, 8, 8).transpose(1, 0, 2).reshape(8, -1), 11,
+                 torch.int32)
+    ws = cols.reshape(8, -1, 8).permute(1, 0, 2)  # (block, row, column)
+    rows = ws.permute(2, 0, 1).reshape(8, -1)  # inputs along a row
+    out = _pass(rows, 18, torch.int32).reshape(8, -1, 8).permute(1, 2, 0)
+    want = pixels.idct_blocks(torch.from_numpy(coef), torch.from_numpy(quant))
+    assert torch.equal(pixels.range_limit(out).to(torch.uint8), want)
 
 
 def test_loader_batch_equals_the_jax_loaders(tmp_path):

@@ -30,6 +30,7 @@ states its own too):
 import json
 import logging
 import os
+import shutil
 
 import numpy as np
 import optax
@@ -415,8 +416,11 @@ def _u8_tiles(n=8, hw=80, seed=0):
 @pytest.fixture(scope="module")
 def experiment(tmp_path_factory):
     """4 train and 5 val tiles with the port's target files and the JAX
-    metadata (tests/torch_train_workspace.py)."""
-    return make_experiment(tmp_path_factory.mktemp("parallel"))
+    metadata (tests/torch_train_workspace.py); removed with the module
+    (the runs on it leave two experiments' checkpoints)."""
+    root = make_experiment(tmp_path_factory.mktemp("parallel"))
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -603,6 +607,33 @@ def test_rank_run_resumes_from_last_pt(trained_on_ranks):
     channels = _channels(root)
     assert channels.count("unet epoch_val sum") == 2
     assert channels.count("unet batch loss") == 4
+
+
+def test_spawn_holds_its_rendezvous_port(monkeypatch):
+    """spawn's ranks meet at a store the parent serves on a port the OS
+    gave it, and the port is held from that moment on (binding it again
+    fails), so no other process can take it before the ranks connect.
+    The parent used to pick a free port, release it and let rank 0 bind
+    it seconds later, after the ranks had started: a window in which
+    another process's connection could take the port."""
+    import socket
+
+    created = []
+    server = distributed.dist.TCPStore
+
+    def store(*args, **kwargs):
+        made = server(*args, **kwargs)
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            with pytest.raises(OSError):
+                s.bind(("127.0.0.1", made.port))
+        created.append((args, kwargs, made.port))
+        return made
+
+    monkeypatch.setattr(distributed.dist, "TCPStore", store)
+    got = distributed.spawn(workers.rendezvous_job, CPU2)
+    assert got == [(0, 2, 3.0), (1, 2, 3.0)]
+    (args, kwargs, port), = created
+    assert args[1] == 0 and kwargs["is_master"] and port > 0
 
 
 # -------------------------------------------------------------- dry run

@@ -16,6 +16,7 @@ file, the same metric channels.
 """
 
 import json
+import os
 import shutil
 from pathlib import Path
 
@@ -511,8 +512,11 @@ def test_cli_train_continues_a_jax_experiment(trained):
     and trains the port's stage from its weights."""
     root = trained["root"]
     exp = root / "from_jax"
-    shutil.copytree(root / "jax" / "transformers", exp / "transformers")
-    shutil.copytree(root / "jax" / "checkpoints", exp / "checkpoints")
+    # links, not copies: the JAX files are only read and renamed here,
+    # and a copy would add their checkpoints at the suite's largest peak
+    # of temporary files
+    for sub in ("transformers", "checkpoints"):
+        shutil.copytree(root / "jax" / sub, exp / sub, copy_function=os.link)
     cfg = config(root, "from_jax", **{**TRAIN, "epochs_nr": 1})
     cli.main(["--config", cfg, "train"])
     assert not (exp / "transformers" / "unet.pt").exists()

@@ -143,3 +143,10 @@ def rank_job(init, batch, batches, images, targets, files):
         if dp.rank:
             del out[name]["grads"]
     return out
+
+
+def rendezvous_job():
+    """(rank, world, the all-reduced sum of rank + 1): the group formed."""
+    total = torch.tensor([distributed.rank() + 1.0])
+    torch.distributed.all_reduce(total)
+    return distributed.rank(), distributed.world(), float(total)
