@@ -114,7 +114,7 @@ the JAX package is imported. Phases, each printing what it found:
  10. TTA, padded and scoring pipelines, under build/chip_smoke_scoring/,
      on phase 9 (a)'s weights (random weights find no building to score)
      and phase 6's split: (a) `train -p scoring_model` with
-     category_layers [1, 19] in a child process (CLI_CHILD) over 500 of
+     category_layers [1, 19] in a child process (CLI_CHILD) over 250 of
      the train tiles (the JAX default samples 10,000): wall time,
      feature rows, GBM fit seconds, best_iteration and the child's CCL
      launches; (b) in this process, `evaluate` of unet_tta and unet_padded
@@ -243,16 +243,22 @@ the JAX package is imported. Phases, each printing what it found:
      tile each through VGG11, VGG16, the scratch UNet (pool 3/2) and
      UNet++ (seeded weights, float32) and the int8 forward, 4 bands,
      under (a)'s rule.
- 16. JPEG, under build/chip_smoke_jpeg/, in at most 40 s: (a) every file
+ 16. JPEG, under build/chip_smoke_jpeg/, in at most 50 s: (a) every file
      of tests/fixtures/jpeg_corpus (Pillow at qualities 30-100, 4:4:4,
      4:2:2, 4:2:0, grey, optimised tables, EXIF/ICC, sizes 1x1 to 301^2,
      the port encoder's 1x2 and restart files, a truncated stream, an
-     Adobe RGB file): the fused pixel kernel `jpeg_pixels` on the card
-     must equal the plain version exactly and the decode the SHA-256 of
-     libjpeg's in the manifest; the refused kinds (progressive, CMYK,
-     arithmetic-coded, 12-bit, 4x1 sampling) must raise naming their
+     Adobe RGB file; progressive files with libjpeg's and custom scripts
+     and two truncated cuts that libjpeg smooths, arithmetic-coded
+     sequential and progressive files with and without DRI and DAC, a
+     300^2 progressive and a 300^2 arithmetic tile, sampling 4x1, 1x4,
+     4x2 and 3x1, CMYK with and without an Adobe marker, YCCK): the fused
+     pixel kernel `jpeg_pixels` on the card must equal the plain version
+     exactly and the decode the SHA-256 of the JAX package's in the
+     manifest; the refused kinds (12-bit, lossless, hierarchical, DNL,
+     2-component, more than 10 blocks an MCU) must raise naming their
      feature; then JPEG_DRAWN drawn geometries (sizes 1x1 to 3,000 wide,
-     every supported sampling, factors up to 4, grey, YCbCr and RGB,
+     every supported sampling, ratios 1 to 4, grey, YCbCr, RGB, CMYK and
+     YCCK,
      batches 1-32, random coefficients with blocks at and past the 32-bit
      IDCT's bounds and quant tables at 16 bits' extremes) must equal the
      plain version exactly, a table past 16 bits must be refused, and two
@@ -262,14 +268,14 @@ the JAX package is imported. Phases, each printing what it found:
      port's encoder, quality 95, 4:2:0) must decode on the card equal to
      the CPU decode (20 of them also as request bodies through the
      daemon's decoder, which leaves them on the card), and `evaluate -p
-     unet_weighted` through the CLI in a child (twice: the first run pays
-     the process's first forward) on phase 9 (a)'s weights must write a
+     unet_weighted` through the CLI in this process (its forward warm
+     from phase 8) on phase 9 (a)'s weights must write a
      prediction.json of the 110 images with AP/AR in [0, 1], launch
      `jpeg_pixels` once a batch (6) and the CCL kernels; prints its
      images/s and decode seconds (to the kernel's end) beside phase 8's
      PNG run; (c) `jpeg_pixels` at (1, 20 and 256, 300^2, 4:2:0) as
      CUDA-graph replays (20 calls a graph), each batch first held equal
-     to the plain version, in turns with the parent tree's J1 + J2 where
+     to the plain version, in turns with the parent tree's jpeg_pixels where
      a copy lies under build/old/, the plain version, the bounds, and the host Huffman decode in ms a tile on 1
      and 8 threads.
 Kernel and cuDNN times are device times: the call is captured once in a
@@ -350,7 +356,7 @@ RESUME_EPOCHS, WARM_LR = 4, 1e-4  # legs (b) and (c)
 SCORING_DIR = ROOT / "build" / "chip_smoke_scoring"
 #: tiles of phase 10 (a)'s scoring sample (10,000 by default), drawn from
 #: phase 6's train split; cut for the script's time limit
-SCORING_SAMPLE = 500
+SCORING_SAMPLE = 250
 #: parameters of phase 10 over the JAX config's defaults: the scoring
 #: sample, validation on every val tile
 SCORING_PARAMS = {"scoring_model__num_training_examples": SCORING_SAMPLE,
@@ -444,19 +450,6 @@ JPEG_REPS, JPEG_PLAIN_REPS, JPEG_ENTROPY_TILES = 50, 20, 200
 #: host takes to replay a graph
 JPEG_GRAPH_CALLS = 20
 JPEG_BUDGET_S = 40.0
-#: phase 16 (b): the CLI in a child process, twice (the first run pays
-#: the process's first forward); prints both runs' stage seconds and the
-#: second run's CCL and JPEG launch counts as one JSON line
-JPEG_CHILD = ("import json, sys\n"
-              "from mapping_tpu_torch import main\n"
-              "from mapping_tpu_torch.kernels import ccl, jpeg\n"
-              "cold = main.main(sys.argv[1:]).timings\n"
-              "ccl.reset_launches()\n"
-              "jpeg.reset_launches()\n"
-              "manager = main.main(sys.argv[1:])\n"
-              "print('jpeg ' + json.dumps({'cold': cold, 'timings': "
-              "manager.timings, 'ccl': ccl.LAUNCHES, 'jpeg': "
-              "jpeg.LAUNCHES}))\n")
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
 CLI_CHILD = ("import json, sys\n"
@@ -637,8 +630,8 @@ def in_turns(fns, timer, reps):
 
 def old_kernels():
     """Callables of the parent tree's K1, K2, K3 and JPEG pixel stage
-    (J1 + J2) from the copy under OLD_TREE, built in build_phase, or {}
-    when there is no copy."""
+    (`jpeg_pixels`) from the copy under OLD_TREE, built in build_phase, or
+    {} when there is no copy."""
     import ctypes
     import importlib.util
 
@@ -663,10 +656,9 @@ def old_kernels():
     old_plan = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(old_plan)
     jp = ctypes.CDLL(str(libs["old_jpeg"].path))
-    jp.jpeg_idct.argtypes = [ctypes.c_void_p] * 3 + [
+    jp.jpeg_pixels.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    jp.jpeg_color.argtypes = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    jp.jpeg_pixels.restype = ctypes.c_int
     spec = importlib.util.spec_from_file_location(
         "old_jpeg", OLD_TREE / "mapping_tpu_torch" / "kernels" / "jpeg.py")
     old_jpeg = importlib.util.module_from_spec(spec)
@@ -701,22 +693,17 @@ def old_kernels():
         return out
 
     def jpeg_pixels(coef, quant, g):
-        """The parent's J1 then J2 (two launches, the planes through
-        device memory)."""
+        """The parent's fused `jpeg_pixels` (one launch), with the
+        parent's geometry record."""
         b = coef.shape[0]
-        planes = torch.empty((b, old_jpeg.plane_bytes(g)), dtype=torch.uint8,
-                             device=coef.device)
         out = torch.empty((b, g.height, g.width, 3), dtype=torch.uint8,
                           device=coef.device)
         rec = old_jpeg.geometry_record(g)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = jp.jpeg_idct(coef.data_ptr(), quant.data_ptr(),
-                           planes.data_ptr(), b, ctypes.addressof(rec),
-                           stream) or jp.jpeg_color(
-            planes.data_ptr(), out.data_ptr(), b, ctypes.addressof(rec),
-            stream)
+        err = jp.jpeg_pixels(coef.data_ptr(), quant.data_ptr(),
+                             out.data_ptr(), b, ctypes.addressof(rec),
+                             torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"old J1 + J2: error {err}")
+            raise RuntimeError(f"old jpeg_pixels: error {err}")
         return out
 
     return {"ccl_label_raw": lambda m: ccl_call(ccl.ccl_label_raw, m),
@@ -3854,9 +3841,11 @@ def spatial_phase(smi, prepared):
 
 def jpeg_geometries(rng, n):
     """`n` drawn (geometry, batch) cases for phase 16 (a): every sampling
-    the decoder takes (ratios 1 and 2 each way, factors up to 4), grey,
-    YCbCr and RGB, sizes from 1x1 up to 3,000 wide (past the width at
-    which a CTA's row of MCUs is cut into chunks), batches 1-32."""
+    the decoder takes (ratios 1 and 2 each way, and 3 and 4, which
+    libjpeg box-replicates; factors up to 4), grey, YCbCr, RGB, and four
+    components as CMYK and as YCCK (a file with or without an Adobe
+    marker), sizes from 1x1 up to 3,000 wide (past the width at which a
+    CTA's row of MCUs is cut into chunks), batches 1-32."""
     from mapping_tpu_torch.utils.jpeg import Geometry
 
     samplings = [((1, 1), (1, 1), (1, 1)), ((2, 2), (1, 1), (1, 1)),
@@ -3864,7 +3853,14 @@ def jpeg_geometries(rng, n):
                  ((2, 2), (2, 2), (2, 2)), ((2, 2), (2, 1), (1, 2)),
                  ((4, 4), (2, 2), (2, 2)), ((4, 2), (2, 1), (2, 2)),
                  ((1, 1), (2, 2), (1, 1)), ((2, 2), (1, 2), (2, 1)),
-                 ((1, 2), (1, 1), (1, 2))]
+                 ((1, 2), (1, 1), (1, 2)), ((4, 1), (1, 1), (1, 1)),
+                 ((1, 4), (1, 1), (1, 1)), ((4, 2), (1, 1), (1, 1)),
+                 ((3, 1), (1, 1), (1, 1)), ((3, 3), (1, 1), (1, 1)),
+                 ((2, 4), (1, 1), (1, 1)), ((1, 3), (1, 1), (1, 1)),
+                 ((4, 2), (2, 2), (1, 1))]
+    four = [((1, 1),) * 4, ((2, 2), (1, 1), (1, 1), (2, 2)),
+            ((2, 1), (1, 1), (1, 1), (2, 1)), ((2, 2), (1, 1), (1, 1), (1, 1)),
+            ((4, 1), (1, 1), (1, 1), (2, 1))]
     cases = []
     for i in range(n):
         kind = i % 10
@@ -3878,9 +3874,14 @@ def jpeg_geometries(rng, n):
             h, w = (int(round(math.exp(rng.uniform(0, math.log(400)))))
                     for _ in range(2))
             batch = int(rng.randint(1, 33))
-        color = ("gray", "ycc", "ycc", "ycc", "rgb")[int(rng.randint(5))]
-        factors = ((1, 1),) if color == "gray" else \
-            samplings[int(rng.randint(len(samplings)))]
+        color = ("gray", "ycc", "ycc", "ycc", "rgb", "cmyk",
+                 "ycck")[int(rng.randint(7))]
+        if color == "gray":
+            factors = ((1, 1),)
+        elif color in ("cmyk", "ycck"):
+            factors = four[int(rng.randint(len(four)))]
+        else:
+            factors = samplings[int(rng.randint(len(samplings)))]
         # at most JPEG_DRAWN_PIXELS a case, which keeps (a) to seconds
         batch = max(1, min(batch, JPEG_DRAWN_PIXELS // (h * w)))
         cases.append((Geometry(h, w, factors, color), batch))
@@ -3968,15 +3969,15 @@ def jpeg_threads():
 
 
 def jpeg_exactness(err):
-    """Phase 16 (a): the corpus (libjpeg's digests, the refused kinds) and
-    JPEG_DRAWN drawn geometries, `jpeg_pixels` = plain exactly, and a
-    quant table past 16 bits refused."""
+    """Phase 16 (a): the corpus (the JAX package's digests, the refused
+    kinds) and JPEG_DRAWN drawn geometries, `jpeg_pixels` = plain exactly,
+    and a quant table past 16 bits refused."""
     import hashlib
 
     from mapping_tpu_torch.kernels import jpeg as J
     from mapping_tpu_torch.utils import jpeg, native_decode
 
-    # the corpus: libjpeg's digests, and the refused kinds
+    # the corpus: the JAX package's digests, and the refused kinds
     manifest = json.loads((JPEG_CORPUS / "manifest.json").read_text())
     decoded = []
     for name, entry in sorted(manifest.items()):
@@ -3999,10 +4000,10 @@ def jpeg_exactness(err):
         if hashlib.sha256(rgb[0].numpy().tobytes()).hexdigest() \
                 != entry["decode_sha256"]:
             raise AssertionError(f"{name}: the card's decode is not "
-                                 f"libjpeg's")
+                                 f"the JAX package's")
         decoded.append(f"{name} {c.geometry.factors} {c.geometry.color}")
     print(f"jpeg: (a) {len(decoded)} corpus files decode on the card to "
-          f"libjpeg's digests, jpeg_pixels = plain exactly: "
+          f"the JAX package's digests, jpeg_pixels = plain exactly: "
           f"{'; '.join(decoded)}")
     start = time.perf_counter()
     rng = np.random.RandomState(16)
@@ -4033,7 +4034,7 @@ def jpeg_times(items, smi, err):
     """Phase 16 (c): `jpeg_pixels` on 300^2 tiles (their coefficients
     `items`, cycled) at each of JPEG_BATCHES, first held equal to the
     plain version (the largest difference into err), then as CUDA-graph
-    replays, in turns with the parent tree's J1 + J2 where a copy lies
+    replays, in turns with the parent tree's jpeg_pixels where a copy lies
     under build/old/ and with the plain version; returns {batch: (ms,
     plain ms, library ms)} and {batch: bound}."""
     from mapping_tpu_torch.kernels import bounds, jpeg as J
@@ -4059,7 +4060,7 @@ def jpeg_times(items, smi, err):
         jpeg_check(coef, quant, g, f"the timed batch of {batch}", err)
         if old is not None:
             if not torch.equal(old(coef, quant, g), fns["kernel"]()):
-                raise AssertionError(f"the parent's J1 + J2 and jpeg_pixels "
+                raise AssertionError(f"the parent's jpeg_pixels and this one "
                                      f"differ at batch {batch}")
             fns["parent"] = lambda: old(coef, quant, g)
             timer["parent"], reps["parent"] = replays, JPEG_REPS
@@ -4070,7 +4071,7 @@ def jpeg_times(items, smi, err):
         print(f"jpeg: (c) at ({batch}, {TILE}^2, 4:2:0), {g.n_blocks} "
               f"blocks a tile: jpeg_pixels {timed['kernel']} ms "
               f"(CUDA-graph replays of {JPEG_GRAPH_CALLS} calls, in turns), "
-              + (f"the parent's J1 + J2 {timed['parent']} ms, "
+              + (f"the parent's jpeg_pixels {timed['parent']} ms, "
                  if old is not None else "no parent tree under build/old, ")
               + f"plain {timed['plain']} ms; bound {bound[batch][0]:.5f} ms "
               f"({bound[batch][1]}), kernel / bound "
@@ -4084,6 +4085,7 @@ def jpeg_phase(smi, png_run):
     path's launches per kernel, the bound per kernel)."""
     from mapping_tpu_torch import main as cli
     from mapping_tpu_torch.infer.daemon import decode_request_image
+    from mapping_tpu_torch.kernels import ccl, jpeg as J
     from mapping_tpu_torch.utils import jpeg, native_decode
 
     begin = time.perf_counter()
@@ -4122,36 +4124,32 @@ def jpeg_phase(smi, png_run):
         "experiment_dir": str(experiment), "device": DEVICE,
         **EVAL_PARAMS}, where=JPEG_DIR)
     cli.main(["--config", config, "prepare_metadata", "-val"])
-    log = JPEG_DIR / "evaluate.log"
-    rc, seconds, rss = run_child(
-        [sys.executable, "-c", JPEG_CHILD, "--config", config, "evaluate",
-         "-p", "unet_weighted"], log)
-    last = log.read_text().strip().splitlines()[-1]
-    if rc != 0 or not last.startswith("jpeg "):
-        raise AssertionError(f"the JPEG evaluate failed ({rc}):\n"
-                             f"{log.read_text()[-3000:]}")
-    child = json.loads(last[len("jpeg "):])
+    torch.cuda.synchronize()
+    ccl.reset_launches()
+    J.reset_launches()
+    run_start = time.perf_counter()
+    manager = cli.main(["--config", config, "evaluate", "-p",
+                        "unet_weighted"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - run_start
+    launched = {"jpeg": dict(J.LAUNCHES), "ccl": dict(ccl.LAUNCHES)}
     check_prediction(experiment / "prediction.json",
                      set(range(1, EVAL_TILES + 1)), "JPEG evaluate")
     ap, ar = last_scores(experiment)
     batches = -(-EVAL_TILES // BATCH)  # one geometry: a launch a batch
-    if child["jpeg"] != {"jpeg_pixels": batches} \
-            or min(child["ccl"].values()) < 1:
-        raise AssertionError(f"the JPEG evaluate launched {child['jpeg']} "
+    if launched["jpeg"] != {"jpeg_pixels": batches} \
+            or min(launched["ccl"].values(), default=0) < 1:
+        raise AssertionError(f"the JPEG evaluate launched {launched['jpeg']} "
                              f"(expected jpeg_pixels {batches}), CCL "
-                             f"{child['ccl']}")
-    t, cold = child["timings"], child["cold"]
-    print(f"jpeg: (b) `evaluate -p unet_weighted` on the JPEG tiles, twice "
-          f"in a child: exit 0 in {seconds:.2f} s, peak RSS {rss:.0f} MiB, "
-          f"AP/AR {ap}/{ar}; the second run's launches {child['jpeg']} "
-          f"(one a batch, {batches} batches) {child['ccl']}, "
-          f"{t['images'] / t['total_s']:.2f} images/s, decode_s "
-          f"{t['decode_s']:.4f} (to the kernel's end), device_s "
+                             f"{launched['ccl']}")
+    t = manager.timings
+    print(f"jpeg: (b) `evaluate -p unet_weighted` on the JPEG tiles, in "
+          f"this process: {run_s:.2f} s, AP/AR {ap}/{ar}; launches "
+          f"{launched['jpeg']} (one a batch, {batches} batches) "
+          f"{launched['ccl']}, {t['images'] / t['total_s']:.2f} images/s, "
+          f"decode_s {t['decode_s']:.4f} (to the kernel's end), device_s "
           f"{t['device_s']:.4f}, annotation_s {t['annotation_s']:.4f}, "
-          f"cocoeval_s {t['cocoeval_s']:.4f}; the first run's "
-          f"{cold['images'] / cold['total_s']:.2f} images/s, decode_s "
-          f"{cold['decode_s']:.4f}, device_s {cold['device_s']:.4f}; phase "
-          f"8's PNG run in process: "
+          f"cocoeval_s {t['cocoeval_s']:.4f}; phase 8's PNG run in process: "
           f"{png_run['images'] / png_run['total_s']:.2f} images/s, decode_s "
           f"{png_run['decode_s']:.4f} (host clock) on {smi}")
 
@@ -4176,7 +4174,7 @@ def jpeg_phase(smi, png_run):
     if seconds > JPEG_BUDGET_S:
         raise AssertionError(f"phase 16 took {seconds:.2f} s, over its "
                              f"{JPEG_BUDGET_S} s")
-    return err, {"jpeg_pixels": times[BATCH]}, dict(child["jpeg"]), \
+    return err, {"jpeg_pixels": times[BATCH]}, launched["jpeg"], \
         {"jpeg_pixels": bound[BATCH]}
 
 

@@ -1,9 +1,10 @@
 // The JPEG pixel stage on the card: one kernel, `jpeg_pixels`, that takes
-// quantised coefficient blocks to RGB (dequantise + islow IDCT + range
-// limit, then upsampling + YCbCr -> RGB), equal bit for bit to
+// quantised coefficient blocks of 1, 3 or 4 components to RGB (dequantise
+// + islow IDCT + range limit, then upsampling + colour: grey, YCbCr, RGB,
+// and CMYK / YCCK as Pillow reads libjpeg's CMYK), equal bit for bit to
 // libjpeg-turbo's default decode (the C definitions in jidctint.c,
-// jdsample.c, jdcolor.c) and to the plain PyTorch version in
-// kernels/jpeg.py.
+// jdsample.c, jdcolor.c), to Pillow's Convert.c for CMYK, and to the plain
+// PyTorch version in kernels/jpeg.py.
 //
 // It replaces no TPU kernel. The JAX package decodes every tile on the
 // host with libjpeg (cpp/decode.cpp); the port decodes the entropy coding
@@ -71,13 +72,17 @@
 namespace {
 
 // The geometry of a batch, as kernels/jpeg.geometry_record lays it out.
+// `color`: 0 grey, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK; `fancy`: the component
+// is upsampled by h2v1, h2v2 or h1v2 fancy upsampling (else by box
+// replication, which at ratio 1 x 1 is a copy).
+constexpr int kMaxComps = 4;
 struct JpegGeom {
   int n_comp, height, width, n_blocks, color, mcu_rows, mcu_cols, hmax, vmax;
-  int h[3], v[3], first_block[3], sampled_h[3], sampled_w[3], ratio_h[3],
-      ratio_v[3], fancy[3];
+  int h[4], v[4], first_block[4], sampled_h[4], sampled_w[4], ratio_h[4],
+      ratio_v[4], fancy[4];
 };
 
-constexpr int kGeomInts = 9 + 8 * 3;
+constexpr int kGeomInts = 9 + 8 * kMaxComps;
 static_assert(sizeof(JpegGeom) == kGeomInts * sizeof(int),
               "JpegGeom must match kernels/jpeg.GEOM_INTS");
 
@@ -88,13 +93,14 @@ struct Plan {
   // byte offsets in shared memory: quant tables (at 0), islow weights,
   // each plane, the block table, then workspace and ring / staging (one
   // region: the IDCT's are dead when staging starts)
-  int plane_off[3], plane_cols[3], wts_off, table_off, work_off;
+  int plane_off[kMaxComps], plane_cols[kMaxComps], wts_off, table_off,
+      work_off;
   // staging: one segment (the band) or one an output row, `seg_pitch`
   // bytes apart
   int seg_pitch;
 };
 
-constexpr int kThreads = 256;  // a thread a quant value: at least 3 x 64
+constexpr int kThreads = 256;  // a thread a quant value: at least 4 x 64
 constexpr int kGroups = kThreads / 8;  // 8 threads decode one block
 constexpr int kWsPitch = 9;            // workspace row pitch, in ints
 constexpr int kWsGroup = 72;           // workspace ints a group
@@ -306,26 +312,26 @@ inline int layout(const JpegGeom& g, Plan& p) {
 
 // one upsampled sample of component c at output (y, x), read from its
 // shared plane `p` (pitch `pw`) whose first row and column are component
-// row `r0` and column `c0`: jdsample.c's fullsize, h2v1 / h2v2 (fancy
-// where the component is more than 2 samples wide, else replication) and
-// h1v2 fancy upsampling; the row above the first and below the last real
-// row is that row (jdmainct.c)
+// row `r0` and column `c0`: jdsample.c's fullsize, h2v1 / h2v2 fancy (where
+// the component is more than 2 samples wide) and h1v2 fancy upsampling,
+// and box replication for every other integral ratio (h2v1_upsample,
+// h2v2_upsample, int_upsample); the row above the first and below the
+// last real row is that row (jdmainct.c)
 __device__ __forceinline__ int sample(const uint8_t* p, int pw, int r0,
                                       int c0, const JpegGeom& g, int c,
                                       int y, int x) {
   const int rh = g.ratio_h[c], rv = g.ratio_v[c];
   if (rh == 1 && rv == 1) return p[(y - r0) * pw + x - c0];
+  if (!g.fancy[c]) return p[(y / rv - r0) * pw + x / rh - c0];
   const int cw = g.sampled_w[c];
   if (rv == 1) {  // h2v1
     const uint8_t* row = p + (y - r0) * pw - c0;
     int j = x >> 1;
     int t = row[j];
-    if (!g.fancy[c]) return t;
     if ((x & 1) == 0) return j == 0 ? t : (3 * t + row[j - 1] + 1) >> 2;
     return j == cw - 1 ? t : (3 * t + row[j + 1] + 2) >> 2;
   }
   int i = y >> 1;
-  if (rh == 2 && !g.fancy[c]) return p[(i - r0) * pw + (x >> 1) - c0];
   int other = (y & 1) ? min(i + 1, g.sampled_h[c] - 1) : max(i - 1, 0);
   const uint8_t* near = p + (i - r0) * pw - c0;
   const uint8_t* far = p + (other - r0) * pw - c0;
@@ -347,13 +353,41 @@ __device__ __forceinline__ void ycc_to(uint8_t* to, int y, int cb, int cr) {
   to[2] = clamp255(y + ((116130 * cb + 32768) >> 16));
 }
 
+// Pillow's MULDIV255 of two samples
+__device__ __forceinline__ int muldiv255(int a, int b) {
+  const int t = a * b + 128;
+  return ((t >> 8) + t) >> 8;
+}
+
+// A CMYK or YCCK pixel as the JAX package reads it (kernels/jpeg.py
+// _color_rows): libjpeg's CMYK (jdcolor.c ycck_cmyk_convert of YCCK),
+// inverted by Pillow's "CMYK;I" raw mode, then Convert.c cmyk2rgb:
+// v - MULDIV255(v', k) with v' the inverted C, M or Y (clamp(R) of a YCCK
+// pixel) and k the stream's K sample.
+__device__ __forceinline__ void cmyk_to(uint8_t* to, int s0, int s1, int s2,
+                                        int k, bool ycck) {
+  int v[3];
+  if (ycck) {
+    ycc_to(to, s0, s1 - 128, s2 - 128);
+    v[0] = to[0];
+    v[1] = to[1];
+    v[2] = to[2];
+  } else {
+    v[0] = 255 - s0;
+    v[1] = 255 - s1;
+    v[2] = 255 - s2;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; i++) to[i] = (uint8_t)(k - muldiv255(v[i], k));
+}
+
 // CTA = one band of MCU rows x one chunk of MCU columns of one image
 __global__ void __launch_bounds__(kThreads, 4)
     jpeg_pixels_kernel(const int16_t* __restrict__ coef,
                        const int32_t* __restrict__ quant,
                        uint8_t* __restrict__ out, JpegGeom g, Plan p) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ Comp comp[3];
+  __shared__ Comp comp[kMaxComps];
   int* qs = reinterpret_cast<int*>(smem);
 
   const int chunk = blockIdx.x % p.chunks;
@@ -372,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   if (tid == 0) {
     int start = 0;
 #pragma unroll
-    for (int c = 0; c < 3; c++) {
+    for (int c = 0; c < kMaxComps; c++) {
       if (c >= g.n_comp) break;
       const int hv = halo_v(g, c), hh = halo_h(g, c, p.chunks);
       Comp d;
@@ -406,9 +440,8 @@ __global__ void __launch_bounds__(kThreads, 4)
   unsigned* table = reinterpret_cast<unsigned*>(smem + p.table_off);
   const int total = comp[g.n_comp - 1].start + comp[g.n_comp - 1].n;
   for (int blk = tid; blk < total; blk += kThreads) {
-    const int c = (g.n_comp > 1 && blk >= comp[1].start)
-                      ? ((g.n_comp > 2 && blk >= comp[2].start) ? 2 : 1)
-                      : 0;
+    int c = 0;
+    while (c + 1 < g.n_comp && blk >= comp[c + 1].start) c++;
     const Comp& d = comp[c];
     const int local = blk - d.start;
     table[blk] = c | (unsigned)(d.r_lo + local / d.ncols) << 2 |
@@ -535,10 +568,10 @@ __global__ void __launch_bounds__(kThreads, 4)
   // the output byte where segment 0 starts, and its offset in a 16-byte
   // line (so that the staging buffer shares the output's alignment)
   const long long band_start = (img_px + (long long)y0 * g.width + xs) * 3;
-  const uint8_t* planes[3];
-  int pw[3], r0[3], c0[3];
+  const uint8_t* planes[kMaxComps];
+  int pw[kMaxComps], r0[kMaxComps], c0[kMaxComps];
 #pragma unroll
-  for (int c = 0; c < 3; c++) {  // comp[c] is unused past n_comp
+  for (int c = 0; c < kMaxComps; c++) {  // comp[c] is unused past n_comp
     planes[c] = smem + comp[c].plane;
     pw[c] = comp[c].pitch;
     r0[c] = 8 * comp[c].br0;
@@ -646,8 +679,11 @@ __global__ void __launch_bounds__(kThreads, 4)
           to[0] = (uint8_t)s0;
           to[1] = (uint8_t)s1;
           to[2] = (uint8_t)s2;
-        } else {
+        } else if (g.color == 1) {
           ycc_to(to, s0, s1 - 128, s2 - 128);
+        } else {  // CMYK, YCCK
+          const int s3 = sample(planes[3], pw[3], r0[3], c0[3], g, 3, y, x);
+          cmyk_to(to, s0, s1, s2, s3, g.color == 4);
         }
       }
       x += dx;

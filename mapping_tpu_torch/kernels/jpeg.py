@@ -12,12 +12,14 @@ blocks (`utils/jpeg.read_coefficients`, one geometry for the batch) into
   MCUs;
 - the colour stage (`color_plain`): libjpeg-turbo's upsampling of each
   plane (jdsample.c: `h2v1_fancy_upsample`, `h2v2_fancy_upsample` where
-  the component is more than 2 samples wide, else replication;
-  `h1v2_fancy_upsample`; a copy at 1x1), with the row above the first and
-  below the last real row being that row (jdmainct.c), then
-  `ycc_rgb_convert` (jdcolor.c: FIX(1.40200), FIX(0.71414), FIX(0.34414),
-  FIX(1.77200), SCALEBITS 16), or a copy of a grey or RGB stream -> RGB
-  cropped to the image.
+  the component is more than 2 samples wide, `h1v2_fancy_upsample`, a
+  copy at 1x1, and box replication for every other integral ratio,
+  `int_upsample`), with the row above the first and below the last real
+  row being that row (jdmainct.c), then `ycc_rgb_convert` (jdcolor.c:
+  FIX(1.40200), FIX(0.71414), FIX(0.34414), FIX(1.77200), SCALEBITS 16),
+  a copy of a grey or RGB stream, or for CMYK and YCCK what Pillow makes
+  of libjpeg's CMYK (the JAX package reads those files through Pillow)
+  -> RGB cropped to the image.
 
 On the card both run in one kernel, `jpeg_pixels`: a CTA decodes a band
 of MCU rows of one image into component planes in shared memory and
@@ -48,10 +50,12 @@ from mapping_tpu_torch.kernels.build import CSRC, build_shared_library
 LIBRARY = "mapping_jpeg"
 SOURCES = [CSRC / "jpeg_pixels.cu"]
 LAUNCHES = {"jpeg_pixels": 0}
+#: components a geometry has at most (CMYK / YCCK)
+MAX_COMPS = 4
 #: ints of the geometry record passed to the kernel (JpegGeom in
-#: csrc/jpeg_pixels.cu): 9 scalars, then 8 arrays of 3
-GEOM_INTS = 9 + 8 * 3
-COLORS = {"gray": 0, "ycc": 1, "rgb": 2}
+#: csrc/jpeg_pixels.cu): 9 scalars, then 8 arrays of MAX_COMPS
+GEOM_INTS = 9 + 8 * MAX_COMPS
+COLORS = {"gray": 0, "ycc": 1, "rgb": 2, "cmyk": 3, "ycck": 4}
 
 #: the largest |quant value| taken: a DQT entry has 8 or 16 bits, and the
 #: kernel's dequantised coefficients fit an int up to here
@@ -99,10 +103,10 @@ def geometry_record(geometry):
     n = len(geometry.factors)
 
     def pad(values):
-        return list(values) + [0] * (3 - n)
+        return list(values) + [0] * (MAX_COMPS - n)
 
-    fancy = [int(rh == 1 or cw > 2) for (rh, _), (_, cw)
-             in zip(geometry.ratios, geometry.sampled)]
+    fancy = [int(upsampling(rh, rv, cw) in ("h2v1", "h2v2", "h1v2"))
+             for (rh, rv), (_, cw) in zip(geometry.ratios, geometry.sampled)]
     rec = [n, geometry.height, geometry.width, geometry.n_blocks,
            COLORS[geometry.color], *geometry.mcus, geometry.hmax,
            geometry.vmax]
@@ -215,23 +219,38 @@ def idct_plain(coef, quant, geometry):
     return torch.cat(out, dim=1)
 
 
+def upsampling(rh, rv, cw):
+    """libjpeg-turbo 2.1's upsampler for a component (jdsample.c
+    jinit_upsampler, fancy upsampling on): "full" at ratio 1 x 1, "h2v1"
+    / "h2v2" (fancy, where the component is more than 2 samples wide)
+    and "h1v2" (fancy), and "box" replication for every other integral
+    ratio (h2v1_upsample, h2v2_upsample, int_upsample)."""
+    if (rh, rv) == (1, 1):
+        return "full"
+    if (rh, rv) == (1, 2):
+        return "h1v2"
+    if (rh, rv) in ((2, 1), (2, 2)) and cw > 2:
+        return "h2v1" if rv == 1 else "h2v2"
+    return "box"
+
+
 def _upsample(p, ch, cw, rh, rv, y, width):
     """Rows `y` of a component plane (B, rows, cols) uint8 upsampled to
     (B, len(y), width) int64, as libjpeg-turbo's upsampler for the ratio
     (rh, rv)."""
     x = torch.arange(width, device=p.device)
-    if (rh, rv) == (1, 1):
+    method = upsampling(rh, rv, cw)
+    if method == "full":
         return p[:, y, :width].long()
-    fancy = rh == 1 or cw > 2
-    if not fancy:  # h2v1 / h2v2 replication
-        return p[:, y // rv][:, :, x // 2].long()
+    if method == "box":
+        return p[:, y // rv][:, :, x // rh].long()
     if rv == 2:
         i = y // 2
         below = (y % 2).bool()
         other = torch.where(below, (i + 1).clamp(max=ch - 1),
                             (i - 1).clamp(min=0))
         near, far = p[:, i].long(), p[:, other].long()
-        if rh == 1:  # h1v2: 3/4 nearer row + 1/4 further, biases 1 / 2
+        if method == "h1v2":  # 3/4 nearer row + 1/4 further, biases 1 / 2
             bias = torch.where(below, 2, 1)[None, :, None]
             return ((3 * near + far + bias) >> 2)[:, :, :width]
         rows = 3 * near + far  # h2v2: column sums, then as h2v1 in 16ths
@@ -249,6 +268,20 @@ def _upsample(p, ch, cw, rh, rv, y, width):
         even = torch.where(j == 0, this, (3 * this + left + 1) >> 2)
         odd = torch.where(j == cw - 1, this, (3 * this + right + 2) >> 2)
     return torch.where((x % 2).bool(), odd, even)
+
+
+def ycc_rgb(y, cb, cr):
+    """jdcolor.c ycc_rgb_convert before its clamp: (R, G, B) of int64
+    samples, cb and cr centred on 0."""
+    return (y + ((91881 * cr + 32768) >> 16),
+            y + ((-22554 * cb + 32768 - 46802 * cr) >> 16),
+            y + ((116130 * cb + 32768) >> 16))
+
+
+def muldiv255(a, b):
+    """Pillow's MULDIV255: a * b / 255, rounded as Pillow rounds it."""
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
 
 
 def color_plain(planes, geometry):
@@ -275,12 +308,22 @@ def _color_rows(planes, geometry, y):
         rgb = [comps[0]] * 3
     elif geometry.color == "rgb":
         rgb = comps
+    elif geometry.color == "ycc":
+        rgb = [v.clamp(0, 255) for v in ycc_rgb(comps[0], comps[1] - 128,
+                                                comps[2] - 128)]
     else:
-        y, cb, cr = comps[0], comps[1] - 128, comps[2] - 128
-        r = y + ((91881 * cr + 32768) >> 16)
-        g = y + ((-22554 * cb + 32768 - 46802 * cr) >> 16)
-        bl = y + ((116130 * cb + 32768) >> 16)
-        rgb = [v.clamp(0, 255) for v in (r, g, bl)]
+        # CMYK / YCCK as the JAX package reads them (Pillow, which asks
+        # libjpeg for CMYK: jdcolor.c ycck_cmyk_convert of a YCCK stream),
+        # then Pillow's "CMYK;I" raw mode (255 - v), then Convert.c
+        # cmyk2rgb: R = K' - MULDIV255(C', K') with K' = 255 - inverted K,
+        # the stream's K sample. The inverted C of YCCK is clamp(R).
+        if geometry.color == "cmyk":
+            inv = [255 - v for v in comps[:3]]
+        else:
+            inv = [v.clamp(0, 255) for v in ycc_rgb(
+                comps[0], comps[1] - 128, comps[2] - 128)]
+        k = comps[3]
+        rgb = [k - muldiv255(v, k) for v in inv]
     return torch.stack(rgb, dim=-1).to(torch.uint8)
 
 

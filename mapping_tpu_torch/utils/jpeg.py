@@ -1,26 +1,34 @@
-"""Baseline JPEG on the host: the marker parser and entropy decode of the
-port's decoder, and a baseline encoder that writes test and rehearsal
-tiles.
+"""JPEG on the host: the marker parser and entropy decode of the port's
+decoder, and a baseline encoder that writes test and rehearsal tiles.
 
 The port decodes a JPEG in two parts. `read_coefficients` parses the
-markers here and runs the Huffman decode of each scan in C++
+markers here and runs the entropy decode of each scan in C++
 (csrc/jpeg_entropy.cpp, built with g++ into build/, called through ctypes
 with the GIL released), giving int16 coefficient blocks and the quant
 tables; the pixel stage (dequantise, IDCT, upsampling, colour) is
-`kernels/jpeg.pixels`, CUDA kernels for a CUDA target and plain PyTorch for
-a CPU one. Together they give libjpeg-turbo's default decode (the JAX
-package's `cpp/decode.cpp`: `JDCT_ISLOW`, fancy upsampling) bit for bit.
+`kernels/jpeg.pixels`, a CUDA kernel for a CUDA target and plain PyTorch
+for a CPU one. Together they give what the JAX package's loader reads bit
+for bit: libjpeg-turbo's default decode (`cpp/decode.cpp`: `JDCT_ISLOW`,
+fancy upsampling, block smoothing), and for CMYK / YCCK files, which
+libjpeg will not turn into RGB, Pillow's reading of libjpeg's CMYK.
 
-The parser follows libjpeg's rules (jdmarker.c, jdinput.c, jdapimin.c):
-APPn and COM segments are skipped, APP0 "JFIF" and APP14 "Adobe" are read
-for the colour space, quant tables are latched at their component's first
-scan, missing Huffman tables are the standard ones (as libjpeg-turbo loads
-them for motion-JPEG frames), and a stream that ends early decodes with
-zeros for the missing data. It refuses, with a ValueError naming the
-feature, what the port's decoder does not take: progressive,
-lossless, hierarchical and arithmetic-coded streams, samples other than
-8-bit, other than 1 or 3 components (CMYK / YCCK), and sampling factors
-whose ratio to the largest is not 1 or 2 in each direction.
+It takes baseline and extended sequential Huffman streams (SOF0, SOF1),
+progressive Huffman streams (SOF2, jdphuff.c: spectral selection and
+successive approximation, end-of-band runs), and arithmetic-coded
+sequential and progressive streams (SOF9, SOF10, jdarith.c, with the DAC
+segment's conditioning); 1, 3 or 4 components; any integral sampling
+ratio with at most 10 blocks an MCU in an interleaved scan. The parser
+follows libjpeg's rules (jdmarker.c, jdinput.c, jdapimin.c): APPn and COM
+segments are skipped, APP0 "JFIF" and APP14 "Adobe" are read for the
+colour space, quant tables are latched at their component's first scan,
+missing Huffman tables of a sequential stream are the standard ones (as
+libjpeg-turbo loads them for motion-JPEG frames), and a stream that ends
+early decodes with zeros for the missing data, reading what libjpeg's
+source managers give past the end (fake EOI markers); a progressive image
+whose AC coefficients are not all known gets libjpeg-turbo 2.1's block
+smoothing (jdcoefct.c). It refuses, with a ValueError naming the feature,
+lossless and hierarchical streams, samples other than 8-bit, the DNL
+marker, 2 components and more than 10 blocks an MCU.
 
 `encode` writes a baseline JFIF file (libjpeg's colour conversion,
 downsampling, integer forward DCT and quality-scaled standard tables, the
@@ -87,19 +95,26 @@ STD_HUFFMAN = {
              _AC_CHROMA_VALS),
 }
 
+#: frame types the decoder takes: (progressive, arithmetic-coded)
+_SOF = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
+        0xC9: (False, True), 0xCA: (True, True)}
 _REFUSED_SOF = {
-    0xC2: "progressive JPEG (SOF2)",
     0xC3: "lossless JPEG (SOF3)",
     0xC5: "hierarchical JPEG (SOF5)",
     0xC6: "hierarchical progressive JPEG (SOF6)",
     0xC7: "hierarchical lossless JPEG (SOF7)",
-    0xC9: "arithmetic-coded JPEG (SOF9)",
-    0xCA: "arithmetic-coded progressive JPEG (SOF10)",
     0xCB: "arithmetic-coded lossless JPEG (SOF11)",
     0xCD: "arithmetic-coded hierarchical JPEG (SOF13)",
     0xCE: "arithmetic-coded hierarchical progressive JPEG (SOF14)",
     0xCF: "arithmetic-coded hierarchical lossless JPEG (SOF15)",
 }
+#: the arithmetic conditioning values a stream starts with (jdmarker.c):
+#: DC L, DC U and AC Kx of each of the 16 tables
+_ARITH_DEFAULT = (0,) * 16 + (1,) * 16 + (5,) * 16
+#: natural positions of coefficients 0-9 in zigzag order, the ones block
+#: smoothing estimates (jdcoefct.c Q01_POS ...)
+SMOOTHED = NATURAL[:10]
+
 
 def _register(lib):
     ptr = ctypes.c_void_p
@@ -107,6 +122,17 @@ def _register(lib):
     lib.jpeg_decode_scan.argtypes = [
         ptr, ctypes.c_long, ctypes.c_int, ptr, ptr, ptr, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ptr, ptr]
+    lib.jpeg_decode_progressive.restype = ctypes.c_int
+    lib.jpeg_decode_progressive.argtypes = [
+        ptr, ctypes.c_long, ctypes.c_int, ptr, ptr, ptr, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ptr, ptr, ptr]
+    lib.jpeg_decode_arith.restype = ctypes.c_int
+    lib.jpeg_decode_arith.argtypes = [
+        ptr, ctypes.c_long, ctypes.c_int, ptr, ptr, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ptr, ptr, ptr]
+    lib.jpeg_smooth.restype = None
+    lib.jpeg_smooth.argtypes = [ptr, ptr, ctypes.c_int, ptr, ctypes.c_int,
+                                ptr, ptr, ptr, ctypes.c_long]
     lib.jpeg_encode_scan.restype = ctypes.c_long
     lib.jpeg_encode_scan.argtypes = [
         ptr, ctypes.c_int, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
@@ -194,23 +220,47 @@ def is_jpeg(data: bytes) -> bool:
 
 class _Component(NamedTuple):
     ident: int
-    h: int
+    h: int  # the sampling factors the pixel stage uses (1 x 1 for grey)
     v: int
     tq: int
+    frame_v: int  # the SOF's v factor: an iMCU row's block rows
+
+
+class _Frame(NamedTuple):
+    height: int
+    width: int
+    comps: Tuple[_Component, ...]
+    progressive: bool
+    arithmetic: bool
+
+    @property
+    def imcu_rows(self):
+        """libjpeg's total_iMCU_rows, from the SOF's factors."""
+        return -(-self.height // (8 * max(c.frame_v for c in self.comps)))
 
 
 class _Stream:
-    """The state of a marker walk over one file."""
+    """The state of a marker walk over one file. Past the end of the data
+    it reads what libjpeg's source managers give there: fake EOI markers,
+    0xFF 0xD9 over and over, so that a segment cut short is read as
+    libjpeg reads it."""
 
     def __init__(self, data: bytes):
         self.data = data
         self.pos = 0
 
+    def _bytes(self, n):
+        data, pos = self.data, self.pos
+        self.pos += n
+        body = data[pos:pos + n]
+        if len(body) < n:
+            start = max(pos, len(data)) - len(data)
+            fake = b"\xff\xd9" * ((n - len(body) + start) // 2 + 1)
+            body += fake[start % 2:start % 2 + n - len(body)]
+        return body
+
     def u8(self):
-        if self.pos >= len(self.data):
-            raise ValueError("JPEG ends inside a marker segment")
-        self.pos += 1
-        return self.data[self.pos - 1]
+        return self._bytes(1)[0]
 
     def u16(self):
         return (self.u8() << 8) | self.u8()
@@ -218,16 +268,16 @@ class _Stream:
     def segment(self):
         """The body of a marker segment whose length comes next."""
         n = self.u16()
-        if n < 2 or self.pos + n - 2 > len(self.data):
-            raise ValueError("JPEG ends inside a marker segment")
-        body = self.data[self.pos:self.pos + n - 2]
-        self.pos += n - 2
-        return body
+        if n < 2:
+            raise ValueError("bad JPEG marker segment length")
+        return self._bytes(n - 2)
 
     def next_marker(self):
         """jdmarker.c next_marker: skip to the next 0xFF + code; None at
         the end of the data."""
         data, n = self.data, len(self.data)
+        if self.pos >= n:  # the fake EOI
+            return None
         while True:
             i = data.find(b"\xff", self.pos)
             if i < 0:
@@ -259,9 +309,13 @@ def _huffman_arrays(tables):
 
 
 def _colour(components, jfif, adobe):
-    """jdapimin.c default_decompress_parms for 1 and 3 components."""
+    """jdapimin.c default_decompress_parms: the colour space of 1, 3 and
+    4 components. Four are CMYK, or YCCK under an Adobe marker whose
+    transform is not 0."""
     if len(components) == 1:
         return "gray"
+    if len(components) == 4:
+        return "cmyk" if adobe is None or adobe == 0 else "ycck"
     if jfif:
         return "ycc"
     if adobe is not None:
@@ -274,13 +328,14 @@ def _colour(components, jfif, adobe):
 def _sof(body, marker):
     if marker in _REFUSED_SOF:
         raise ValueError(f"{_REFUSED_SOF[marker]} is not supported by the "
-                         f"port's baseline decoder")
+                         f"port's decoder")
+    progressive, arithmetic = _SOF[marker]
     if len(body) < 6:
         raise ValueError("JPEG SOF segment too short")
     precision, height, width, n = struct.unpack(">BHHB", body[:6])
     if precision != 8:
         raise ValueError(f"{precision}-bit samples are not supported by the "
-                         f"port's baseline decoder (8-bit only)")
+                         f"port's decoder (8-bit only)")
     if len(body) != 6 + 3 * n:
         raise ValueError("JPEG SOF segment has the wrong length")
     if height == 0 or width == 0 or n == 0:
@@ -290,34 +345,31 @@ def _sof(body, marker):
         raise ValueError(f"JPEG image {height}x{width} exceeds {MAX_SIDE}")
     if height * width > MAX_PIXELS:
         raise ValueError(f"implausible image size {height}x{width}")
-    if n == 4:
-        raise ValueError("4-component JPEG (CMYK / YCCK) is not supported "
-                         "by the port's baseline decoder")
-    if n not in (1, 3):
+    if n not in (1, 3, 4):
         raise ValueError(f"{n}-component JPEG is not supported by the "
-                         f"port's baseline decoder")
+                         f"port's decoder (1, 3 or 4 components)")
     comps = []
     for i in range(n):
         ident, hv, tq = body[6 + 3 * i:9 + 3 * i]
         h, v = hv >> 4, hv & 15
         if not (1 <= h <= 4 and 1 <= v <= 4):
             raise ValueError(f"JPEG sampling factors {h}x{v} out of range")
-        comps.append(_Component(ident, h, v, tq))
+        comps.append(_Component(ident, h, v, tq, v))
     if n == 1:  # one component: its own MCU, no upsampling
         comps = [comps[0]._replace(h=1, v=1)]
     hmax = max(c.h for c in comps)
     vmax = max(c.v for c in comps)
-    for c in comps:
-        if hmax % c.h or vmax % c.v or hmax // c.h > 2 or vmax // c.v > 2:
+    for c in comps:  # jdsample.c: integral upsampling ratios only
+        if hmax % c.h or vmax % c.v:
             factors = ", ".join(f"{d.h}x{d.v}" for d in comps)
             raise ValueError(f"JPEG sampling factors {factors} are not "
-                             f"supported by the port's baseline decoder "
-                             f"(each must be 1 or 2 times smaller than the "
-                             f"largest in each direction)")
-    return height, width, comps
+                             f"supported: fractional upsampling ratio")
+    return _Frame(height, width, tuple(comps), progressive, arithmetic)
 
 
 def _dqt(body, quant):
+    """quant[t] = (the table as the IDCT reads it, as smoothing reads it),
+    natural order, int32."""
     i = 0
     while i < len(body):
         pq, tq = body[i] >> 4, body[i] & 15
@@ -329,9 +381,9 @@ def _dqt(body, quant):
             raise ValueError("JPEG DQT segment too short")
         raw = np.frombuffer(body[i:i + n], ">u2" if pq else np.uint8)
         table = np.zeros(64, np.int32)
-        # libjpeg-turbo's SIMD builds keep the table as int16
-        table[NATURAL] = raw.astype(np.int32).astype(np.int16)
-        quant[tq] = table
+        table[NATURAL] = raw
+        # libjpeg-turbo's SIMD builds keep the IDCT's table as int16
+        quant[tq] = (table.astype(np.int16).astype(np.int32), table)
         i += n
 
 
@@ -350,28 +402,63 @@ def _dht(body, tables):
         i += total
 
 
+def _dac(body, conditioning):
+    """jdmarker.c get_dac: arithmetic conditioning values."""
+    if len(body) % 2:
+        raise ValueError("bad JPEG DAC segment length")
+    for i in range(0, len(body), 2):
+        index, val = body[i], body[i + 1]
+        if index >= 32:
+            raise ValueError(f"bad JPEG DAC table index {index}")
+        if index >= 16:
+            conditioning[32 + index - 16] = val
+        else:
+            low, high = val & 15, val >> 4
+            if low > high:
+                raise ValueError(f"bad JPEG DAC value {val}")
+            conditioning[index], conditioning[16 + index] = low, high
+
+
+class _Decode:
+    """What a decode carries from scan to scan."""
+
+    def __init__(self, frame, geometry):
+        self.frame = frame
+        self.geometry = geometry
+        self.coef = np.zeros((geometry.n_blocks, 64), np.int16)
+        self.latched = {}  # component -> its quant tables, once scanned
+        self.scanned = set()
+        n = len(frame.comps)
+        # jdphuff.c / jdarith.c coef_bits: each coefficient's Al so far
+        # (-1: none yet), and as it stood before the component's last scan
+        self.bits = np.full((n, 64), -1, np.int64)
+        self.prev_bits = np.zeros((n, 64), np.int64)
+        self.scans = 0
+        self.complete = False  # no scan may follow
+        self.last_good = 0  # jdmaster.c last_good_iMCU_row
+
+
 def read_coefficients(data: bytes) -> Coefficients:
-    """Parse a baseline JPEG and Huffman-decode its scans: the host half
-    of the port's decoder. Raises ValueError for what it refuses or
-    cannot parse; a stream that ends inside the entropy-coded data
-    decodes as libjpeg decodes it (zeros for what is missing)."""
+    """Parse a JPEG and entropy-decode its scans: the host half of the
+    port's decoder. Raises ValueError for what it refuses or cannot
+    parse; a stream that ends inside the entropy-coded data decodes as
+    libjpeg decodes it (zeros for what is missing, and libjpeg's block
+    smoothing of a progressive image's missing coefficients)."""
     data = bytes(data)
     if not is_jpeg(data):
         raise ValueError("not a JPEG file (no SOI marker)")
     stream = _Stream(data)
     stream.pos = 2
-    quant, latched, huffman = {}, {}, {}
+    quant, huffman = {}, {}
+    conditioning = np.array(_ARITH_DEFAULT, np.uint8)
     restart = 0
     jfif, adobe = False, None
-    frame = None
-    geometry = coef = None
-    scanned = set()
+    frame = state = None
     buf = np.frombuffer(data, np.uint8)
-    lib = None
     while True:
         marker = stream.next_marker()
         if marker is None or marker == 0xD9:  # end of data or EOI
-            if coef is None:
+            if state is None:
                 raise ValueError("JPEG has no image data (no scan)")
             break
         if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
@@ -383,6 +470,8 @@ def read_coefficients(data: bytes) -> Coefficients:
             _dht(stream.segment(), huffman)
         elif marker == 0xDB:
             _dqt(stream.segment(), quant)
+        elif marker == 0xCC:
+            _dac(stream.segment(), conditioning)
         elif marker == 0xDD:
             body = stream.segment()
             if len(body) != 2:
@@ -395,91 +484,193 @@ def read_coefficients(data: bytes) -> Coefficients:
             body = stream.segment()
             if len(body) >= 12 and body[:5] == b"Adobe":
                 adobe = body[11]
-        elif 0xE1 <= marker <= 0xEF or marker in (0xFE, 0xCC, 0xDC):
-            stream.segment()  # APPn, COM, DAC, DNL
+        elif 0xE1 <= marker <= 0xEF or marker in (0xFE, 0xDC):
+            stream.segment()  # APPn, COM, and DNL, which libjpeg skips
         elif 0xD0 <= marker <= 0xD7 or marker == 0x01:
             pass  # parameterless (RSTn, TEM)
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("JPEG scan before its frame (SOS before "
                                  "SOF)")
-            height, width, comps = frame
-            if geometry is None:
-                geometry = Geometry(
-                    height, width, tuple((c.h, c.v) for c in comps),
-                    _colour(comps, jfif, adobe))
-                coef = np.zeros((geometry.n_blocks, 64), np.int16)
-                lib = load()
+            if state is None:
+                comps = frame.comps
+                state = _Decode(frame, Geometry(
+                    frame.height, frame.width, tuple((c.h, c.v)
+                                                     for c in comps),
+                    _colour(comps, jfif, adobe)))
             body = stream.segment()
-            pos = _scan(lib, buf, stream.pos, body, geometry, comps, quant,
-                        latched, huffman, restart, coef, scanned)
-            stream.pos = pos
-            if len(scanned) == len(comps) and len(body) == 4 + 2 * len(
-                    comps):
-                break  # one interleaved scan: the image is complete
+            if state.complete:  # jdinput.c: JERR_EOI_EXPECTED
+                raise ValueError("JPEG has a scan after its image's only "
+                                 "one (EOI expected)")
+            stream.pos = _scan(load(), buf, stream.pos, body, state, quant,
+                               huffman, conditioning, restart)
+            # a sequential image whose first scan holds every component
+            # has no other scan: libjpeg reads on to EOI for markers only
+            state.complete = not frame.progressive and state.scans == 1 \
+                and len(body) == 4 + 2 * len(frame.comps)
         elif marker == 0xD8:
             raise ValueError("JPEG has a second SOI marker")
         else:
             raise ValueError(f"unknown JPEG marker 0xFF{marker:02X}")
-    q = np.stack([latched.get(i, np.ones(64, np.int32))
-                  for i in range(len(geometry.factors))])
+    geometry = state.geometry
+    n = len(geometry.factors)
+    q = np.stack([state.latched[i][0] if i in state.latched
+                  else np.ones(64, np.int32) for i in range(n)])
+    coef = state.coef
+    if frame.progressive:
+        coef = _smooth(state, coef)
     return Coefficients(geometry, q, coef)
 
 
-def _scan(lib, buf, start, body, geometry, comps, quant, latched, huffman,
-          restart, coef, scanned):
-    """Huffman-decode one scan whose entropy-coded data starts at byte
-    `start`; returns where the marker walk resumes."""
+def _scan(lib, buf, start, body, state, quant, huffman, conditioning,
+          restart):
+    """Entropy-decode one scan whose coded data starts at byte `start`;
+    returns where the marker walk resumes."""
+    frame, geometry = state.frame, state.geometry
+    comps = frame.comps
     n = body[0] if body else 0
     if not 1 <= n <= 4 or len(body) != 4 + 2 * n:
         raise ValueError("bad JPEG SOS segment")
+    ss, se, ah, al = body[1 + 2 * n], body[2 + 2 * n], \
+        body[3 + 2 * n] >> 4, body[3 + 2 * n] & 15
     ids = [c.ident for c in comps]
-    desc = []
+    members, desc = [], []
     for k in range(n):
         ident, tables = body[1 + 2 * k], body[2 + 2 * k]
         if ident not in ids:
             raise ValueError(f"JPEG scan names an unknown component "
                              f"{ident}")
         ci = ids.index(ident)
-        if ci not in latched:
+        if ci not in state.latched:
             if comps[ci].tq not in quant:
                 raise ValueError(f"JPEG quant table {comps[ci].tq} is not "
                                  f"defined")
-            latched[ci] = quant[comps[ci].tq]
-        scanned.add(ci)
+            state.latched[ci] = quant[comps[ci].tq]
+        state.scanned.add(ci)
+        members.append(ci)
         dc, ac = tables >> 4, tables & 15
-        for cls, ident in ((0, dc), (1, ac)):
-            if (cls, ident) not in huffman and ident > 1:
-                raise ValueError(f"JPEG Huffman table {ident} is not "
-                                 f"defined")
         c = comps[ci]
         desc += [c.h, c.v, geometry.blocks[ci][1], geometry.first_block[ci],
                  dc, ac]
+    state.scans += 1
     if n == 1:  # non-interleaved: one block per MCU over the real blocks
-        ch, cw = geometry.sampled[ids.index(body[1])]
+        ch, cw = geometry.sampled[members[0]]
         mcus_y, mcus_x = -(-ch // 8), -(-cw // 8)
+        imcu = comps[members[0]].frame_v
     else:
-        if sum(comps[ids.index(body[1 + 2 * k])].h
-               * comps[ids.index(body[1 + 2 * k])].v
-               for k in range(n)) > 10:
+        if sum(comps[ci].h * comps[ci].v for ci in members) > 10:
             raise ValueError("JPEG sampling factors too large for an "
                              "interleaved scan (more than 10 blocks an MCU)")
         mcus_y, mcus_x = geometry.mcus
-    bits, vals = _huffman_arrays(huffman)
+        imcu = 1
+    if frame.progressive:
+        _progression(state, members, ss, se, ah, al)
     desc = np.asarray(desc, np.int32)
-    state = np.zeros(3, np.int64)
-    rc = lib.jpeg_decode_scan(
-        buf.ctypes.data + start, len(buf) - start, n, desc.ctypes.data,
-        bits.ctypes.data, vals.ctypes.data, mcus_x, mcus_y, restart,
-        coef.ctypes.data, state.ctypes.data)
+    out = np.zeros(4, np.int64)
+    left = max(len(buf) - start, 0)
+    coef = state.coef
+    if frame.arithmetic:
+        params = np.array([frame.progressive, ss, se, ah, al, imcu],
+                          np.int32)
+        rc = lib.jpeg_decode_arith(
+            buf.ctypes.data + start, left, n, desc.ctypes.data,
+            conditioning.ctypes.data, mcus_x, mcus_y, restart,
+            params.ctypes.data, coef.ctypes.data, out.ctypes.data)
+    else:
+        if frame.progressive:  # jdphuff.c: only the tables the scan reads
+            if ss == 0:
+                needed = [] if ah else [(0, t) for t in desc[4::6]]
+            else:
+                needed = [(1, t) for t in desc[5::6]]
+            for cls, ident in needed:
+                if (cls, int(ident)) not in huffman:
+                    raise ValueError(f"JPEG Huffman table {ident} is not "
+                                     f"defined")
+        else:
+            for cls, ident in [(0, t) for t in desc[4::6]] + [
+                    (1, t) for t in desc[5::6]]:
+                if (cls, int(ident)) not in huffman and ident > 1:
+                    raise ValueError(f"JPEG Huffman table {ident} is not "
+                                     f"defined")
+        bits, vals = _huffman_arrays(huffman)
+        if frame.progressive:
+            params = np.array([ss, se, ah, al, imcu], np.int32)
+            rc = lib.jpeg_decode_progressive(
+                buf.ctypes.data + start, left, n,
+                desc.ctypes.data, bits.ctypes.data, vals.ctypes.data,
+                mcus_x, mcus_y, restart, params.ctypes.data,
+                coef.ctypes.data, out.ctypes.data)
+        else:
+            rc = lib.jpeg_decode_scan(
+                buf.ctypes.data + start, left, n,
+                desc.ctypes.data, bits.ctypes.data, vals.ctypes.data, mcus_x,
+                mcus_y, restart, coef.ctypes.data, out.ctypes.data)
     if rc == -1:
         raise ValueError("bad JPEG Huffman table")
+    if rc == -3:
+        raise ValueError("bad JPEG DC coefficient (past an int)")
     if rc != 0:
         raise ValueError(f"JPEG scan decode failed ({rc})")
-    end, marker = start + int(state[0]), int(state[1])
-    if marker and buf[end - 1] == marker:
+    if frame.progressive and out[3] >= 0:
+        state.last_good = int(out[3])
+    end, marker = start + int(out[0]), int(out[1])
+    if marker and end <= len(buf) and buf[end - 1] == marker:
         end -= 2  # the marker the reader stopped at is walked again
     return end
+
+
+def _progression(state, members, ss, se, ah, al):
+    """jdphuff.c / jdarith.c start_pass: a progressive scan's parameters
+    (ValueError where libjpeg stops with JERR_BAD_PROGRESSION), and the
+    coefficient bits it brings (an inconsistent order, libjpeg's warning,
+    is decoded as it comes)."""
+    bad = (se != 0 if ss == 0 else (ss > se or se > 63 or len(members) != 1))
+    bad = bad or (ah != 0 and al != ah - 1) or al > 13
+    if bad:
+        raise ValueError(f"bad progressive JPEG scan (Ss={ss}, Se={se}, "
+                         f"Ah={ah}, Al={al})")
+    for ci in members:
+        lo, hi = min(ss, 1), max(se, 9)
+        state.prev_bits[ci, lo:hi + 1] = (state.bits[ci, lo:hi + 1]
+                                          if state.scans > 1 else 0)
+        state.bits[ci, ss:se + 1] = al
+
+
+def _smooth(state, coef):
+    """The coefficients as libjpeg-turbo's output pass reads them: block
+    smoothing (csrc/jpeg_entropy.cpp jpeg_smooth) where jdcoefct.c
+    smoothing_ok allows it: every component's quant table latched with
+    nonzero values at the 10 smoothed positions, its DC at least partly
+    known, and some of the 9 AC coefficients not known to full
+    precision. A complete file is not smoothed."""
+    n = len(state.frame.comps)
+    useful = False
+    for ci in range(n):
+        if ci not in state.latched:
+            return coef
+        if not state.latched[ci][1][SMOOTHED].all():
+            return coef
+        if state.bits[ci, 0] < 0:
+            return coef
+        useful = useful or bool((state.bits[ci, 1:10] != 0).any())
+    if not useful:
+        return coef
+    bits = np.ascontiguousarray(state.bits[:, :10], np.int32)
+    prev = (np.ascontiguousarray(state.prev_bits[:, :10], np.int32)
+            if state.scans > 1 else np.full((n, 10), -1, np.int32))
+    g = state.geometry
+    info = np.array([[g.first_block[ci], g.blocks[ci][1],
+                      -(-g.sampled[ci][1] // 8), -(-g.sampled[ci][0] // 8),
+                      c.frame_v] for ci, c in enumerate(state.frame.comps)],
+                    np.int32)
+    quant = np.ascontiguousarray(np.stack(
+        [state.latched[ci][1] for ci in range(n)]), np.int32)
+    out = coef.copy()
+    load().jpeg_smooth(coef.ctypes.data, out.ctypes.data, n,
+                       info.ctypes.data, state.frame.imcu_rows,
+                       quant.ctypes.data, bits.ctypes.data,
+                       prev.ctypes.data, state.last_good)
+    return out
 
 
 # --- the encoder -----------------------------------------------------------

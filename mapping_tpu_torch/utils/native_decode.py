@@ -3,14 +3,17 @@ the port's own decoder, PNG through libpng or the standard-library reader.
 
 Counterpart of mapping_tpu/utils/native_decode.py, which decodes both
 formats with libjpeg and libpng (cpp/decode.cpp). Here:
-- a JPEG decodes through the port's baseline decoder on every machine:
-  the markers and the Huffman decode on the host (utils/jpeg.py over
+- a JPEG decodes through the port's decoder on every machine (baseline,
+  progressive and arithmetic-coded; 1, 3 or 4 components): the markers
+  and the entropy decode on the host (utils/jpeg.py over
   csrc/jpeg_entropy.cpp, which releases the GIL), then the pixel stage of
   kernels/jpeg.py on the target device: the CUDA kernel `jpeg_pixels` for
   a CUDA target, the plain PyTorch version for a CPU one. The result equals
-  libjpeg-turbo's default decode bit for bit. libjpeg is not used;
+  the JAX package's load_image bit for bit (libjpeg-turbo's default
+  decode; for CMYK and YCCK, Pillow's reading of it). libjpeg is not used;
 - a PNG decodes through cpp/decode.cpp's libpng where that library builds
-  (`load`, `available`), else through utils/png.py.
+  (`load`, `available`) and takes the file, else through utils/png.py,
+  which reads every PNG kind.
 
 `decode_rgb` / `decode_rgb_bytes` give host arrays (a JPEG's pixel stage
 then runs on the CPU). `read_image` gives the host half of a decode (a

@@ -1,14 +1,20 @@
 """A small PNG reader and writer on the standard library's zlib and numpy.
 
-The reader decodes what a tile dataset holds: 8-bit greyscale, greyscale
-with alpha, RGB and RGBA, not interlaced, with any of the five row
-filters. Anything else (palettes, 16-bit samples, Adam7) raises. The
-loader uses it for PNG files when the native decoder (cpp/decode.cpp,
-which needs the libpng and libjpeg headers) did not build, and for the
-target masks. The writer writes the 8-bit greyscale masks of
-`prep.targets` (the JAX package writes them with imageio) and the RGB
-overlays of `utils.visualize` (the JAX package writes them with Pillow):
-no row filters, zlib level 6.
+The reader decodes every PNG kind: greyscale at 1, 2, 4, 8 and 16 bits,
+palette images (with or without tRNS), greyscale with alpha, RGB and RGBA
+at 8 and 16 bits, each plain or Adam7-interlaced, with any of the five
+row filters. It gives the 8-bit samples that the JAX package's loader
+reads (libpng where that library takes the file, cpp/decode.cpp; Pillow
+where it declines, alpha and 16-bit files): low-bit grey scaled to 0-255,
+palettes looked up (an index past the palette is black), 16-bit grey
+clipped at 255 (Pillow's "I;16") and 16-bit colour and alpha images cut
+to their high bytes (Pillow's "RGB;16B", "LA;16B", "RGBA;16B"). Gamma and
+colour-profile chunks are ignored. The loader uses it for PNG files when
+the native decoder (cpp/decode.cpp, which needs the libpng and libjpeg
+headers) did not build, and for the target masks. The writer writes the
+8-bit greyscale masks of `prep.targets` (the JAX package writes them with
+imageio) and the RGB overlays of `utils.visualize` (the JAX package
+writes them with Pillow): no row filters, zlib level 6.
 """
 
 import struct
@@ -17,8 +23,12 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-#: colour type -> samples per pixel, for 8-bit images
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+#: colour type -> (samples per pixel, the bit depths it may have)
+_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+          4: (2, (8, 16)), 6: (4, (8, 16))}
+#: Adam7: each pass's first column, first row, column step and row step
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes):
@@ -54,8 +64,9 @@ def _average_row(row, prev, bpp):
         row[i] = (row[i] + ((a + prev[i]) >> 1)) & 0xFF
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    stride = w * bpp
+def _unfilter(raw, h: int, stride: int, bpp: int) -> np.ndarray:
+    """(h, stride) uint8 of `h` filtered rows of `stride` bytes, `bpp`
+    bytes a pixel (at least 1) for the filters' left neighbour."""
     rows = np.frombuffer(raw, np.uint8)
     if rows.size != h * (stride + 1):
         raise ValueError("PNG image data has the wrong length")
@@ -66,8 +77,9 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
         kind, line = rows[y, 0], rows[y, 1:]
         if kind == 0:
             cur = line.copy()
-        elif kind == 1:  # Sub: running sum of each channel along the row
-            cur = np.cumsum(line.reshape(w, bpp), axis=0,
+        elif kind == 1:  # Sub: running sum of each byte lane along the row
+            # (stride is a whole number of bpp: bpp is 1 below 8 bits)
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
                             dtype=np.uint8).reshape(stride)
         elif kind == 2:  # Up
             cur = line + prev
@@ -83,28 +95,85 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(rows, w, depth, channels):
+    """Unfiltered rows (h, stride) -> (h, w, channels) samples (uint8, or
+    uint16 at 16 bits), big-endian as stored."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").reshape(h, -1)[:, :w * channels].reshape(
+            h, w, channels).astype(np.uint16)
+    if depth == 8:
+        return rows[:, :w * channels].reshape(h, w, channels)
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[..., None]
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C) uint8 with C = 1, 2, 3 or 4 samples as
-    stored (grey, grey+alpha, RGB, RGBA)."""
+    """PNG bytes -> (H, W, C) uint8 with C = 1, 2, 3 or 4 samples (grey,
+    grey+alpha, RGB, RGBA; a palette image gives RGB), 8 bits each as the
+    JAX package's loader reads them (see the module's docstring)."""
     if not data.startswith(SIGNATURE):
         raise ValueError("not a PNG file")
-    header, idat = None, []
+    header, palette, idat = None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
+            if len(body) != 13:
+                raise ValueError("bad PNG IHDR chunk")
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            if len(body) % 3 or not 3 <= len(body) <= 768:
+                raise ValueError("bad PNG PLTE chunk")
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise ValueError("PNG without IHDR")
-    w, h, depth, colour, _, _, interlace = header
-    if depth != 8 or colour not in _CHANNELS or interlace:
-        raise ValueError(
-            f"unsupported PNG: bit depth {depth}, colour type {colour}, "
-            f"interlace {interlace} (8-bit grey, grey+alpha, RGB or RGBA "
-            f"without interlacing only)")
-    bpp = _CHANNELS[colour]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w, bpp)
-    return pixels.reshape(h, w, bpp)
+    w, h, depth, colour, method, filters, interlace = header
+    if colour not in _TYPES or depth not in _TYPES[colour][1]:
+        raise ValueError(f"bad PNG: bit depth {depth} with colour type "
+                         f"{colour}")
+    if w == 0 or h == 0 or method or filters or interlace > 1:
+        raise ValueError(f"bad PNG header {header}")
+    if colour == 3 and palette is None:
+        raise ValueError("PNG palette image without PLTE")
+    channels = _TYPES[colour][0]
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"bad PNG image data: {e}") from e
+    bits = depth * channels
+    bpp = max(1, bits // 8)
+    if interlace:
+        out = np.zeros((h, w, channels), np.uint16 if depth == 16
+                       else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:  # an empty pass has no rows at all
+                continue
+            stride = -(-pw * bits // 8)
+            n = ph * (stride + 1)
+            out[y0::dy, x0::dx] = _samples(
+                _unfilter(raw[pos:pos + n], ph, stride, bpp), pw, depth,
+                channels)
+            pos += n
+        if pos != len(raw):
+            raise ValueError("PNG image data has the wrong length")
+    else:
+        out = _samples(_unfilter(raw, h, -(-w * bits // 8), bpp), w, depth,
+                       channels)
+    if colour == 3:  # an index past the palette is black
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette)] = palette
+        return table[out[..., 0]]
+    if depth < 8:  # grey scaled to 0-255: x 255, 85 or 17
+        return out * np.uint8(255 // ((1 << depth) - 1))
+    if depth == 16:
+        if colour == 0:  # Pillow's "I;16", clipped at 255
+            return np.minimum(out, 255).astype(np.uint8)
+        return (out >> 8).astype(np.uint8)
+    return out
 
 
 def to_rgb(pixels: np.ndarray) -> np.ndarray:

@@ -417,6 +417,45 @@ def test_http_jpeg_body_matches_the_jax_daemon():
         jax_server.shutdown()
 
 
+def test_progressive_jpeg_and_palette_png_bodies_answer_as_baseline(
+        monkeypatch):
+    """Through the port's HTTP daemon, with PNG read by the standard
+    library's reader (no libpng, as on the card's machine): a progressive
+    JPEG body gets the answer of the same tile sent as a baseline JPEG
+    (the same coefficients), and a palette PNG body that of its RGB PNG."""
+    from PIL import Image
+
+    monkeypatch.setattr(native_decode, "_png_native", lambda data: None)
+    img = _images(1, seed=23)[0]
+    bodies = {}
+    for kind, progressive in (("baseline", False), ("progressive", True)):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="JPEG", quality=90,
+                                  progressive=progressive)
+        bodies[kind] = (buf.getvalue(), "image/jpeg")
+    palette = Image.fromarray(img).quantize(64)
+    for kind, picture in (("palette", palette),
+                          ("rgb", Image.fromarray(
+                              np.asarray(palette.convert("RGB"))))):
+        buf = io.BytesIO()
+        picture.save(buf, format="PNG")
+        bodies[kind] = (buf.getvalue(), "image/png")
+    assert bodies["palette"][0][25] == 3  # colour type: palette
+    server = ServingDaemon(_batcher(), HW, {"batch_size": 4}, device="cpu",
+                           port=0)
+    server.start_background()
+    try:
+        answers = {kind: _post(f"http://127.0.0.1:{server.port}/v1/predict",
+                               body, {"Content-Type": kind_type,
+                                      "X-Image-Id": "5"})["annotations"]
+                   for kind, (body, kind_type) in bodies.items()}
+    finally:
+        server.shutdown()
+    assert answers["baseline"] and answers["rgb"]
+    _assert_same_annotations(answers["progressive"], answers["baseline"])
+    _assert_same_annotations(answers["palette"], answers["rgb"])
+
+
 def test_host_arrays_and_decoder_tiles_batch_together():
     """One batch of host arrays and tensor tiles (the decoder's, as a
     JPEG body leaves them): they stack on one device, and every caller

@@ -128,9 +128,15 @@ def test_png_reader_matches_pil(tmp_path, mode, channels):
 
 
 def test_png_reader_refuses_other_formats():
+    """What no PNG is: a bit depth the colour type does not have (16-bit
+    RGB, once refused here, is read since every PNG kind is; see
+    tests/test_torch_png.py), and an unknown interlace method."""
     data = bytearray(_encode_png(np.zeros((2, 2, 3), np.uint8), (0,)))
-    data[24] = 16  # bit depth 16
-    with pytest.raises(ValueError, match="unsupported PNG"):
+    data[24] = 4  # bit depth 4 with colour type 2 (RGB)
+    with pytest.raises(ValueError, match="bad PNG: bit depth 4"):
+        png.decode_png(bytes(data))
+    data[24], data[28] = 8, 2  # interlace method 2
+    with pytest.raises(ValueError, match="bad PNG header"):
         png.decode_png(bytes(data))
 
 

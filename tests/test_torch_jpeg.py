@@ -1,11 +1,15 @@
 """The port's JPEG decoder (utils/jpeg.py, csrc/jpeg_entropy.cpp and the
-plain pixel stage of kernels/jpeg.py) against libjpeg as the JAX package
-decodes (mapping_tpu/utils/native_decode.decode_rgb over cpp/decode.cpp)
-and against Pillow: the same RGB bytes, exactly, on the committed corpus
-(tests/fixtures/jpeg_corpus), on drawn sizes in every supported sampling,
-on truncated streams and on the port encoder's files; the refused kinds
-raise naming their feature; the batch entry and the loader's batch equal
-the JAX loader's.
+plain pixel stage of kernels/jpeg.py) against the JAX package's decode
+(mapping_tpu.data.loader.load_image: libjpeg over cpp/decode.cpp, Pillow
+where libjpeg declines, as for CMYK) and against Pillow: the same RGB
+bytes, exactly, on the committed corpus (tests/fixtures/jpeg_corpus:
+baseline, progressive with its scripts and truncated cuts, arithmetic
+coding, sampling ratios 3 and 4, CMYK and YCCK), on drawn sizes in every
+sampling Pillow writes, baseline and progressive, on truncated streams and
+on the port encoder's files; the refused kinds raise naming their feature;
+the batch entry and the loader's batch equal the JAX loader's; the plain
+stage's box upsampling and CMYK / YCCK colour against numpy restatements
+of libjpeg's and Pillow's C.
 
 The CUDA kernel `jpeg_pixels` runs only on the card (chip_smoke.py phase 16
 holds it equal to this plain version and to the corpus digests); here its
@@ -28,6 +32,7 @@ from hypothesis import given, settings, strategies as st
 from PIL import Image
 
 from mapping_tpu.data.loader import SegmentationLoader as JaxLoader
+from mapping_tpu.data.loader import load_image
 from mapping_tpu.utils import native_decode as jax_decode
 from mapping_tpu_torch.data.loader import SegmentationLoader
 from mapping_tpu_torch.kernels import jpeg as pixels
@@ -51,6 +56,13 @@ def _libjpeg(data: bytes, tmp_path) -> np.ndarray:
     return jax_decode.decode_rgb(str(path))
 
 
+def _jax(data: bytes, tmp_path) -> np.ndarray:
+    """The JAX package's decode of a file: libjpeg, else Pillow."""
+    path = tmp_path / "ref.jpg"
+    path.write_bytes(data)
+    return load_image(str(path))
+
+
 def _picture(h, w, seed):
     rng = np.random.RandomState(seed)
     img = rng.randint(0, 70, (h, w, 3)) + np.linspace(0, 180, w)[None, :,
@@ -58,28 +70,226 @@ def _picture(h, w, seed):
     return img.astype(np.uint8)
 
 
+#: corpus files Pillow does not read as libjpeg does: streams cut short
+#: (Pillow refuses them) and corrupt ones
+_CUT = ("truncated.jpg", "prog_cut_scan1.jpg", "prog_cut_scan4.jpg")
+
+
 @pytest.mark.parametrize("name", DECODED)
 def test_corpus_decodes_as_libjpeg(name, tmp_path):
-    """Each corpus file decodes to the digest of libjpeg's decode written
-    in the manifest, equal to the JAX decoder's (and Pillow's where it
-    reads the file)."""
+    """Each corpus file decodes, through `read_bytes` and `read_image`, to
+    the digest of the JAX package's decode written in the manifest (by
+    libjpeg, or by Pillow for CMYK and YCCK), equal to that decode now
+    (and to Pillow's where it reads the file)."""
     data = (CORPUS / name).read_bytes()
     entry = MANIFEST[name]
     assert hashlib.sha256(data).hexdigest() == entry["sha256"]
     got = _port(data)
     assert list(got.shape) == entry["shape"]
     assert hashlib.sha256(got.tobytes()).hexdigest() == entry["decode_sha256"]
-    np.testing.assert_array_equal(got, _libjpeg(data, tmp_path))
-    if name != "truncated.jpg":  # Pillow refuses a truncated stream
+    np.testing.assert_array_equal(native_decode.decode_rgb(CORPUS / name),
+                                  got)
+    np.testing.assert_array_equal(got, _jax(data, tmp_path))
+    if name not in _CUT:
         np.testing.assert_array_equal(
             got, np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
 
 
 @pytest.mark.parametrize("name", REFUSED)
-def test_refused_kinds_raise_naming_the_feature(name):
+def test_refused_kinds_raise_naming_the_feature(name, tmp_path):
+    """The kinds the port refuses raise a ValueError naming the feature;
+    the JAX package refuses them too, except where the manifest says it
+    reads the file (`jax_reads`: lossless JPEG through Pillow, a gap)."""
     data = (CORPUS / name).read_bytes()
-    with pytest.raises(ValueError, match=MANIFEST[name]["refused"]):
+    entry = MANIFEST[name]
+    with pytest.raises(ValueError, match=entry["refused"]):
         _port(data)
+    if "jax_reads" in entry:
+        assert hashlib.sha256(_jax(data, tmp_path).tobytes()).hexdigest() \
+            == entry["jax_reads"]
+    else:
+        with pytest.raises(Exception):
+            _jax(data, tmp_path)
+
+
+@pytest.mark.parametrize("sampling", ["4:4:4", "4:2:2", "4:2:0"])
+@settings(max_examples=8, deadline=None)
+@given(h=st.integers(1, 67), w=st.integers(1, 67),
+       quality=st.integers(20, 100), seed=st.integers(0, 2 ** 16))
+def test_drawn_progressive_decode_as_libjpeg(tmp_path_factory, sampling, h,
+                                             w, quality, seed):
+    """Pillow's progressive files (libjpeg's default script: successive
+    approximation, interleaved DC, spectral bands) at drawn sizes and
+    qualities decode as the JAX package decodes them, and to the pixels
+    of the baseline file of the same coefficients."""
+    img = _picture(h, w, seed)
+    files = {}
+    for progressive in (False, True):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=quality,
+                                  subsampling=PIL_SAMPLING[sampling],
+                                  progressive=progressive)
+        files[progressive] = buf.getvalue()
+    got = _port(files[True])
+    np.testing.assert_array_equal(
+        got, _jax(files[True], tmp_path_factory.mktemp("prog")))
+    np.testing.assert_array_equal(got, _port(files[False]))
+
+
+@pytest.mark.parametrize("cut", [0.12, 0.3, 0.45, 0.6, 0.75, 0.9])
+@pytest.mark.parametrize("sampling", [0, 2])
+def test_truncated_progressive_decode_as_libjpeg(tmp_path, cut, sampling):
+    """A progressive stream that ends early: libjpeg keeps what the scans
+    brought, fills the rest with zeros and smooths the blocks whose AC
+    coefficients are not all known (libjpeg-turbo 2.1's block smoothing);
+    a cut inside a marker segment reads the source's fake EOI bytes. The
+    port gives the JAX package's pixels, or both refuse."""
+    buf = io.BytesIO()
+    Image.fromarray(_picture(70, 90, 2)).save(
+        buf, "JPEG", quality=85, subsampling=sampling, progressive=True)
+    data = buf.getvalue()[:int(len(buf.getvalue()) * cut)]
+    try:
+        want = _jax(data, tmp_path)
+    except Exception:
+        with pytest.raises(ValueError):
+            _port(data)
+        return
+    np.testing.assert_array_equal(_port(data), want)
+
+
+_JSIMD_DECODE = (
+    "import sys\n"
+    "import numpy as np\n"
+    "from mapping_tpu.utils import native_decode\n"
+    "rgb = native_decode.decode_rgb(sys.argv[1])\n"
+    "np.save(sys.argv[2], rgb)\n")
+
+
+@pytest.mark.parametrize("name", ["arith_300.jpg", "arith_prog.jpg"])
+def test_truncated_arithmetic_decode_as_libjpegs_c(tmp_path, name):
+    """An arithmetic-coded stream that ends early: the decoder reads zeros
+    past the data (jdarith.c), which decode to coefficients past 16 bits.
+    The port follows libjpeg's C definitions there (its pixel stage is
+    jidctint.c's); an x86-64 libjpeg-turbo runs a SIMD IDCT (SSE2 /
+    AVX2) that wraps such values in 16 bits, so the JAX decoder is run
+    with JSIMD_FORCENONE=1, libjpeg-turbo's switch to its C code, in a
+    child process."""
+    import os
+
+    data = (CORPUS / name).read_bytes()
+    for k, cut in enumerate((0.3, 0.55, 0.8)):
+        part = data[:int(len(data) * cut)]
+        src, dst = tmp_path / f"cut{k}.jpg", tmp_path / f"cut{k}.npy"
+        src.write_bytes(part)
+        out = subprocess.run(
+            [sys.executable, "-c", _JSIMD_DECODE, str(src), str(dst)],
+            capture_output=True, text=True, timeout=120, cwd=str(ROOT),
+            env={**os.environ, "JSIMD_FORCENONE": "1"})
+        assert out.returncode == 0, out.stderr
+        np.testing.assert_array_equal(_port(part), np.load(dst))
+
+
+def _int_upsample(plane, rh, rv, height, width):
+    """jdsample.c int_upsample (and h2v1_upsample / h2v2_upsample): each
+    sample repeated rh times along its row, each row rv times."""
+    rows = np.repeat(np.repeat(plane, rh, axis=1), rv, axis=0)
+    return rows[:height, :width]
+
+
+@pytest.mark.parametrize("rh, rv, cw", [
+    (3, 1, 9), (4, 1, 7), (1, 3, 5), (1, 4, 6), (2, 4, 8), (4, 2, 3),
+    (3, 3, 4), (4, 4, 5), (2, 3, 7), (3, 2, 6), (2, 1, 2), (2, 2, 1),
+    (2, 2, 2), (4, 3, 1)])
+def test_box_upsampling_is_int_upsample(rh, rv, cw):
+    """The plain stage's upsampling of every ratio libjpeg-turbo 2.1 does
+    not upsample fancily (jdsample.c jinit_upsampler: h2v1 / h2v2 at most
+    2 samples wide, and every ratio other than 1 or 2) is box
+    replication, on a component plane's real samples."""
+    assert pixels.upsampling(rh, rv, cw) == "box"
+    rng = np.random.RandomState(rh * 10 + rv)
+    ch = 5
+    plane = rng.randint(0, 256, (ch + 3, cw + 5)).astype(np.uint8)
+    height, width = ch * rv - rng.randint(rv), cw * rh - rng.randint(rh)
+    y = torch.arange(height)
+    got = pixels._upsample(torch.from_numpy(plane)[None], ch, cw, rh, rv, y,
+                           width)[0].numpy()
+    np.testing.assert_array_equal(
+        got, _int_upsample(plane.astype(np.int64), rh, rv, height, width))
+
+
+def test_upsampling_choice_is_jinit_upsamplers():
+    """jdsample.c jinit_upsampler with fancy upsampling (the default):
+    fullsize at 1 x 1, fancy h2v1 / h2v2 where the component is more than
+    2 samples wide, fancy h1v2 always, and int_upsample (box) else."""
+    for rh in (1, 2, 3, 4):
+        for rv in (1, 2, 3, 4):
+            for cw in (1, 2, 3, 40):
+                if (rh, rv) == (1, 1):
+                    want = "full"
+                elif (rh, rv) == (1, 2):
+                    want = "h1v2"
+                elif (rh, rv) in ((2, 1), (2, 2)) and cw > 2:
+                    want = f"h2v{rv}"
+                else:
+                    want = "box"
+                assert pixels.upsampling(rh, rv, cw) == want
+
+
+def _fix(x):
+    return int(x * 65536 + 0.5)
+
+
+def _ycck_to_cmyk(y, cb, cr, k):
+    """jdcolor.c ycck_cmyk_convert with build_ycc_rgb_table's tables and
+    the sample range limit table (a clamp to 0..255)."""
+    x_cr, x_cb = cr - 128, cb - 128
+    cr_r = (_fix(1.40200) * x_cr + (1 << 15)) >> 16
+    cb_b = (_fix(1.77200) * x_cb + (1 << 15)) >> 16
+    cr_g = -_fix(0.71414) * x_cr
+    cb_g = -_fix(0.34414) * x_cb + (1 << 15)
+    c = np.clip(255 - (y + cr_r), 0, 255)
+    m = np.clip(255 - (y + ((cb_g + cr_g) >> 16)), 0, 255)
+    yy = np.clip(255 - (y + cb_b), 0, 255)
+    return c, m, yy, k
+
+
+def _pillow_cmyk_rgb(c, m, y, k):
+    """Pillow's reading of libjpeg's CMYK: the "CMYK;I" raw mode inverts
+    every sample, then Convert.c cmyk2rgb: CLIP8(nk - MULDIV255(v, nk))
+    with nk = 255 - the inverted K."""
+    inv = [255 - v for v in (c, m, y, k)]
+    nk = 255 - inv[3]
+
+    def muldiv255(a, b):
+        t = a * b + 128
+        return ((t >> 8) + t) >> 8
+
+    return np.stack([np.clip(nk - muldiv255(v, nk), 0, 255)
+                     for v in inv[:3]], -1)
+
+
+@pytest.mark.parametrize("color", ["cmyk", "ycck"])
+def test_cmyk_and_ycck_colour_is_libjpeg_then_pillow(color):
+    """The plain colour stage of 4-component pixels equals a numpy
+    restatement of libjpeg's CMYK output (jdcolor.c) read by Pillow
+    (Unpack.c "CMYK;I", Convert.c cmyk2rgb), and Pillow itself on the
+    restated CMYK samples; every sample value meets every K."""
+    from mapping_tpu_torch.utils.jpeg import Geometry
+
+    rng = np.random.RandomState(7)
+    h, w = 64, 64
+    planes = rng.randint(0, 256, (4, h, w)).astype(np.int64)
+    planes[3] = np.arange(256).reshape(16, 16).repeat(4, 0).repeat(4, 1)
+    g = Geometry(h, w, ((1, 1),) * 4, color)
+    got = pixels.color_plain(torch.from_numpy(
+        planes.astype(np.uint8).reshape(1, -1)), g)[0].numpy()
+    cmyk = _ycck_to_cmyk(*planes) if color == "ycck" else tuple(planes)
+    want = _pillow_cmyk_rgb(*cmyk)
+    np.testing.assert_array_equal(got, want)
+    raw = np.stack(cmyk, -1).astype(np.uint8)  # libjpeg's samples
+    pil = Image.frombuffer("CMYK", (w, h), raw.tobytes(), "raw", "CMYK;I", 0,
+                           1).convert("RGB")
+    np.testing.assert_array_equal(got, np.asarray(pil))
 
 
 def _sized(data, height, width):
@@ -308,29 +518,43 @@ def test_quant_tables_past_16_bits_are_refused(value):
 
 def test_geometry_record_matches_the_cuda_struct():
     """kernels/jpeg.geometry_record lays out csrc/jpeg_pixels.cu's
-    JpegGeom: 9 scalars, then 8 arrays of 3, with the values the kernel
-    reads (MCUs, the largest factors, each component's factors, first
-    block, real samples, ratios and fancy flag)."""
+    JpegGeom: 9 scalars, then 8 arrays of 4 (kMaxComps: CMYK and YCCK),
+    with the values the kernel reads (MCUs, the largest factors, each
+    component's factors, first block, real samples, ratios and fancy
+    flag: h2v1 / h2v2 fancy where more than 2 samples wide, h1v2 fancy,
+    else box replication)."""
     src = (ROOT / "mapping_tpu_torch" / "csrc" / "jpeg_pixels.cu").read_text()
     body = src[src.index("struct JpegGeom {"):].split("};")[0]
     scalars = body.split(";")[0].split("{")[1].count(",") + 1
-    arrays = body.count("[3]")
+    arrays = body.count("[4]")
     assert (scalars, arrays) == (9, 8)
-    assert pixels.GEOM_INTS == 9 + 3 * 8
+    assert "constexpr int kMaxComps = 4;" in src
+    assert pixels.GEOM_INTS == 9 + 4 * 8
     g = jpeg.read_coefficients(jpeg.encode(_picture(9, 30, 7), 80,
                                            "4:2:2")).geometry
     rec = list(pixels.geometry_record(g))
     assert len(rec) == pixels.GEOM_INTS
     assert rec[:9] == [3, 9, 30, g.n_blocks, 1, 2, 2, 2, 1]
-    arrays = [rec[9 + 3 * i:12 + 3 * i] for i in range(8)]
-    assert arrays == [[2, 1, 1], [1, 1, 1], list(g.first_block),
-                      [9, 9, 9], [30, 15, 15], [1, 2, 2], [1, 1, 1],
-                      [1, 1, 1]]
+    arrays = [rec[9 + 4 * i:13 + 4 * i] for i in range(8)]
+    assert arrays == [[2, 1, 1, 0], [1, 1, 1, 0], list(g.first_block) + [0],
+                      [9, 9, 9, 0], [30, 15, 15, 0], [1, 2, 2, 0],
+                      [1, 1, 1, 0], [0, 1, 1, 0]]
     gray = jpeg.read_coefficients(jpeg.encode(_picture(5, 3, 7)[..., 0],
                                               80)).geometry
     rec = list(pixels.geometry_record(gray))
     assert rec[:9] == [1, 5, 3, 1, 0, 1, 1, 1, 1]
-    assert rec[9:12] == [1, 0, 0]  # unused components are zero
+    assert rec[9:13] == [1, 0, 0, 0]  # unused components are zero
+    ycck = jpeg.read_coefficients(
+        (CORPUS / "ycck_2x2.jpg").read_bytes()).geometry
+    rec = list(pixels.geometry_record(ycck))
+    assert rec[0] == 4 and rec[4] == pixels.COLORS["ycck"] == 4
+    arrays = [rec[9 + 4 * i:13 + 4 * i] for i in range(8)]
+    assert arrays[0] == [2, 1, 1, 2] and arrays[5] == [1, 2, 2, 1]
+    assert arrays[7] == [0, 1, 1, 0]
+    box = jpeg.read_coefficients((CORPUS / "s411.jpg").read_bytes()).geometry
+    arrays = [v for v in pixels.geometry_record(box)][9:]
+    assert arrays[20:24] == [1, 4, 4, 0]  # ratio_h
+    assert arrays[28:32] == [0, 0, 0, 0]  # box replication, no halo
 
 
 def _pass(d, shift, dtype):
@@ -447,13 +671,14 @@ def test_loader_batch_equals_the_jax_loaders(tmp_path):
 
 
 def test_corpus_decodes_with_jax_pil_and_libjpeg_blocked():
-    """In a process where jax, flax, PIL and the JAX package cannot be
-    imported and the libjpeg/libpng library does not load, every corpus
-    file decodes to its libjpeg digest and each refused kind raises a
-    ValueError naming its feature."""
+    """In a process where jax, flax, PIL, pandas, joblib, sklearn and the
+    JAX package cannot be imported and the libjpeg/libpng library does
+    not load, every corpus file decodes to the JAX package's digest and
+    each refused kind raises a ValueError naming its feature."""
     code = (
         "import sys, json, hashlib\n"
-        "for m in ('jax', 'flax', 'PIL', 'mapping_tpu'):\n"
+        "for m in ('jax', 'flax', 'PIL', 'pandas', 'joblib', 'sklearn',\n"
+        "          'mapping_tpu'):\n"
         "    sys.modules[m] = None\n"
         "from pathlib import Path\n"
         "from mapping_tpu_torch.utils import native_decode\n"
