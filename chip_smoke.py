@@ -43,7 +43,7 @@ the JAX package is imported. Phases, each printing what it found:
      and dec1.block.0.conv (20, 128, 128, 128), with the parent tree's
      kernel where present;
   6. prepare: a CrowdAI-style split under build/chip_smoke_prepare/, PNG
-     written with the standard library: train holds 1,000 synthetic 300^2
+     written with the standard library: train holds 700 synthetic 300^2
      tiles (tests/fixtures/synthetic.py `_make_image`, up to 20
      buildings), a crowded tile of 150 small buildings (more than
      MAX_OBJECTS = 128: the chunked path) and a tile without annotations;
@@ -92,7 +92,7 @@ the JAX package is imported. Phases, each printing what it found:
      must give AP = AR = 1. Prints the default run's images/s and its
      seconds in decode, on the device, in annotation + RLE and in COCOeval
      (host clock);
-  9. train CLI: on phase 6's split (1,002 train tiles, 110 val), at full
+  9. train CLI: on phase 6's split (702 train tiles, 110 val), at full
      width (ResNet101, bf16, batch 20, 256^2, weighted loss) and the JAX
      config's defaults but for the number of epochs and the checkpoint
      cadence, four legs through `python3 -m mapping_tpu_torch.main`'s
@@ -277,7 +277,24 @@ the JAX package is imported. Phases, each printing what it found:
      CUDA-graph replays (20 calls a graph), each batch first held equal
      to the plain version, in turns with the parent tree's jpeg_pixels where
      a copy lies under build/old/, the plain version, the bounds, and the host Huffman decode in ms a tile on 1
-     and 8 threads.
+     and 8 threads;
+ 17. TIFF and PNG gamma, under build/chip_smoke_tiff/, in at most
+     TIFF_BUDGET_S: (a) every file of tests/fixtures/tiff_corpus (Pillow's
+     and the port writer's: strips and tiles, planar data, none / LZW /
+     Deflate / PackBits, predictor 2, both byte orders, BigTIFF, grey,
+     palette, 16-bit, alpha, fill order 2, orientation, two pages) must
+     decode through `native_decode` to the SHA-256 of the JAX package's
+     decode in the manifest, and the refused kinds must raise naming their
+     feature; every file of tests/fixtures/png_gamma (gAMA values on both
+     sides of libpng's thresholds, sRGB / cHRM / iCCP next to them, low-bit
+     grey and palettes, files the JAX loader hands to Pillow) must decode
+     to the JAX package's RGB and grey reads, through libpng where it
+     builds and through the port's own reader, which this machine has
+     (no libpng); (b) TIFF_TILES synthetic 300^2 tiles written by the
+     port's TIFF writer (LZW + predictor 2, one of them tiled) and the same
+     pixels as PNG: `predict_on_dir -p unet_weighted` in this process on
+     the card, on phase 9 (a)'s weights, must write the same
+     prediction.json for both and launch the CCL kernels.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -339,7 +356,9 @@ PREP_DIR = ROOT / "build" / "chip_smoke_prepare"
 #: tiles of phase 6: train (besides a crowded and an empty tile), val, the
 #: in-process sample of each mode, the tiles checked against the CPU, the
 #: plain CCL and scipy
-PREP_TRAIN, PREP_VAL, PREP_SAMPLE, PREP_CHECKED = 1000, 110, 100, 20
+#: (1,000 train tiles until the script neared 1,000 s of its 1,200 s
+#: limit with phase 17)
+PREP_TRAIN, PREP_VAL, PREP_SAMPLE, PREP_CHECKED = 700, 110, 100, 20
 PREP_CROWDED = 150  # buildings on the crowded tile, > MAX_OBJECTS = 128
 #: the modes of phase 6 besides the JAX defaults (no erosion, dilation or
 #: border), as overlay_masks arguments
@@ -376,7 +395,7 @@ SERVE_DEADLINE = 300  # seconds a serve child gets to answer /v1/health
 SERVE_PARAMS = {}
 ZOO_DIR = ROOT / "build" / "chip_smoke_zoo"
 #: phase 12's families (the config's `encoder`), the tiles of its train
-#: sub-split (phase 6's train split holds 1,002), and the train steps of its
+#: sub-split (phase 6's train split holds 702), and the train steps of its
 #: multi-head leg
 ZOO_FAMILIES = ("VGG11", "VGG16", "from_scratch", "UNetPlusPlus")
 ZOO_TRAIN, ZOO_MULTI_STEPS = 200, 3
@@ -450,6 +469,12 @@ JPEG_REPS, JPEG_PLAIN_REPS, JPEG_ENTROPY_TILES = 50, 20, 200
 #: host takes to replay a graph
 JPEG_GRAPH_CALLS = 20
 JPEG_BUDGET_S = 40.0
+TIFF_DIR = ROOT / "build" / "chip_smoke_tiff"
+TIFF_CORPUS = ROOT / "tests" / "fixtures" / "tiff_corpus"
+PNG_GAMMA = ROOT / "tests" / "fixtures" / "png_gamma"
+#: phase 17 (b): the tiles written as TIFF and as PNG; the phase's budget
+TIFF_TILES = 8
+TIFF_BUDGET_S = 30.0
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
 CLI_CHILD = ("import json, sys\n"
@@ -4178,6 +4203,120 @@ def jpeg_phase(smi, png_run):
         {"jpeg_pixels": bound[BATCH]}
 
 
+def corpus_digests(corpus, read, key):
+    """Phase 17 (a): each file of `corpus` through `read` (bytes -> RGB):
+    the manifest's JAX digest under `key`, or the refusal naming its
+    feature. Returns (files decoded, refused)."""
+    import hashlib
+
+    manifest = json.loads((corpus / "manifest.json").read_text())
+    decoded = refused = 0
+    for name, entry in sorted(manifest.items()):
+        data = (corpus / name).read_bytes()
+        if hashlib.sha256(data).hexdigest() != entry["sha256"]:
+            raise AssertionError(f"{name}: not the committed file")
+        if "refused" in entry:
+            try:
+                read(data)
+            except ValueError as e:
+                if entry["refused"] not in str(e):
+                    raise AssertionError(f"{name}: {e}") from e
+                refused += 1
+                continue
+            raise AssertionError(f"{name} decoded; it should be refused")
+        if entry[key] is None:
+            continue
+        got = hashlib.sha256(np.ascontiguousarray(read(data)).tobytes())
+        if got.hexdigest() != entry[key]:
+            raise AssertionError(f"{name}: not the JAX package's decode "
+                                 f"({key})")
+        decoded += 1
+    return decoded, refused
+
+
+def tiff_phase(smi):
+    """Phase 17: TIFF tiles and PNG gamma through the port's readers, and
+    predict_on_dir over TIFF tiles = over the same pixels as PNG. Returns
+    the CCL launches of the TIFF run."""
+    from mapping_tpu_torch import main as cli
+    from mapping_tpu_torch.kernels import ccl
+    from mapping_tpu_torch.utils import native_decode, png, tiff
+
+    begin = time.perf_counter()
+    libpng = native_decode.available()
+    tiffs = corpus_digests(TIFF_CORPUS, native_decode.decode_rgb_bytes,
+                           "decode_sha256")
+    reads = {"read_bytes": native_decode.decode_rgb_bytes,
+             "stdlib RGB": lambda b: png.to_rgb(png.read_png(b)),
+             "stdlib grey": lambda b: png.to_gray(png.read_png(b))}
+    pngs = {what: corpus_digests(PNG_GAMMA, read, "gray_sha256" if "grey"
+                                 in what else "rgb_sha256")
+            for what, read in reads.items()}
+    print(f"tiff: (a) {tiffs[0]} TIFF corpus files decode to the JAX "
+          f"package's digests, {tiffs[1]} refused kinds raise naming "
+          f"their feature; PNG gamma corpus (libpng "
+          f"{'built' if libpng else 'unavailable'} here): {pngs}")
+
+    # (b) the same pixels as TIFF and as PNG through predict_on_dir
+    shutil.rmtree(TIFF_DIR, ignore_errors=True)
+    fixture = synthetic_fixture()
+    rng = np.random.RandomState(17)
+    tiles = [fixture._make_image(rng, h=TILE, w=TILE, max_buildings=20)[0]
+             for _ in range(TIFF_TILES)]
+    for fmt in ("tiff", "png"):
+        (TIFF_DIR / fmt).mkdir(parents=True)
+    for i, tile in enumerate(tiles):
+        data = tiff.encode(tile, "lzw", predictor=2, tile=(
+            (128, 128) if i == 0 else None), rows_per_strip=16)
+        (TIFF_DIR / "tiff" / f"tile_{i:03d}.tif").write_bytes(data)
+        (TIFF_DIR / "png" / f"tile_{i:03d}.png").write_bytes(
+            png.encode_png(tile))
+    experiment = TIFF_DIR / "experiment"
+    (experiment / "transformers").mkdir(parents=True)
+    shutil.copy2(TRAIN_DIR / "full" / "transformers" / "unet.pt",
+                 experiment / "transformers" / "unet.pt")
+    config = write_config("tiff", {
+        "data_dir": str(TIFF_DIR), "meta_dir": str(TIFF_DIR / "meta"),
+        "experiment_dir": str(experiment), "device": DEVICE,
+        **EVAL_PARAMS}, where=TIFF_DIR)
+    runs = {}
+    for fmt in ("png", "tiff"):
+        torch.cuda.synchronize()
+        ccl.reset_launches()
+        start = time.perf_counter()
+        manager = cli.main(["--config", config, "predict_on_dir", "-p",
+                            "unet_weighted", "--dir_path",
+                            str(TIFF_DIR / fmt), "--prediction_path",
+                            str(TIFF_DIR / f"{fmt}.json")])
+        torch.cuda.synchronize()
+        runs[fmt] = (time.perf_counter() - start, dict(ccl.LAUNCHES),
+                     manager.timings)
+    same = (TIFF_DIR / "tiff.json").read_bytes() == \
+        (TIFF_DIR / "png.json").read_bytes()
+    launched = runs["tiff"][1]
+    prediction = check_prediction(TIFF_DIR / "tiff.json",
+                                  set(range(TIFF_TILES)), "TIFF tiles",
+                                  allow_empty=True)
+    if not same or min(launched.values(), default=0) < 1 \
+            or runs["tiff"][2]["images"] != TIFF_TILES:
+        raise AssertionError(f"predict_on_dir over TIFF tiles: same as PNG "
+                             f"{same}, CCL launches {launched}, "
+                             f"{runs['tiff'][2]['images']} images")
+    print(f"tiff: (b) predict_on_dir over {TIFF_TILES} TIFF tiles (LZW, "
+          f"predictor 2, one tiled) wrote the same prediction.json as over "
+          f"the PNG tiles ({len(prediction)} instances); TIFF "
+          f"{runs['tiff'][0]:.2f} s, decode_s "
+          f"{runs['tiff'][2]['decode_s']:.4f}, PNG {runs['png'][0]:.2f} s, "
+          f"decode_s {runs['png'][2]['decode_s']:.4f} (host clock); CCL "
+          f"launches {launched} on {smi}")
+    seconds = time.perf_counter() - begin
+    print(f"tiff: phase 17 took {seconds:.2f} s")
+    if seconds > TIFF_BUDGET_S:
+        raise AssertionError(f"phase 17 took {seconds:.2f} s, over its "
+                             f"{TIFF_BUDGET_S} s")
+    return launched
+
+
 def main():
     start = time.perf_counter()
     last = [start]
@@ -4217,6 +4356,8 @@ def main():
         lap(number)
     jpeg_err, jpeg_times, jpeg_launches, bound = jpeg_phase(smi, png_run)
     lap(16)
+    counted.append(tiff_phase(smi))
+    lap(17)
     for counts in counted + [jpeg_launches]:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n

@@ -1,5 +1,6 @@
 """Image decoding for the loader, the daemon and the artifact: JPEG through
-the port's own decoder, PNG through libpng or the standard-library reader.
+the port's own decoder, PNG through libpng or the standard-library reader,
+TIFF through the port's own reader.
 
 Counterpart of mapping_tpu/utils/native_decode.py, which decodes both
 formats with libjpeg and libpng (cpp/decode.cpp). Here:
@@ -13,13 +14,18 @@ formats with libjpeg and libpng (cpp/decode.cpp). Here:
   decode; for CMYK and YCCK, Pillow's reading of it). libjpeg is not used;
 - a PNG decodes through cpp/decode.cpp's libpng where that library builds
   (`load`, `available`) and takes the file, else through utils/png.py,
-  which reads every PNG kind.
+  which reads every PNG kind and applies libpng's gamma conversion where
+  libpng would: the two give the same bytes;
+- a TIFF decodes through utils/tiff.py on every machine (strips and tiles;
+  none, LZW, Deflate and PackBits; the sample layouts Pillow reads), as
+  the JAX loader reads it through Pillow.
 
 `decode_rgb` / `decode_rgb_bytes` give host arrays (a JPEG's pixel stage
 then runs on the CPU). `read_image` gives the host half of a decode (a
-JPEG's coefficients, or a PNG's pixels) and `assemble` turns a batch of
-them into one (B, H, W, 3) uint8 tensor on a device, one pixel-stage call
-per JPEG geometry; `decode_rgb_batch` is the two together.
+JPEG's coefficients, or a PNG's or TIFF's pixels) and `assemble` turns a
+batch of them into one (B, H, W, 3) uint8 tensor on a device, one
+pixel-stage call per JPEG geometry; `decode_rgb_batch` is the two
+together.
 """
 
 import ctypes
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from mapping_tpu_torch.kernels import jpeg as jpeg_pixels
-from mapping_tpu_torch.utils import jpeg, png
+from mapping_tpu_torch.utils import jpeg, png, tiff
 from mapping_tpu_torch.utils.native_lib import (NativeLib,
                                                 NativeLibraryUnavailable)
 
@@ -84,15 +90,17 @@ def _png_native(data: bytes):
 
 def read_bytes(data: bytes):
     """The host half of decoding image bytes: a JPEG's
-    `jpeg.Coefficients`, or a PNG's (H, W, 3) uint8 pixels. Anything else
-    raises ValueError."""
+    `jpeg.Coefficients`, or a PNG's or TIFF's (H, W, 3) uint8 pixels.
+    Anything else raises ValueError."""
     data = bytes(data)
     if jpeg.is_jpeg(data):
         return jpeg.read_coefficients(data)
     if data.startswith(png.SIGNATURE):
         out = _png_native(data)
-        return out if out is not None else png.to_rgb(png.decode_png(data))
-    raise ValueError("not a JPEG or PNG image")
+        return out if out is not None else png.to_rgb(png.read_png(data))
+    if tiff.is_tiff(data):
+        return tiff.decode(data)
+    raise ValueError("not a JPEG, PNG or TIFF image")
 
 
 def read_image(path):
@@ -116,13 +124,13 @@ def to_rgb(item) -> np.ndarray:
 
 
 def decode_rgb(path) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a JPEG or PNG file, on the host."""
+    """(H, W, 3) uint8 RGB of a JPEG, PNG or TIFF file, on the host."""
     return to_rgb(read_image(path))
 
 
 def decode_rgb_bytes(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of in-memory JPEG or PNG bytes (a request
-    body), on the host; anything else raises ValueError."""
+    """(H, W, 3) uint8 RGB of in-memory JPEG, PNG or TIFF bytes (a
+    request body), on the host; anything else raises ValueError."""
     return to_rgb(read_bytes(data))
 
 
@@ -241,6 +249,9 @@ def decode_rgb_batch(paths, device, size=None) -> torch.Tensor:
 def releases_gil(path) -> bool:
     """Whether decoding this file runs in native code that releases the
     GIL (so decode threads scale), by its name: a JPEG's Huffman decode
-    always, a PNG where libpng serves; the standard-library PNG reader
-    holds the GIL between its numpy calls."""
-    return str(path).lower().endswith((".jpg", ".jpeg")) or available()
+    always, a TIFF's decompression always (LZW and PackBits in
+    csrc/tiff_codecs.cpp, Deflate in zlib, the samples in numpy), a PNG
+    where libpng serves; the standard-library PNG reader holds the GIL
+    between its numpy calls."""
+    return str(path).lower().endswith((".jpg", ".jpeg", ".tif", ".tiff")) \
+        or available()

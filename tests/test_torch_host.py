@@ -160,7 +160,7 @@ def test_without_native_decoder_png_decodes_and_jpeg_raises(val_split,
         np.testing.assert_array_equal(load_image(path), jax_load_image(path))
     other = tmp_path / "tile.gif"
     other.write_bytes(b"GIF89a" + bytes(64))
-    with pytest.raises(ValueError, match="not a JPEG or PNG"):
+    with pytest.raises(ValueError, match="not a JPEG, PNG or TIFF"):
         load_image(other)
 
 

@@ -7,10 +7,20 @@ grey files without tRNS, Pillow's convert("L") else). Every colour type x
 bit depth x interlace, with and without tRNS, is written by a small PNG
 writer here (Pillow cannot write Adam7), with all five row filters. The
 port's own entry points (`native_decode.read_bytes`, `read_image`, the
-loader's mask reader) are held with libpng out of the way."""
+loader's mask reader) are held with libpng out of the way.
 
+Gamma (F7): libpng converts a file gamma to sRGB in the JAX loader's reads
+and Pillow does not; the port reproduces libpng's rule (utils/png.py's
+docstring). The corpus `tests/fixtures/png_gamma` and drawn chunk
+sequences (gAMA, sRGB, cHRM, iCCP, bad CRCs, chunks after PLTE) hold the
+port's reads against the JAX loader's with libpng (as here) and without
+it (as on the card's machine), RGB and mask alike."""
+
+import hashlib
+import json
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -188,3 +198,124 @@ def test_bad_headers_are_refused(body):
             + _chunk(b"IEND", b""))
     with pytest.raises(ValueError):
         png.decode_png(data)
+
+
+GAMMA = Path(__file__).resolve().parent / "fixtures" / "png_gamma"
+GAMMA_MANIFEST = json.loads((GAMMA / "manifest.json").read_text())
+
+
+def _digest(a):
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("libpng", [True, False],
+                         ids=["libpng", "no_libpng"])
+@pytest.mark.parametrize("name", sorted(GAMMA_MANIFEST))
+def test_gamma_corpus_reads_as_the_jax_loader(monkeypatch, name, libpng):
+    """F7: each file of the gamma corpus gives the JAX loader's RGB
+    through `read_bytes` and `read_image`, with libpng and with it
+    blocked, and the JAX `load_target`'s mask through the port's."""
+    if not libpng:
+        monkeypatch.setattr(native_decode, "_png_native", lambda data: None)
+    entry = GAMMA_MANIFEST[name]
+    path = GAMMA / name
+    data = path.read_bytes()
+    assert _digest(np.frombuffer(data, np.uint8)) == entry["sha256"]
+    want = load_image(str(path))
+    assert _digest(want) == entry["rgb_sha256"]
+    np.testing.assert_array_equal(native_decode.read_bytes(data), want)
+    np.testing.assert_array_equal(native_decode.read_image(path), want)
+    if entry["gray_sha256"] is not None:
+        mask = port_loader.load_target(str(path))[..., 0]
+        np.testing.assert_array_equal(mask, load_target(str(path))[..., 0])
+        assert _digest(mask.astype(np.uint8)) == entry["gray_sha256"]
+
+
+def test_gamma_mask_differs_from_its_samples():
+    """The grey mask with gAMA 100000: libpng's read, and so the port's
+    `load_target`, is not the stored samples (the fault F7 was on every
+    machine for masks)."""
+    path = str(GAMMA / "mask_g100000.png")
+    stored = png.decode_png((GAMMA / "mask_g100000.png").read_bytes())
+    mask = port_loader.load_target(path)[..., 0]
+    np.testing.assert_array_equal(mask, load_target(path)[..., 0])
+    assert (mask != stored[..., 0]).any()
+    assert png.gamma_table(100000)[1] == 21
+
+
+@pytest.mark.parametrize("g, corrected", [
+    (43181, True), (43182, False), (45455, False), (47847, False),
+    (47848, True), (16, True), (625_000_000, True)])
+def test_gamma_thresholds(g, corrected):
+    assert (png.gamma_table(g) is not None) == corrected
+
+
+def _drawn_chunk(rng, icc):
+    """One gAMA, sRGB, cHRM, iCCP or tEXt chunk, valid or not, its CRC
+    broken now and then."""
+    k = rng.randint(9)
+    if k <= 2:
+        body = struct.pack(">I", int(rng.choice(
+            [0, 15, 16, 20000, 43181, 43182, 45455, 47848, 100000,
+             625000001, rng.randint(1, 300000)])))
+        kind = b"gAMA"
+    elif k <= 4:
+        kind, body = b"sRGB", bytes([int(rng.choice([0, 3, 4, 7]))])
+    elif k <= 6:
+        values = [31270, 32900, 64000, 33000, 30000, 60000, 15000, 6000]
+        if rng.rand() < .4:
+            values[rng.randint(8)] = int(rng.choice([100001, 2 ** 31 + 5]))
+        kind, body = b"cHRM", struct.pack(">8I", *values)
+    elif k == 7:
+        profile = bytearray(icc)
+        r = rng.rand()
+        if r < .2:
+            profile[16:20] = b"GRAY"
+        elif r < .35:
+            profile[36:40] = b"xxxx"
+        elif r < .5:
+            profile = profile[:rng.randint(100, len(profile))]
+        elif r < .6:
+            profile = b"x" * int(rng.randint(10, 300))
+        kind, body = b"iCCP", b"p\x00\x00" + zlib.compress(bytes(profile))
+    else:
+        kind, body = b"tEXt", b"a\x00b"
+    chunk = _chunk(kind, body)
+    if rng.rand() < .08:
+        chunk = chunk[:-1] + bytes([chunk[-1] ^ 1])
+    return chunk
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_drawn_gamma_chunks_read_as_libpng(tmp_path, seed):
+    """Drawn chunk sequences before and after PLTE in grey (1-8 bits),
+    palette and RGB files: the port's stdlib reads equal the JAX loader's
+    libpng RGB and grey reads."""
+    from PIL import ImageCms
+
+    icc = ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes()
+    rng = np.random.RandomState(seed)
+    path = tmp_path / "x.png"
+    for _ in range(25):
+        colour = int(rng.choice([0, 2, 3]))
+        depth = 8 if colour == 2 else int(rng.choice([1, 2, 4, 8]))
+        samples = rng.randint(0, 256 if colour == 2 else 1 << depth,
+                              (2, 40, 3 if colour == 2 else 1))
+        raw = b"".join(b"\x00" + r.tobytes() for r in _pack(samples, depth))
+        data = png.SIGNATURE + _chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", 40, 2, depth, colour, 0, 0, 0))
+        data += b"".join(_drawn_chunk(rng, icc)
+                         for _ in range(rng.randint(0, 5)))
+        if colour == 3 or rng.rand() < .2:
+            data += _chunk(b"PLTE", bytes(rng.randint(0, 256, 3 * (
+                1 << depth if colour == 3 else 16)).astype(np.uint8)))
+        data += b"".join(_drawn_chunk(rng, icc)
+                         for _ in range(rng.randint(0, 3)))
+        data += _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b"")
+        path.write_bytes(data)
+        decoded = png.read_png(data)
+        np.testing.assert_array_equal(png.to_rgb(decoded),
+                                      load_image(str(path)))
+        if colour == 0:
+            np.testing.assert_array_equal(
+                png.to_gray(decoded), load_target(str(path))[..., 0])

@@ -281,6 +281,8 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.infer.sharded',\n"
         "        'mapping_tpu_torch.utils.jpeg',\n"
         "        'mapping_tpu_torch.kernels.jpeg',\n"
+        "        'mapping_tpu_torch.utils.tiff',\n"
+        "        'mapping_tpu_torch.utils.native_decode',\n"
         "        'mapping_tpu_torch.tools.scale_rehearsal'} <= set(names)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'mapping_tpu', 'pandas', 'yaml', 'click', 'PIL', "
