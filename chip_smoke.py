@@ -210,7 +210,8 @@ the JAX package is imported. Phases, each printing what it found:
      `label` once per shard per batch; ms per batch of both; (b)
      `evaluate` with `data_parallel: 1` (one visible card: no mesh) must
      write the plain evaluate's prediction.json byte for byte; (c) one
-     step (dropout_2d 0.1 in the decoder) of the trainer in float32 (TF32
+     step (DDP_DEPTH's U-Net on seeded weights, dropout_2d 0.1 in the
+     decoder) of the trainer in float32 (TF32
      off) and in float64 on two gloo ranks sharing the card and on one
      NCCL rank (spawned processes, parallel/distributed.py), each against
      the single-process step on the same 20 images: losses within 1e-4
@@ -219,7 +220,7 @@ the JAX package is imported. Phases, each printing what it found:
      float32 gradients' distances (per tensor and in L2) are printed
      beside the single-process float32 step's own distance from float64,
      which is large (a rounding difference in one layer flips ReLUs
-     below it), so they are not gated; (d) 3 bf16
+     below it), so they are not gated; (d) FIT_STEPS bf16
      UNetTrainer.fit steps from phase 6's files on two gloo ranks, rank 0
      writing last.pt, then a two-rank resume to epoch 1; ms/step of the
      ranks beside one process's on the same files.
@@ -290,11 +291,23 @@ the JAX package is imported. Phases, each printing what it found:
      grey and palettes, files the JAX loader hands to Pillow) must decode
      to the JAX package's RGB and grey reads, through libpng where it
      builds and through the port's own reader, which this machine has
-     (no libpng); (b) TIFF_TILES synthetic 300^2 tiles written by the
-     port's TIFF writer (LZW + predictor 2, one of them tiled) and the same
-     pixels as PNG: `predict_on_dir -p unet_weighted` in this process on
-     the card, on phase 9 (a)'s weights, must write the same
-     prediction.json for both and launch the CCL kernels.
+     (no libpng); the TIFF corpus again through
+     `native_decode.assemble` on the card, its JPEG-compressed files'
+     strips and tiles through `jpeg_pixels` (one launch a file and
+     geometry), to the same digests; (b) TIFF_TILES synthetic 300^2 tiles
+     written by the port's TIFF writer (LZW + predictor 2, one of them
+     tiled) and the same pixels as PNG, then the same tiles as YCbCr 2x2
+     JPEG TIFF (four in strips with a short last one, four in tiles) and
+     PNG tiles of their plain-decoded pixels: `predict_on_dir -p
+     unet_weighted` in this process on the card, on phase 9 (a)'s
+     weights, must write the same prediction.json for each pair and
+     launch the CCL kernels, and `jpeg_pixels` over the JPEG TIFFs; (c) a
+     TIFF_SCENE^2 YCbCr 2x2 JPEG TIFF in TIFF_SCENE_TILE^2 tiles: its host
+     entropy decode timed, `native_decode.assemble` on the card in one
+     `jpeg_pixels` launch equal to the plain decode on the CPU, each
+     tile's kernel pixels = the plain version on the card, and
+     `jpeg_pixels` timed at the scene's batch (CUDA-graph replays) beside
+     its bound.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -428,13 +441,19 @@ BF16_LOSS_TOL, BF16_L2_MARGIN = 2.0 ** -8, 2.0
 #: device at BATCH: max |dp| at most BAND_MARGIN times one device's own
 #: batch-BATCH/2-against-BATCH reading, and at most BAND_CEIL
 SHARD_BAND, BAND_MARGIN, BAND_CEIL = 1e-4, 2.0, 1e-2
+#: phase 14 (c), (d): the depth of the steps' and fits' U-Net, on seeded
+#: weights; cut from the defaults' ResNet101 (and (d)'s steps from 3 an
+#: epoch to 1) for the script's time, of which the ranks' start-up, model
+#: builds and checkpoints of ResNet101 took 132 s on an H100 host; (a)
+#: and (b) serve phase 9's ResNet101
+DDP_DEPTH = 34
 #: phase 14 (c)'s model over the defaults: the decoder's spatial dropout on
 #: (the ResNet U-Nets ignore dropout_conv, in the JAX package too)
-DDP_MODEL = {"dropout_2d": 0.1}
-FIT_STEPS = 3  # phase 14 (d): optimizer steps per epoch
+DDP_MODEL = {"encoder": f"ResNet{DDP_DEPTH}", "dropout_2d": 0.1}
+FIT_STEPS = 1  # phase 14 (d): optimizer steps per epoch
 #: phase 14's parameters over the JAX config's defaults (ResNet101, bf16,
 #: batch 20, 256^2 in, 300^2 out), and (d)'s model_params over them
-PARALLEL_PARAMS, FIT_MODEL = {}, {}
+PARALLEL_PARAMS, FIT_MODEL = {}, {"encoder": f"ResNet{DDP_DEPTH}"}
 SPATIAL_DIR = ROOT / "build" / "chip_smoke_spatial"
 #: phase 15: the side of (a)'s tile, its band counts, (b)'s float64 tile
 #: (H, W) and its gate on max |dp|, (d)'s tile side and band count
@@ -472,8 +491,10 @@ JPEG_BUDGET_S = 40.0
 TIFF_DIR = ROOT / "build" / "chip_smoke_tiff"
 TIFF_CORPUS = ROOT / "tests" / "fixtures" / "tiff_corpus"
 PNG_GAMMA = ROOT / "tests" / "fixtures" / "png_gamma"
-#: phase 17 (b): the tiles written as TIFF and as PNG; the phase's budget
+#: phase 17 (b): the tiles written as TIFF and as PNG; (c) the JPEG-TIFF
+#: scene's side and tile side; the phase's budget
 TIFF_TILES = 8
+TIFF_SCENE, TIFF_SCENE_TILE = 4096, 256
 TIFF_BUDGET_S = 30.0
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
@@ -3462,7 +3483,8 @@ def parallel_phase(smi, prepared):
     # (c) one step in float32 (TF32 off) and in float64: two gloo ranks
     # sharing the card, and one NCCL rank, each against the single-process
     # step on the same 20 images
-    state = torch.load(weights, map_location="cpu", weights_only=True)
+    state = random_model(DDP_DEPTH, torch.Generator().manual_seed(14)) \
+        .state_dict()
     x = [r["file_path_image"] for r in train]
     y = [r["file_path_mask_eroded_0_dilated_0"] for r in train]
     images = torch.from_numpy(np.stack([load_image(p) for p in x[:BATCH]]))
@@ -4234,15 +4256,102 @@ def corpus_digests(corpus, read, key):
     return decoded, refused
 
 
-def tiff_phase(smi):
-    """Phase 17: TIFF tiles and PNG gamma through the port's readers, and
-    predict_on_dir over TIFF tiles = over the same pixels as PNG. Returns
-    the CCL launches of the TIFF run."""
+def scene_picture(rng, side):
+    """A side^2 RGB scene with texture for the entropy coder: gradients
+    in 16-pixel steps, noise, and 400 flat rectangles (roofs)."""
+    steps = np.arange(side) // 16
+    base = (np.add.outer(steps, steps) % 256).astype(np.uint8)
+    img = np.stack([base, base[::-1], base[:, ::-1]], -1)
+    img += rng.randint(0, 24, img.shape).astype(np.uint8)
+    for _ in range(400):
+        y, x = rng.randint(0, side - 64, 2)
+        h, w = rng.randint(12, 64, 2)
+        img[y:y + h, x:x + w] = rng.randint(0, 256, 3)
+    return img
+
+
+def tiff_predict(config, fmt):
+    """`predict_on_dir -p unet_weighted` over TIFF_DIR / fmt in this
+    process: (seconds, CCL launches, jpeg_pixels launches, timings)."""
     from mapping_tpu_torch import main as cli
-    from mapping_tpu_torch.kernels import ccl
+    from mapping_tpu_torch.kernels import ccl, jpeg as J
+
+    torch.cuda.synchronize()
+    ccl.reset_launches()
+    J.reset_launches()
+    start = time.perf_counter()
+    manager = cli.main(["--config", config, "predict_on_dir", "-p",
+                        "unet_weighted", "--dir_path", str(TIFF_DIR / fmt),
+                        "--prediction_path", str(TIFF_DIR / f"{fmt}.json")])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start, dict(ccl.LAUNCHES),
+            J.LAUNCHES["jpeg_pixels"], manager.timings)
+
+
+def tiff_scene(smi, err):
+    """Phase 17 (c): a TIFF_SCENE^2 YCbCr 2x2 scene in TIFF_SCENE_TILE^2
+    JPEG tiles through `native_decode.assemble` on the card (one
+    `jpeg_pixels` launch), equal to the plain decode on the CPU, each
+    tile's kernel pixels = the plain version on the card; `jpeg_pixels`
+    timed at the scene's batch beside its bound. Returns the launches."""
+    from mapping_tpu_torch.kernels import bounds, jpeg as J
+    from mapping_tpu_torch.utils import native_decode, tiff
+
+    side, step = TIFF_SCENE, TIFF_SCENE_TILE
+    start = time.perf_counter()
+    data = tiff.encode(scene_picture(np.random.RandomState(19), side),
+                       "jpeg", photometric=6, tile=(step, step), quality=90)
+    encode_s = time.perf_counter() - start
+    start = time.perf_counter()
+    item = native_decode.read_bytes(data)
+    host_ms = (time.perf_counter() - start) * 1e3
+    torch.cuda.synchronize()
+    J.reset_launches()
+    start = time.perf_counter()
+    card = native_decode.assemble([item], DEVICE)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - start) * 1e3
+    launches = J.LAUNCHES["jpeg_pixels"]
+    g = item.parts[0][2].geometry
+    coef = torch.from_numpy(np.stack([c.coef for _, _, c in item.parts]))
+    quant = torch.from_numpy(np.stack([c.quant for _, _, c in item.parts]))
+    jpeg_check(coef, quant, g, "the scene's tiles", err)
+    start = time.perf_counter()
+    plain = native_decode.assemble([item], "cpu")
+    cpu_s = time.perf_counter() - start
+    if launches != 1 or not torch.equal(card.cpu(), plain):
+        raise AssertionError(f"the scene: {launches} jpeg_pixels launches "
+                             f"(expected 1), = the plain decode on the CPU "
+                             f"{torch.equal(card.cpu(), plain)}")
+    coef, quant = coef.to(DEVICE), quant.to(DEVICE)
+    timed = [graph_ms(lambda: J.pixels_cuda(coef, quant, g), JPEG_REPS,
+                      JPEG_GRAPH_CALLS) for _ in range(2)]
+    bound = bounds.jpeg_pixels(len(item.parts), g.n_blocks,
+                               len(g.factors), g.height, g.width)
+    print(f"tiff: (c) a {side}^2 YCbCr 2x2 JPEG TIFF in {len(item.parts)} "
+          f"tiles of {step}^2 ({len(data)} bytes, written in {encode_s:.2f} "
+          f"s): host entropy decode {host_ms:.2f} ms "
+          f"({host_ms / len(item.parts):.4f} a tile, 1 thread), assemble on "
+          f"the card {card_ms:.2f} ms (H2D, {launches} jpeg_pixels launch, "
+          f"paste; host clock), = the plain decode on the CPU ({cpu_s:.2f} "
+          f"s), each tile's kernel pixels = plain on the card; jpeg_pixels "
+          f"at ({len(item.parts)}"
+          f", {step}^2, 4:2:0) {timed} ms (CUDA-graph replays of "
+          f"{JPEG_GRAPH_CALLS} calls), bound {bound[0]:.5f} ms ({bound[1]}), "
+          f"kernel / bound {min(timed) / bound[0]:.2f} on {smi}")
+    return launches
+
+
+def tiff_phase(smi):
+    """Phase 17: TIFF tiles and PNG gamma through the port's readers, the
+    JPEG-TIFF corpus on the card, predict_on_dir over TIFF tiles (LZW, and
+    JPEG) = over the same pixels as PNG, and a JPEG-TIFF scene. Returns
+    (the main path's launches, {"jpeg_pixels": max |kernel - plain|})."""
+    from mapping_tpu_torch.kernels import jpeg as J
     from mapping_tpu_torch.utils import native_decode, png, tiff
 
     begin = time.perf_counter()
+    err = {"jpeg_pixels": 0}
     libpng = native_decode.available()
     tiffs = corpus_digests(TIFF_CORPUS, native_decode.decode_rgb_bytes,
                            "decode_sha256")
@@ -4252,25 +4361,59 @@ def tiff_phase(smi):
     pngs = {what: corpus_digests(PNG_GAMMA, read, "gray_sha256" if "grey"
                                  in what else "rgb_sha256")
             for what, read in reads.items()}
-    print(f"tiff: (a) {tiffs[0]} TIFF corpus files decode to the JAX "
-          f"package's digests, {tiffs[1]} refused kinds raise naming "
+    print(f"tiff: (a) {tiffs[0]} TIFF corpus files decode on the host to "
+          f"the JAX package's digests, {tiffs[1]} refused kinds raise naming "
           f"their feature; PNG gamma corpus (libpng "
           f"{'built' if libpng else 'unavailable'} here): {pngs}")
+    jpegs = []
 
-    # (b) the same pixels as TIFF and as PNG through predict_on_dir
+    def on_card(data):
+        item = native_decode.read_bytes(data)
+        if isinstance(item, tiff.JpegTiles):
+            jpegs.append({p[2].geometry for p in item.parts})
+        images = native_decode.assemble([item], DEVICE)
+        if images.device.type != torch.device(DEVICE).type:
+            raise AssertionError("a TIFF decode left the card")
+        return images[0].cpu().numpy()
+
+    J.reset_launches()
+    card = corpus_digests(TIFF_CORPUS, on_card, "decode_sha256")
+    corpus_launches = J.LAUNCHES["jpeg_pixels"]
+    manifest = json.loads((TIFF_CORPUS / "manifest.json").read_text())
+    if card != tiffs or corpus_launches != sum(map(len, jpegs)) \
+            or len(jpegs) != sum(name.startswith(("jpeg_", "pil_jpeg"))
+                                 and "refused" not in e
+                                 for name, e in manifest.items()):
+        raise AssertionError(f"the TIFF corpus on the card: {card} (host "
+                             f"{tiffs}), {len(jpegs)} JPEG files, "
+                             f"{corpus_launches} jpeg_pixels launches")
+    print(f"tiff: (a) on the card through native_decode.assemble: {card[0]} "
+          f"files to the digests, {len(jpegs)} of them JPEG-compressed "
+          f"({corpus_launches} jpeg_pixels launches, one a geometry), "
+          f"{card[1]} refused kinds raise naming their feature; (a) took "
+          f"{time.perf_counter() - begin:.2f} s")
+    part = time.perf_counter()
+
+    # (b) the same pixels as TIFF and as PNG through predict_on_dir; and
+    # JPEG TIFF against PNG of its plain-decoded pixels
     shutil.rmtree(TIFF_DIR, ignore_errors=True)
     fixture = synthetic_fixture()
     rng = np.random.RandomState(17)
     tiles = [fixture._make_image(rng, h=TILE, w=TILE, max_buildings=20)[0]
              for _ in range(TIFF_TILES)]
-    for fmt in ("tiff", "png"):
+    for fmt in ("tiff", "png", "jpeg_tiff", "jpeg_png"):
         (TIFF_DIR / fmt).mkdir(parents=True)
     for i, tile in enumerate(tiles):
+        name = f"tile_{i:03d}"
         data = tiff.encode(tile, "lzw", predictor=2, tile=(
             (128, 128) if i == 0 else None), rows_per_strip=16)
-        (TIFF_DIR / "tiff" / f"tile_{i:03d}.tif").write_bytes(data)
-        (TIFF_DIR / "png" / f"tile_{i:03d}.png").write_bytes(
-            png.encode_png(tile))
+        (TIFF_DIR / "tiff" / f"{name}.tif").write_bytes(data)
+        (TIFF_DIR / "png" / f"{name}.png").write_bytes(png.encode_png(tile))
+        data = tiff.encode(tile, "jpeg", photometric=6, quality=95, **(
+            {"tile": (128, 128)} if i % 2 else {"rows_per_strip": 64}))
+        (TIFF_DIR / "jpeg_tiff" / f"{name}.tif").write_bytes(data)
+        (TIFF_DIR / "jpeg_png" / f"{name}.png").write_bytes(
+            png.encode_png(native_decode.decode_rgb_bytes(data)))
     experiment = TIFF_DIR / "experiment"
     (experiment / "transformers").mkdir(parents=True)
     shutil.copy2(TRAIN_DIR / "full" / "transformers" / "unet.pt",
@@ -4279,42 +4422,50 @@ def tiff_phase(smi):
         "data_dir": str(TIFF_DIR), "meta_dir": str(TIFF_DIR / "meta"),
         "experiment_dir": str(experiment), "device": DEVICE,
         **EVAL_PARAMS}, where=TIFF_DIR)
-    runs = {}
-    for fmt in ("png", "tiff"):
-        torch.cuda.synchronize()
-        ccl.reset_launches()
-        start = time.perf_counter()
-        manager = cli.main(["--config", config, "predict_on_dir", "-p",
-                            "unet_weighted", "--dir_path",
-                            str(TIFF_DIR / fmt), "--prediction_path",
-                            str(TIFF_DIR / f"{fmt}.json")])
-        torch.cuda.synchronize()
-        runs[fmt] = (time.perf_counter() - start, dict(ccl.LAUNCHES),
-                     manager.timings)
-    same = (TIFF_DIR / "tiff.json").read_bytes() == \
-        (TIFF_DIR / "png.json").read_bytes()
-    launched = runs["tiff"][1]
-    prediction = check_prediction(TIFF_DIR / "tiff.json",
-                                  set(range(TIFF_TILES)), "TIFF tiles",
-                                  allow_empty=True)
-    if not same or min(launched.values(), default=0) < 1 \
-            or runs["tiff"][2]["images"] != TIFF_TILES:
-        raise AssertionError(f"predict_on_dir over TIFF tiles: same as PNG "
-                             f"{same}, CCL launches {launched}, "
-                             f"{runs['tiff'][2]['images']} images")
-    print(f"tiff: (b) predict_on_dir over {TIFF_TILES} TIFF tiles (LZW, "
-          f"predictor 2, one tiled) wrote the same prediction.json as over "
-          f"the PNG tiles ({len(prediction)} instances); TIFF "
-          f"{runs['tiff'][0]:.2f} s, decode_s "
-          f"{runs['tiff'][2]['decode_s']:.4f}, PNG {runs['png'][0]:.2f} s, "
-          f"decode_s {runs['png'][2]['decode_s']:.4f} (host clock); CCL "
-          f"launches {launched} on {smi}")
+    runs = {fmt: tiff_predict(config, fmt)
+            for fmt in ("png", "tiff", "jpeg_png", "jpeg_tiff")}
+    for got, want, what in (("tiff", "png", "TIFF"),
+                            ("jpeg_tiff", "jpeg_png", "JPEG-TIFF")):
+        same = (TIFF_DIR / f"{got}.json").read_bytes() == \
+            (TIFF_DIR / f"{want}.json").read_bytes()
+        prediction = check_prediction(TIFF_DIR / f"{got}.json",
+                                      set(range(TIFF_TILES)), f"{what} tiles",
+                                      allow_empty=True)
+        seconds, launched, jpeg_launched, timings = runs[got]
+        if not same or min(launched.values(), default=0) < 1 \
+                or timings["images"] != TIFF_TILES \
+                or (got == "jpeg_tiff") != (jpeg_launched > 0):
+            raise AssertionError(f"predict_on_dir over {what} tiles: same as "
+                                 f"PNG {same}, CCL launches {launched}, "
+                                 f"jpeg_pixels {jpeg_launched}, "
+                                 f"{timings['images']} images")
+        print(f"tiff: (b) predict_on_dir over {TIFF_TILES} {what} tiles ("
+              + ("LZW, predictor 2, one tiled" if got == "tiff" else
+                 "YCbCr 2x2, quality 95, four in 64-row strips, four in "
+                 "128^2 tiles")
+              + f") wrote the same prediction.json as over PNG tiles of "
+              f"{'the same' if got == 'tiff' else 'their plain-decoded'} "
+              f"pixels ({len(prediction)} instances); {what} {seconds:.2f} "
+              f"s, decode_s {timings['decode_s']:.4f}, PNG "
+              f"{runs[want][0]:.2f} s, decode_s {runs[want][3]['decode_s']:.4f}"
+              f" (host clock); CCL launches {launched}, jpeg_pixels "
+              f"{jpeg_launched} on {smi}")
+    launched = {"jpeg_pixels": runs["jpeg_tiff"][2]}
+    for fmt in ("tiff", "jpeg_tiff"):
+        for name, n in runs[fmt][1].items():
+            launched[name] = launched.get(name, 0) + n
+
+    print(f"tiff: (b) took {time.perf_counter() - part:.2f} s")
+    part = time.perf_counter()
+    launched["jpeg_pixels"] += tiff_scene(smi, err)
+    print(f"tiff: (c) took {time.perf_counter() - part:.2f} s")
     seconds = time.perf_counter() - begin
-    print(f"tiff: phase 17 took {seconds:.2f} s")
+    print(f"tiff: phase 17 took {seconds:.2f} s; main-path launches "
+          f"{launched}")
     if seconds > TIFF_BUDGET_S:
         raise AssertionError(f"phase 17 took {seconds:.2f} s, over its "
                              f"{TIFF_BUDGET_S} s")
-    return launched
+    return launched, err
 
 
 def main():
@@ -4356,12 +4507,14 @@ def main():
         lap(number)
     jpeg_err, jpeg_times, jpeg_launches, bound = jpeg_phase(smi, png_run)
     lap(16)
-    counted.append(tiff_phase(smi))
+    tiff_launches, tiff_err = tiff_phase(smi)
+    counted.append(tiff_launches)
     lap(17)
     for counts in counted + [jpeg_launches]:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
-    err.update(jpeg_err)
+    err.update({name: max(e, tiff_err.get(name, 0))
+                for name, e in jpeg_err.items()})
     times.update(jpeg_times)
     n, c, h, w = DW_TIMED[DW_MAIN]
     bound.update({"ccl_label_raw": bounds.ccl_label_raw(BATCH, TILE, TILE),

@@ -378,10 +378,11 @@ def decode_request_image(body: bytes, content_type: str,
     .npy arrays pass through (uint8, floats in [0, 1] scaled to 255, or
     integers in [0, 255]; anything else is a RequestError rather than a
     silent truncation); image bytes decode through utils/native_decode.
-    A JPEG has its pixel stage run by `decoder` (the daemon's
-    `native_decode.DeviceDecoder`: `jpeg_pixels` on a stream of its own on
-    a card, finished when this returns), and a tile of the daemon's size
-    stays on that device for the batcher; None decodes it on the host. A
+    A JPEG, or a JPEG-compressed TIFF, has its pixel stage run by
+    `decoder` (the daemon's `native_decode.DeviceDecoder`: `jpeg_pixels`
+    on a stream of its own on a card, finished when this returns), and a
+    tile of the daemon's size stays on that device for the batcher; None
+    decodes it on the host. A
     tile of another size is resized on the host (utils/resize, Pillow's
     bilinear)."""
     from mapping_tpu_torch.utils import native_decode

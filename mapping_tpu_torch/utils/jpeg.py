@@ -28,18 +28,23 @@ source managers give past the end (fake EOI markers); a progressive image
 whose AC coefficients are not all known gets libjpeg-turbo 2.1's block
 smoothing (jdcoefct.c). It refuses, with a ValueError naming the feature,
 lossless and hierarchical streams, samples other than 8-bit, the DNL
-marker, 2 components and more than 10 blocks an MCU.
+marker, 2 components and more than 10 blocks an MCU. A JPEG-compressed
+TIFF's strips and tiles are abbreviated streams read as libtiff reads
+them: `read_coefficients` takes the file's JPEGTables, and the colour
+space, sampling and size the TIFF gives.
 
 `encode` writes a baseline JFIF file (libjpeg's colour conversion,
 downsampling, integer forward DCT and quality-scaled standard tables, the
 standard Huffman tables): 4:4:4, 4:2:2, 4:2:0 or 4:4:0 (1x2) sampling, and
-restart markers. Pillow and libjpeg read its files; they are not
-byte-identical to Pillow's.
+restart markers; or, for TIFF fixtures, an abbreviated stream (its tables
+in `tables_only`), RGB coded as it is, and chosen JFIF and Adobe markers.
+Pillow and libjpeg read its files; they are not byte-identical to
+Pillow's.
 """
 
 import ctypes
 import struct
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -108,6 +113,8 @@ _REFUSED_SOF = {
     0xCE: "arithmetic-coded hierarchical progressive JPEG (SOF14)",
     0xCF: "arithmetic-coded hierarchical lossless JPEG (SOF15)",
 }
+#: the components of a colour space a caller may give
+_COMPONENTS = {"gray": 1, "ycc": 3, "rgb": 3}
 #: the arithmetic conditioning values a stream starts with (jdmarker.c):
 #: DC L, DC U and AC Kx of each of the 16 tables
 _ARITH_DEFAULT = (0,) * 16 + (1,) * 16 + (5,) * 16
@@ -325,7 +332,7 @@ def _colour(components, jfif, adobe):
     return "ycc"
 
 
-def _sof(body, marker):
+def _sof(body, marker, sampling=None, size=None):
     if marker in _REFUSED_SOF:
         raise ValueError(f"{_REFUSED_SOF[marker]} is not supported by the "
                          f"port's decoder")
@@ -345,6 +352,9 @@ def _sof(body, marker):
         raise ValueError(f"JPEG image {height}x{width} exceeds {MAX_SIDE}")
     if height * width > MAX_PIXELS:
         raise ValueError(f"implausible image size {height}x{width}")
+    if size is not None and (height, width) != tuple(size):
+        raise ValueError(f"JPEG strip or tile of {height}x{width} where the "
+                         f"TIFF's is {size[0]}x{size[1]}")
     if n not in (1, 3, 4):
         raise ValueError(f"{n}-component JPEG is not supported by the "
                          f"port's decoder (1, 3 or 4 components)")
@@ -355,6 +365,15 @@ def _sof(body, marker):
         if not (1 <= h <= 4 and 1 <= v <= 4):
             raise ValueError(f"JPEG sampling factors {h}x{v} out of range")
         comps.append(_Component(ident, h, v, tq, v))
+    if sampling is not None:
+        # libtiff's JPEGPreDecode: component 0 sampled as the TIFF says,
+        # every other 1 x 1
+        got = [(c.h, c.v) for c in comps]
+        if got != [tuple(sampling)] + [(1, 1)] * (n - 1):
+            factors = ", ".join(f"{h}x{v}" for h, v in got)
+            raise ValueError(f"JPEG sampling factors {factors} where the "
+                             f"TIFF has {sampling[0]}x{sampling[1]} (and "
+                             f"1x1 for the other components)")
     if n == 1:  # one component: its own MCU, no upsampling
         comps = [comps[0]._replace(h=1, v=1)]
     hmax = max(c.h for c in comps)
@@ -438,18 +457,56 @@ class _Decode:
         self.last_good = 0  # jdmaster.c last_good_iMCU_row
 
 
-def read_coefficients(data: bytes) -> Coefficients:
+def _tables(data, quant, huffman):
+    """An abbreviated table-specification stream (SOI, DQT and DHT
+    segments, EOI: a TIFF's JPEGTables) read into `quant` and `huffman`,
+    as libjpeg reads it before an abbreviated image stream. Its DAC and
+    DRI values are not kept: the image's SOI resets them."""
+    if not is_jpeg(data):
+        raise ValueError("bogus JPEGTables (no SOI marker)")
+    stream = _Stream(bytes(data))
+    stream.pos = 2
+    while True:
+        marker = stream.next_marker()
+        if marker is None or marker == 0xD9:
+            return
+        if marker == 0xDB:
+            _dqt(stream.segment(), quant)
+        elif marker == 0xC4:
+            _dht(stream.segment(), huffman)
+        elif 0xE0 <= marker <= 0xEF or marker in (0xFE, 0xCC, 0xDD):
+            stream.segment()
+        else:  # libtiff: "Bogus JPEGTables field"
+            raise ValueError(f"bogus JPEGTables (marker 0xFF{marker:02X} "
+                             f"in a tables-only stream)")
+
+
+def read_coefficients(data: bytes, *, tables: bytes = None,
+                      color: str = None, sampling=None,
+                      size=None) -> Coefficients:
     """Parse a JPEG and entropy-decode its scans: the host half of the
     port's decoder. Raises ValueError for what it refuses or cannot
     parse; a stream that ends inside the entropy-coded data decodes as
     libjpeg decodes it (zeros for what is missing, and libjpeg's block
-    smoothing of a progressive image's missing coefficients)."""
+    smoothing of a progressive image's missing coefficients).
+
+    A strip or tile of a JPEG-compressed TIFF is read as libtiff reads it:
+    `tables` is the file's JPEGTables stream, read first; `color` ("gray",
+    "ycc" or "rgb") is the colour space the TIFF's Photometric gives,
+    whatever JFIF or Adobe markers say, and the stream must have its
+    number of components; `sampling` (h, v) is component 0's sampling
+    factors as the TIFF gives them, every other component's being 1 x 1
+    (libtiff's JPEGPreDecode); `size` (height, width) is the strip's or
+    tile's, which the frame must have. These are checked at the frame
+    header, before anything is allocated."""
     data = bytes(data)
     if not is_jpeg(data):
         raise ValueError("not a JPEG file (no SOI marker)")
     stream = _Stream(data)
     stream.pos = 2
     quant, huffman = {}, {}
+    if tables is not None:
+        _tables(tables, quant, huffman)
     conditioning = np.array(_ARITH_DEFAULT, np.uint8)
     restart = 0
     jfif, adobe = False, None
@@ -465,7 +522,10 @@ def read_coefficients(data: bytes) -> Coefficients:
             body = stream.segment()
             if frame is not None:
                 raise ValueError("JPEG has two SOF markers")
-            frame = _sof(body, marker)
+            frame = _sof(body, marker, sampling, size)
+            if color is not None and len(frame.comps) != _COMPONENTS[color]:
+                raise ValueError(f"{len(frame.comps)}-component JPEG where "
+                                 f"the TIFF has {_COMPONENTS[color]}")
         elif marker == 0xC4:
             _dht(stream.segment(), huffman)
         elif marker == 0xDB:
@@ -497,7 +557,7 @@ def read_coefficients(data: bytes) -> Coefficients:
                 state = _Decode(frame, Geometry(
                     frame.height, frame.width, tuple((c.h, c.v)
                                                      for c in comps),
-                    _colour(comps, jfif, adobe)))
+                    color or _colour(comps, jfif, adobe)))
             body = stream.segment()
             if state.complete:  # jdinput.c: JERR_EOI_EXPECTED
                 raise ValueError("JPEG has a scan after its image's only "
@@ -779,12 +839,20 @@ def _segment(marker: int, body: bytes) -> bytes:
 
 
 def encode(rgb_u8, quality: int = 95, sampling: str = "4:2:0",
-           restart_interval: int = 0) -> bytes:
-    """A baseline JFIF file of an (H, W, 3) uint8 RGB image, or of an
-    (H, W) uint8 grey one (then `sampling` is ignored): quality-scaled IJG
-    tables, the standard Huffman tables, luma sampled 1x1 ("4:4:4"), 2x1
-    ("4:2:2"), 2x2 ("4:2:0") or 1x2 ("4:4:0") against 1x1 chroma, and a
-    restart marker every `restart_interval` MCUs (0: none)."""
+           restart_interval: int = 0, *, color: str = "ycc",
+           tables: bool = True, jfif: bool = True,
+           adobe: Optional[int] = None) -> bytes:
+    """A baseline JPEG of an (H, W, 3) uint8 RGB image, or of an (H, W)
+    uint8 grey one (then `sampling` and `color` are ignored): quality-scaled
+    IJG tables, the standard Huffman tables, luma sampled 1x1 ("4:4:4"),
+    2x1 ("4:2:2"), 2x2 ("4:2:0") or 1x2 ("4:4:0") against 1x1 chroma, and
+    a restart marker every `restart_interval` MCUs (0: none).
+
+    `color` "ycc" converts to YCbCr; "rgb" codes R, G and B as they are
+    (4:4:4 only). A JFIF APP0 segment unless `jfif` is false, and an Adobe
+    APP14 one of transform `adobe` where given. Without `tables` the
+    stream is abbreviated, its DQT and DHT segments left out: a JPEG TIFF
+    strip or tile whose tables are `tables_only(...)`."""
     img = np.asarray(rgb_u8)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
             img.ndim == 3 and img.shape[2] != 3):
@@ -799,31 +867,72 @@ def encode(rgb_u8, quality: int = 95, sampling: str = "4:2:0",
     if not 0 <= restart_interval <= 0xFFFF:
         raise ValueError(f"restart interval {restart_interval} out of range")
     gray = img.ndim == 2
+    if color not in ("ycc", "rgb") or (color == "rgb" and not gray
+                                        and sampling != "4:4:4"):
+        raise ValueError(f"cannot encode colour {color!r} at {sampling}")
+    color = "gray" if gray else color
     factors = ((1, 1),) if gray else (_SAMPLING[sampling], (1, 1), (1, 1))
-    geometry = Geometry(height, width, factors, "gray" if gray else "ycc")
+    geometry = Geometry(height, width, factors, color)
     my, mx = geometry.mcus
     ph, pw = my * 8 * geometry.vmax, mx * 8 * geometry.hmax
     pad = [(0, ph - height), (0, pw - width)] + [(0, 0)] * (img.ndim - 2)
-    padded = np.pad(img, pad, mode="edge")
-    planes = ([padded.astype(np.int64)] if gray
-              else list(_rgb_to_ycc(padded)))
-    tables = [quality_table(STD_LUMA_QUANT, quality),
-              quality_table(STD_CHROMA_QUANT, quality)]
+    padded = np.pad(img, pad, mode="edge").astype(np.int64)
+    if gray:
+        planes = [padded]
+    elif color == "ycc":
+        planes = list(_rgb_to_ycc(padded))
+    else:
+        planes = [padded[..., i] for i in range(3)]
+    quant = quality_tables(quality, len(factors))
     coef = []
     for ci, plane in enumerate(planes):
         rh, rv = geometry.ratios[ci]
-        coef.append(_quantise(_downsample(plane, rh, rv), tables[min(ci, 1)]))
-    return _jfif(geometry, tables[:1 if gray else 2], np.concatenate(coef),
-                 restart_interval)
+        coef.append(_quantise(_downsample(plane, rh, rv), quant[min(ci, 1)]))
+    return _jfif(geometry, quant, np.concatenate(coef), restart_interval,
+                 tables=tables, jfif=jfif, adobe=adobe)
 
 
-def _jfif(geometry: Geometry, tables, coef: np.ndarray,
-          restart_interval: int) -> bytes:
-    """A baseline JFIF file of quantised coefficients ((n_blocks, 64)
-    int16, natural order, laid out as `read_coefficients` gives them):
-    component 0 with quant table 0 (`tables`, natural order; 16-bit where
-    a value exceeds 255) and Huffman tables 0, the others with table 1,
-    the standard Huffman tables, one interleaved scan."""
+def quality_tables(quality: int, components: int):
+    """The quant tables `encode` uses: luma, and chroma where the image
+    has more than one component."""
+    base = (STD_LUMA_QUANT, STD_CHROMA_QUANT)[:1 if components == 1 else 2]
+    return [quality_table(b, quality) for b in base]
+
+
+def _table_segments(tables) -> bytes:
+    """DQT segments of `tables` (natural order; 16-bit where a value
+    exceeds 255) and DHT segments of the standard Huffman tables they
+    go with."""
+    head = []
+    for t, table in enumerate(tables):
+        table = np.asarray(table)[NATURAL]
+        wide = int(table.max() > 255)
+        head.append(_segment(0xDB, bytes([(wide << 4) | t]) + table.astype(
+            ">u2" if wide else np.uint8).tobytes()))
+    for (cls, ident), (counts, values) in sorted(STD_HUFFMAN.items()):
+        if ident < len(tables):
+            head.append(_segment(0xC4, bytes([(cls << 4) | ident, *counts])
+                                 + values))
+    return b"".join(head)
+
+
+def tables_only(quality: int, components: int) -> bytes:
+    """The abbreviated table-specification stream (SOI, DQT, DHT, EOI) of
+    `encode(..., tables=False)` images of that quality and number of
+    components: a TIFF's JPEGTables."""
+    return SOI + _table_segments(quality_tables(quality, components)) \
+        + b"\xff\xd9"
+
+
+def _jfif(geometry: Geometry, quant, coef: np.ndarray,
+          restart_interval: int, *, tables: bool = True, jfif: bool = True,
+          adobe: Optional[int] = None) -> bytes:
+    """A baseline JPEG of quantised coefficients ((n_blocks, 64) int16,
+    natural order, laid out as `read_coefficients` gives them): component
+    0 with quant table 0 (`quant`, natural order) and Huffman tables 0,
+    the others with table 1, the standard Huffman tables, one interleaved
+    scan; component ids R, G, B for an RGB geometry, 1, 2, 3 else. The
+    markers as `encode` describes them."""
     factors = geometry.factors
     coef = np.ascontiguousarray(coef, np.int16)
     if coef.shape != (geometry.n_blocks, 64):
@@ -843,25 +952,24 @@ def _jfif(geometry: Geometry, tables, coef: np.ndarray,
         vals.ctypes.data, mx, my, restart_interval, out.ctypes.data, cap)
     if n < 0:
         raise RuntimeError(f"JPEG entropy coding failed ({n})")
-    head = [SOI, _segment(0xE0, b"JFIF\0\x01\x01\x00\x00\x01\x00\x01\0\0")]
-    for t, table in enumerate(tables):
-        table = np.asarray(table)[NATURAL]
-        wide = int(table.max() > 255)
-        head.append(_segment(0xDB, bytes([(wide << 4) | t]) + table.astype(
-            ">u2" if wide else np.uint8).tobytes()))
+    head = [SOI]
+    if jfif:
+        head.append(_segment(0xE0, b"JFIF\0\x01\x01\x00\x00\x01\x00\x01\0\0"))
+    if adobe is not None:
+        head.append(_segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00"
+                             + bytes([adobe])))
+    if tables:
+        head.append(_table_segments(quant))
+    ids = b"RGB" if geometry.color == "rgb" else bytes([1, 2, 3])
     sof = struct.pack(">BHHB", 8, geometry.height, geometry.width,
                       len(factors))
     for ci, (h, v) in enumerate(factors):
-        sof += bytes([ci + 1, (h << 4) | v, min(ci, 1)])
+        sof += bytes([ids[ci], (h << 4) | v, min(ci, 1)])
     head.append(_segment(0xC0, sof))
-    for (cls, ident), (counts, values) in sorted(STD_HUFFMAN.items()):
-        if ident < len(tables):
-            head.append(_segment(0xC4, bytes([(cls << 4) | ident, *counts])
-                                 + values))
     if restart_interval:
         head.append(_segment(0xDD, struct.pack(">H", restart_interval)))
     sos = bytes([len(factors)])
     for ci in range(len(factors)):
-        sos += bytes([ci + 1, (min(ci, 1) << 4) | min(ci, 1)])
+        sos += bytes([ids[ci], (min(ci, 1) << 4) | min(ci, 1)])
     head.append(_segment(0xDA, sos + b"\x00\x3f\x00"))
     return b"".join(head) + out[:n].tobytes() + b"\xff\xd9"

@@ -17,14 +17,17 @@ formats with libjpeg and libpng (cpp/decode.cpp). Here:
   which reads every PNG kind and applies libpng's gamma conversion where
   libpng would: the two give the same bytes;
 - a TIFF decodes through utils/tiff.py on every machine (strips and tiles;
-  none, LZW, Deflate and PackBits; the sample layouts Pillow reads), as
-  the JAX loader reads it through Pillow.
+  none, LZW, Deflate, PackBits and JPEG; the sample layouts Pillow reads),
+  as the JAX loader reads it through Pillow; a JPEG-compressed one's
+  strips or tiles go through the JPEG decoder's two halves, their pixel
+  stage on the target device.
 
 `decode_rgb` / `decode_rgb_bytes` give host arrays (a JPEG's pixel stage
 then runs on the CPU). `read_image` gives the host half of a decode (a
-JPEG's coefficients, or a PNG's or TIFF's pixels) and `assemble` turns a
-batch of them into one (B, H, W, 3) uint8 tensor on a device, one
-pixel-stage call per JPEG geometry; `decode_rgb_batch` is the two
+JPEG's coefficients, a JPEG TIFF's `tiff.JpegTiles`, or a PNG's or other
+TIFF's pixels) and `assemble` turns a batch of them into one (B, H, W, 3)
+uint8 tensor on a device, one pixel-stage call per JPEG geometry for all
+the batch's JPEGs and JPEG-TIFF parts; `decode_rgb_batch` is the two
 together.
 """
 
@@ -37,6 +40,7 @@ import torch
 
 from mapping_tpu_torch.kernels import jpeg as jpeg_pixels
 from mapping_tpu_torch.utils import jpeg, png, tiff
+from mapping_tpu_torch.utils.resize import resize_bilinear_u8
 from mapping_tpu_torch.utils.native_lib import (NativeLib,
                                                 NativeLibraryUnavailable)
 
@@ -90,8 +94,9 @@ def _png_native(data: bytes):
 
 def read_bytes(data: bytes):
     """The host half of decoding image bytes: a JPEG's
-    `jpeg.Coefficients`, or a PNG's or TIFF's (H, W, 3) uint8 pixels.
-    Anything else raises ValueError."""
+    `jpeg.Coefficients`, a JPEG-compressed TIFF's `tiff.JpegTiles`, or a
+    PNG's or other TIFF's (H, W, 3) uint8 pixels. Anything else raises
+    ValueError."""
     data = bytes(data)
     if jpeg.is_jpeg(data):
         return jpeg.read_coefficients(data)
@@ -118,9 +123,7 @@ def to_rgb(item) -> np.ndarray:
     pixel stage in plain PyTorch on the CPU)."""
     if isinstance(item, np.ndarray):
         return item
-    return jpeg_pixels.pixels(torch.from_numpy(item.coef)[None],
-                              torch.from_numpy(item.quant)[None],
-                              item.geometry)[0].numpy()
+    return assemble([item], "cpu")[0].numpy()
 
 
 def decode_rgb(path) -> np.ndarray:
@@ -138,18 +141,30 @@ def image_size(item):
     """(H, W) of a `read_bytes` result."""
     if isinstance(item, np.ndarray):
         return item.shape[:2]
+    if isinstance(item, tiff.JpegTiles):
+        return item.size
     return item.geometry.height, item.geometry.width
 
 
-def assemble(items, device, size=None) -> torch.Tensor:
-    """(B, H, W, 3) uint8 on `device` from `read_bytes` results: the JPEGs'
-    pixel stage runs on `device` (`jpeg_pixels` on a card), one call per
-    geometry, their coefficients copied from pinned host memory. Without
-    `size` every image must have one size; with it, an image of another
-    size is resized to `size` on the host (utils/resize, Pillow's
-    bilinear), as the JAX loader resizes a batch of mixed sizes."""
-    from mapping_tpu_torch.utils.resize import resize_bilinear_u8
+def _put(out, idx, rgb, size):
+    """`rgb` (n, h, w, 3) into `out` at the batch positions `idx`, resized
+    to `size` on the host where it has another size."""
+    if tuple(rgb.shape[1:3]) != size:
+        rgb = torch.from_numpy(np.stack([resize_bilinear_u8(im, size)
+                                         for im in rgb.cpu().numpy()])).to(
+            out.device)
+    out[torch.as_tensor(idx, device=out.device)] = rgb
 
+
+def assemble(items, device, size=None) -> torch.Tensor:
+    """(B, H, W, 3) uint8 on `device` from `read_bytes` results: the pixel
+    stage of the JPEGs and of the JPEG-compressed TIFFs' strips and tiles
+    runs on `device` (`jpeg_pixels` on a card), one call per geometry
+    for the whole batch, the coefficients copied from pinned host memory;
+    a TIFF's parts are then pasted, clipped and oriented on `device`.
+    Without `size` every image must have one size; with it, an image of
+    another size is resized to `size` on the host (utils/resize, Pillow's
+    bilinear), as the JAX loader resizes a batch of mixed sizes."""
     items = list(items)
     device = torch.device(device)
     if not items:
@@ -163,35 +178,54 @@ def assemble(items, device, size=None) -> torch.Tensor:
     size = tuple(size)
     out = torch.empty((len(items),) + size + (3,), dtype=torch.uint8,
                       device=device)
-    groups = defaultdict(list)
+    groups = defaultdict(list)  # geometry -> [(item, part or None)]
     host, host_idx = [], []
     for i, it in enumerate(items):
         if isinstance(it, np.ndarray):
-            host.append(it if it.shape[:2] == size
-                        else resize_bilinear_u8(it, size))
+            host.append(it)
             host_idx.append(i)
+        elif isinstance(it, tiff.JpegTiles):
+            for k, (_, _, c) in enumerate(it.parts):
+                groups[c.geometry].append((i, k))
         else:
-            groups[it.geometry].append(i)
+            groups[it.geometry].append((i, None))
     if host:
         out[torch.as_tensor(host_idx, device=device)] = torch.from_numpy(
-            np.stack(host)).to(device)
+            np.stack([it if it.shape[:2] == size
+                      else resize_bilinear_u8(it, size) for it in host])).to(
+            device)
     pin = device.type == "cuda"
-    for geometry, idx in groups.items():
-        coef = torch.empty((len(idx), geometry.n_blocks, 64),
+    canvases = {}
+    for geometry, members in groups.items():
+        parts = [items[i] if k is None else items[i].parts[k][2]
+                 for i, k in members]
+        coef = torch.empty((len(parts), geometry.n_blocks, 64),
                            dtype=torch.int16, pin_memory=pin)
-        quant = torch.empty((len(idx), len(geometry.factors), 64),
+        quant = torch.empty((len(parts), len(geometry.factors), 64),
                             dtype=torch.int32, pin_memory=pin)
-        for k, i in enumerate(idx):
-            coef[k].numpy()[...] = items[i].coef
-            quant[k].numpy()[...] = items[i].quant
+        for n, c in enumerate(parts):
+            coef[n].numpy()[...] = c.coef
+            quant[n].numpy()[...] = c.quant
         rgb = jpeg_pixels.pixels(coef.to(device, non_blocking=pin),
                                  quant.to(device, non_blocking=pin),
                                  geometry)
-        if (geometry.height, geometry.width) != size:
-            host = rgb.cpu().numpy()
-            rgb = torch.from_numpy(np.stack(
-                [resize_bilinear_u8(im, size) for im in host])).to(device)
-        out[torch.as_tensor(idx, device=device)] = rgb
+        whole = [n for n, (_, k) in enumerate(members) if k is None]
+        if whole:
+            _put(out, [members[n][0] for n in whole],
+                 rgb if len(whole) == len(members) else rgb[whole], size)
+        tiled = defaultdict(list)  # an item's parts are consecutive
+        for n, (i, k) in enumerate(members):
+            if k is not None:
+                tiled[i].append(n)
+        for i, ns in tiled.items():
+            it = items[i]
+            if i not in canvases:
+                canvases[i] = torch.empty((it.height, it.width, 3),
+                                          dtype=torch.uint8, device=device)
+            it.paste(canvases[i], [it.parts[members[n][1]][:2] for n in ns],
+                     rgb[ns[0]:ns[-1] + 1])
+    for i, canvas in canvases.items():
+        _put(out, [i], items[i].finish(canvas)[None], size)
     return out
 
 
@@ -250,7 +284,8 @@ def releases_gil(path) -> bool:
     """Whether decoding this file runs in native code that releases the
     GIL (so decode threads scale), by its name: a JPEG's Huffman decode
     always, a TIFF's decompression always (LZW and PackBits in
-    csrc/tiff_codecs.cpp, Deflate in zlib, the samples in numpy), a PNG
+    csrc/tiff_codecs.cpp, Deflate in zlib, JPEG in csrc/jpeg_entropy.cpp,
+    the samples in numpy), a PNG
     where libpng serves; the standard-library PNG reader holds the GIL
     between its numpy calls."""
     return str(path).lower().endswith((".jpg", ".jpeg", ".tif", ".tiff")) \

@@ -36,29 +36,48 @@ for byte, without either library:
   - palette at 1, 2, 4 and 8 bits (and 8 bits with one unspecified or
     unassociated extra sample), the 16-bit colormap cut to its high byte
     (Pillow's b // 256).
-  The Orientation tag is not applied.
+- the Orientation tag applied last, as Pillow's loader applies it
+  (ImageOps.exif_transpose): mirrored, rotated or transposed;
+- JPEG (7), as libtiff's JPEG codec reads it for Pillow: each strip or
+  tile an abbreviated JPEG stream read with the file's JPEGTables, its
+  colour space the Photometric's whatever JFIF or Adobe markers say
+  (YCbCr (6), 3 samples, converted to RGB by libjpeg as Pillow asks with
+  JPEGCOLORMODE_RGB; RGB (2) and grey (1, and MinIsWhite 0, inverted by
+  Pillow) passed through), component 0 sampled as YCbCrSubsampling says
+  (without the tag, as the first stream's frame says where libtiff's
+  JPEGFixupTagsSubsampling can tell, else 2x2) and every other 1x1, every
+  strip or tile coded at its own size, but a last strip coded taller,
+  whose top rows are kept; FillOrder ignored (libtiff's TIFF_NOBITREV).
+  `decode` gives such a file's host half, `JpegTiles`: the entropy decode
+  of each stream (utils/jpeg), whose pixel stage `native_decode.assemble`
+  runs for a whole batch, one `jpeg_pixels` launch per geometry on a card.
 
 Refused with a ValueError that names the feature: the compressions
-JPEG (6, 7), CCITT (2, 3, 4), LZMA, ZSTD, WebP and any other; old-style
-LZW; predictor 3 and predictor 2 below 8 bits; floating-point samples and
-signed ones but 8-bit grey; YCbCr, CMYK, CIELab and any other
-photometric; 12- and 32-bit samples; any other layout (which Pillow, and
-so the JAX loader, refuses too); a header over `jpeg.MAX_PIXELS` pixels,
-before anything is allocated; data cut short.
+old-style JPEG (6), CCITT (2, 3, 4), LZMA, ZSTD, WebP and any other;
+old-style LZW; predictor 3 and predictor 2 below 8 bits; floating-point
+samples and signed ones but 8-bit grey; YCbCr but with JPEG, CMYK, CIELab
+and any other photometric; 12- and 32-bit samples; JPEG with planar data
+(Pillow reads planar RGB; libtiff reads planar YCbCr another way), other
+than 8-bit samples, extra samples, sampling factors other than the TIFF's
+or a strip or tile coded at another size (libtiff leaves rows of its
+buffer in the image for a stream coded shorter); any other layout (which
+Pillow, and so the JAX loader, refuses too); a header over
+`jpeg.MAX_PIXELS` pixels, before anything is allocated; data cut short.
 
-`encode` writes the kinds the fixtures need, so that the card's machine
-(which has no Pillow) can make TIFF tiles; nothing on the serving or
-training path writes TIFF.
+`encode` writes the kinds the fixtures need, JPEG among them, so that the
+card's machine (which has no Pillow) can make TIFF tiles; nothing on the
+serving or training path writes TIFF.
 """
 
 import ctypes
 import struct
 import zlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from mapping_tpu_torch.kernels.build import CSRC
+from mapping_tpu_torch.utils import jpeg
 from mapping_tpu_torch.utils.jpeg import MAX_PIXELS
 from mapping_tpu_torch.utils.native_lib import NativeLib
 
@@ -70,24 +89,26 @@ FILL_ORDER, STRIP_OFFSETS, SAMPLES, ROWS_PER_STRIP = 266, 273, 277, 278
 STRIP_COUNTS, PLANAR, PREDICTOR, COLORMAP = 279, 284, 317, 320
 TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_COUNTS = 322, 323, 324, 325
 EXTRA_SAMPLES, SAMPLE_FORMAT, ORIENTATION = 338, 339, 274
+JPEG_TABLES, YCBCR_SUBSAMPLING = 347, 530
 _READ = {WIDTH, HEIGHT, BITS, COMPRESSION, PHOTOMETRIC, FILL_ORDER,
          STRIP_OFFSETS, SAMPLES, ROWS_PER_STRIP, STRIP_COUNTS, PLANAR,
          PREDICTOR, COLORMAP, TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS,
-         TILE_COUNTS, EXTRA_SAMPLES, SAMPLE_FORMAT, ORIENTATION}
+         TILE_COUNTS, EXTRA_SAMPLES, SAMPLE_FORMAT, ORIENTATION,
+         JPEG_TABLES, YCBCR_SUBSAMPLING}
 
-#: field type -> struct code (integer types only; the tags read are all
-#: integers)
-_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q",
+#: field type -> struct code (integer types, and UNDEFINED bytes for
+#: JPEGTables; the other tags read are all integers)
+_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i", 16: "Q",
           17: "q", 13: "I", 18: "Q"}
 #: field type -> bytes a value (to skip the others)
 _SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
           11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
 
-#: none, LZW, Deflate (two codes) and PackBits
-COMPRESSIONS = (1, 5, 8, 32946, 32773)
+#: none, LZW, Deflate (two codes), PackBits and JPEG
+COMPRESSIONS = (1, 5, 8, 32946, 32773, 7)
 _REFUSED_COMPRESSIONS = {
     2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
-    6: "old-style JPEG", 7: "JPEG", 32809: "ThunderScan",
+    6: "old-style JPEG", 32809: "ThunderScan",
     34676: "SGILog", 34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD",
     50001: "WebP"}
 _REFUSED_PHOTOMETRICS = {4: "transparency mask", 5: "CMYK", 6: "YCbCr",
@@ -288,6 +309,20 @@ _FILL2 = {(p, (b,), ()) for p in (0, 1, 3) for b in (1, 2, 4, 8)} | {
     (2, (8, 8, 8), ())}
 
 
+def _bits(tags):
+    """BitsPerSample, one a sample, as Pillow reads it against
+    SamplesPerPixel."""
+    bits = tags.get(BITS, (1,))
+    spp = _one(tags, SAMPLES, 1)
+    if spp < len(bits):
+        bits = bits[:spp]
+    elif spp > len(bits) == 1:
+        bits = bits * spp
+    if len(bits) != spp:
+        raise ValueError("unknown TIFF data organization")
+    return bits
+
+
 def _layout(order, tags):
     """Pillow's key for the file (TiffImagePlugin._setup), checked: the
     layout's entry in `_LAYOUTS` and the bits, samples per pixel and
@@ -297,9 +332,7 @@ def _layout(order, tags):
     fmt = tags.get(SAMPLE_FORMAT, (1,))
     if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
         fmt = (1,)
-    bits = tags.get(BITS, (1,))
     extra = tags.get(EXTRA_SAMPLES, ())
-    spp = _one(tags, SAMPLES, 1)
     if photo in _REFUSED_PHOTOMETRICS:
         raise ValueError(f"{_REFUSED_PHOTOMETRICS[photo]} TIFF is not "
                          f"supported by the port's reader")
@@ -309,12 +342,7 @@ def _layout(order, tags):
     if 3 in fmt:
         raise ValueError("floating-point TIFF samples are not supported "
                          "by the port's reader")
-    if spp < len(bits):
-        bits = bits[:spp]
-    elif spp > len(bits) == 1:
-        bits = bits * spp
-    if len(bits) != spp:
-        raise ValueError("unknown TIFF data organization")
+    bits = _bits(tags)
     if max(bits) > 8 and max(bits) != 16 or min(bits) != max(bits):
         raise ValueError(f"{max(bits)}-bit TIFF samples are not supported "
                          f"by the port's reader" if min(bits) == max(bits)
@@ -445,9 +473,167 @@ def _samples(chunk, rows, cols, row_bytes, bits, n, order):
         rows, cols, n)
 
 
-def decode(data: bytes) -> np.ndarray:
+class JpegTiles(NamedTuple):
+    """The host half of a JPEG-compressed TIFF: each strip's or tile's
+    `jpeg.Coefficients` at its top-left corner (y0, x0), and what turns
+    their pixels into the JAX loader's: the stored size (before
+    Orientation), the Orientation, and whether the grey is MinIsWhite
+    (inverted). `native_decode.assemble` runs the pixel stage of a batch's
+    parts, one call per geometry, then `paste` and `finish`."""
+
+    height: int
+    width: int
+    orientation: int
+    invert: bool
+    parts: Tuple[Tuple[int, int, jpeg.Coefficients], ...]
+
+    @property
+    def size(self):
+        """(H, W) of the image as read, after Orientation."""
+        if self.orientation in (5, 6, 7, 8):
+            return self.width, self.height
+        return self.height, self.width
+
+    def paste(self, canvas, positions, rgb):
+        """Parts' RGB `rgb` (n, h, w, 3), at `positions` [(y0, x0)], into
+        `canvas` (height, width, 3), clipped at its right and bottom edges;
+        one copy where the parts make a whole block of the grid (the
+        tiles of a file, its strips but a short last one)."""
+        n, ph, pw = rgb.shape[:3]
+        ys = sorted({y for y, _ in positions})
+        xs = sorted({x for _, x in positions})
+        if positions == [(y, x) for y in ys for x in xs] \
+                and ys == list(range(ys[0], ys[0] + ph * len(ys), ph)) \
+                and xs == list(range(xs[0], xs[0] + pw * len(xs), pw)):
+            rgb = rgb.reshape(len(ys), len(xs), ph, pw, 3).permute(
+                0, 2, 1, 3, 4).reshape(1, len(ys) * ph, len(xs) * pw, 3)
+            positions = [(ys[0], xs[0])]
+        for (y, x), part in zip(positions, rgb):
+            rows = min(part.shape[0], self.height - y)
+            cols = min(part.shape[1], self.width - x)
+            canvas[y:y + rows, x:x + cols] = part[:rows, :cols]
+
+    def finish(self, canvas):
+        """The pasted (height, width, 3) uint8 tensor as the JAX loader
+        reads the file: MinIsWhite inverted, then Orientation applied."""
+        if self.invert:
+            canvas = 255 - canvas
+        if self.orientation in (5, 6, 7, 8):
+            canvas = canvas.transpose(0, 1)
+        rows, cols = _FLIPS.get(self.orientation, (False, False))
+        dims = [d for d, flip in ((0, rows), (1, cols)) if flip]
+        return canvas.flip(dims) if dims else canvas
+
+
+#: the layouts of a JPEG-compressed TIFF the port reads -> the colour
+#: space of its streams: libtiff has libjpeg convert YCbCr to RGB (Pillow
+#: sets JPEGCOLORMODE_RGB) and passes the others' samples through
+_JPEG_COLOURS = {(6, (8, 8, 8), ()): "ycc", (2, (8, 8, 8), ()): "rgb",
+                 (1, (8,), ()): "gray", (0, (8,), ()): "gray"}
+
+
+def _jpeg_layout(order, tags):
+    """(layout key, colour) of a JPEG-compressed TIFF, checked as Pillow
+    and libtiff check it."""
+    photo = _one(tags, PHOTOMETRIC, 0)
+    bits = _bits(tags)
+    if set(bits) != {8}:
+        raise ValueError(f"{max(bits)}-bit JPEG-compressed TIFF is not "
+                         f"supported by the port's reader")
+    if len(bits) > 1 and _one(tags, PLANAR, 1) != 1:
+        raise ValueError("planar JPEG-compressed TIFF (PlanarConfiguration "
+                         "2) is not supported by the port's reader")
+    if photo == 6:  # Pillow's key: no fill order 2, unsigned samples
+        key = (photo, bits, tags.get(EXTRA_SAMPLES, ()))
+        if _one(tags, FILL_ORDER, 1) != 1 or set(tags.get(
+                SAMPLE_FORMAT, (1,))) != {1}:
+            raise ValueError("this YCbCr TIFF layout is not one the JAX "
+                             "loader's Pillow reads")
+    else:
+        key = _layout(order, tags)[0]
+    if key not in _JPEG_COLOURS:
+        raise ValueError(f"JPEG-compressed TIFF of photometric {key[0]}, "
+                         f"bits {key[1]}, extra samples {key[2]} is not "
+                         f"supported by the port's reader")
+    return key, _JPEG_COLOURS[key]
+
+
+def _fixup_sampling(stream, spp):
+    """libtiff's JPEGFixupTagsSubsampling, for a YCbCr file without a
+    YCbCrSubsampling tag: component 0's sampling factors in the frame
+    header of the first strip or tile, where every other component is
+    1 x 1 and both factors are 1, 2 or 4; else the tag's default 2 x 2.
+    The marker walk is libtiff's own (JPEGFixupTagsSubsamplingSec): bytes
+    up to an 0xFF skipped, SOI, APPn, COM, DQT, DHT, DRI and SOS passed
+    over, any other marker the end."""
+    pos, n = 0, len(stream)
+    while True:
+        i = stream.find(b"\xff", pos)
+        j = i + 1
+        while 0 < j < n and stream[j] == 0xFF:
+            j += 1
+        if i < 0 or j >= n:
+            return 2, 2
+        marker, pos = stream[j], j + 1
+        if marker == 0xD8:
+            continue
+        if marker in (0xC4, 0xDA, 0xDB, 0xDD, 0xFE) or 0xE0 <= marker <= 0xEF:
+            length = int.from_bytes(stream[pos:pos + 2], "big")
+            if pos + 2 > n or length < 2:
+                return 2, 2
+            pos += length
+            continue
+        if marker not in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+            return 2, 2
+        body = stream[pos:pos + 8 + 3 * spp]
+        if len(body) < 8 + 3 * spp or int.from_bytes(body[:2], "big") \
+                != 8 + 3 * spp:
+            return 2, 2
+        h, v = body[9] >> 4, body[9] & 15
+        if any(body[9 + 3 * k] != 0x11 for k in range(1, spp)) \
+                or h not in (1, 2, 4) or v not in (1, 2, 4):
+            return 2, 2
+        return h, v
+
+
+def _read_jpeg(data, order, tags, h, w):
+    """The host half of a JPEG-compressed TIFF (compression 7)."""
+    (photo, _, _), colour = _jpeg_layout(order, tags)
+    tables = tags.get(JPEG_TABLES)
+    tables = bytes(tables) if tables else None
+    tiled = STRIP_OFFSETS not in tags
+    parts = []
+    sampling = (1, 1)
+    for k, (_, y0, x0, _, cw, _, start, count, stored) in enumerate(
+            _chunks(tags, h, w, 1, 8, 1)):
+        if count is None:
+            raise ValueError("compressed TIFF without byte counts")
+        stream = data[start:start + count]
+        if photo == 6 and k == 0:
+            sampling = tags.get(YCBCR_SUBSAMPLING) or _fixup_sampling(
+                stream, 3)
+            if len(sampling) != 2:
+                raise ValueError(f"TIFF YCbCrSubsampling {sampling}")
+        # libtiff's JPEGPreDecode reads a last strip coded taller than the
+        # image's rows, and keeps its top rows; every other strip or tile
+        # must be coded at its own size
+        last = not tiled and y0 + stored == h
+        part = jpeg.read_coefficients(
+            stream, tables=tables, color=colour, sampling=sampling,
+            size=None if last else (stored, cw))
+        g = part.geometry
+        if last and (g.width != cw or g.height < stored):
+            raise ValueError(f"JPEG strip or tile of {g.height}x{g.width} "
+                             f"where the TIFF's is {stored}x{cw}")
+        parts.append((y0, x0, part))
+    return JpegTiles(h, w, _one(tags, ORIENTATION, 1), photo == 0,
+                     tuple(parts))
+
+
+def decode(data: bytes):
     """TIFF bytes -> (H, W, 3) uint8 RGB, the JAX loader's pixels (see the
-    module's docstring)."""
+    module's docstring); for a JPEG-compressed file its host half,
+    `JpegTiles`, whose pixel stage `native_decode.assemble` runs."""
     data = bytes(data)
     if not is_tiff(data):
         raise ValueError("not a TIFF file")
@@ -461,6 +647,8 @@ def decode(data: bytes) -> np.ndarray:
                                          f"compression {compression}")
         raise ValueError(f"{name}-compressed TIFF is not supported by the "
                          f"port's reader")
+    if compression == 7:
+        return _read_jpeg(data, order, tags, h, w)
     (photo, bits_all, extra), (kind, flag), fill = _layout(order, tags)
     spp, bits = len(bits_all), bits_all[0]
     planar = _one(tags, PLANAR, 1) if spp > 1 else 1
@@ -506,14 +694,18 @@ def decode(data: bytes) -> np.ndarray:
                    _one(tags, ORIENTATION, 1))
 
 
+#: Orientation -> (rows reversed, columns reversed), after the transpose
+#: of 5-8
+_FLIPS = {2: (False, True), 3: (True, True), 4: (True, False),
+          6: (False, True), 7: (True, True), 8: (True, False)}
+
+
 def _orient(rgb, orientation):
     """Pillow's ImageOps.exif_transpose, which its TIFF reader applies on
     load: Orientation 2-8 mirrored, rotated or transposed."""
     if orientation in (5, 6, 7, 8):
         rgb = rgb.transpose(1, 0, 2)
-    flip = {2: (False, True), 3: (True, True), 4: (True, False),
-            6: (False, True), 7: (True, True), 8: (True, False)}
-    rows, cols = flip.get(orientation, (False, False))
+    rows, cols = _FLIPS.get(orientation, (False, False))
     return np.ascontiguousarray(rgb[::-1 if rows else 1,
                                     ::-1 if cols else 1])
 
@@ -625,7 +817,10 @@ def packbits_encode(data: bytes) -> bytes:
 _WRITERS = {"none": (1, bytes), "lzw": (5, lzw_encode),
             "deflate": (8, lambda b: zlib.compress(b, 6)),
             "adobe_deflate": (32946, lambda b: zlib.compress(b, 6)),
-            "packbits": (32773, packbits_encode)}
+            "packbits": (32773, packbits_encode), "jpeg": (7, None)}
+#: YCbCrSubsampling -> the JPEG encoder's sampling
+_SAMPLINGS = {(1, 1): "4:4:4", (2, 1): "4:2:2", (2, 2): "4:2:0",
+              (1, 2): "4:4:0"}
 
 
 def _pack(s, bits, order):
@@ -641,6 +836,18 @@ def _pack(s, bits, order):
         rows, -1), axis=1)
 
 
+def _jpeg_chunk(block, photo, quality, subsampling, tables,
+                restart_interval, jfif, adobe):
+    """One strip's or tile's JPEG stream (see `encode`)."""
+    samples = block.astype(np.uint8)
+    if samples.shape[2] == 1:
+        samples = samples[..., 0]
+    return jpeg.encode(
+        samples, quality, _SAMPLINGS[tuple(subsampling)] if photo == 6
+        else "4:4:4", restart_interval, color="ycc" if photo == 6 else "rgb",
+        tables=not tables, jfif=jfif, adobe=adobe)
+
+
 def encode(pixels: np.ndarray, compression: str = "none", *,
            photometric: Optional[int] = None, bits: int = 8,
            predictor: int = 1, tile: Optional[Tuple[int, int]] = None,
@@ -648,10 +855,14 @@ def encode(pixels: np.ndarray, compression: str = "none", *,
            byteorder: str = "<", bigtiff: bool = False,
            colormap: Optional[np.ndarray] = None, extra_samples=(),
            sample_format: int = 1, fill_order: int = 1,
-           orientation: Optional[int] = None, pages=()) -> bytes:
+           orientation: Optional[int] = None, pages=(), quality: int = 90,
+           subsampling=(2, 2), subsampling_tag=True,
+           jpeg_tables: bool = True, restart_interval: int = 0,
+           jfif: bool = False, adobe: Optional[int] = None) -> bytes:
     """A TIFF of `pixels`, (H, W) or (H, W, n) sample values (uint8, or
     uint16 at 16 bits; 0 to 2^bits - 1 below 8), written as given:
-    `compression` one of none, lzw, deflate, adobe_deflate, packbits;
+    `compression` one of none, lzw, deflate, adobe_deflate, packbits,
+    jpeg;
     strips of `rows_per_strip` rows (all rows by default) or tiles of
     `tile` = (width, length), multiples of 16; predictor 2 (horizontal
     differencing, LZW and Deflate); PlanarConfiguration `planar`;
@@ -660,7 +871,18 @@ def encode(pixels: np.ndarray, compression: str = "none", *,
     FillOrder 2 (every stored byte's bits reversed); an Orientation tag;
     `pages`, further arrays written as IFDs after the first with the same
     settings. The photometric defaults to RGB for 3 or more samples and
-    MinIsBlack else."""
+    MinIsBlack else.
+
+    JPEG (compression 7) is written as libtiff writes it: each strip or
+    tile an abbreviated baseline stream of `utils/jpeg.encode` at
+    `quality` (no JFIF or Adobe marker unless `jfif` or `adobe` asks for
+    one, a restart marker every `restart_interval` MCUs), its tables in
+    JPEGTables (or, without `jpeg_tables`, in every stream); 8-bit grey
+    (photometric 1 or 0), RGB coded as it is (2), or RGB pixels coded as
+    YCbCr (6) with luma sampled `subsampling` (h, v), which the
+    YCbCrSubsampling tag gives (`subsampling_tag` True), leaves out
+    (False) or contradicts (a pair); with planar 2, one grey stream a
+    plane."""
     order = byteorder
     code, pack = _WRITERS[compression]
     images = [np.asarray(pixels)] + [np.asarray(p) for p in pages]
@@ -691,11 +913,17 @@ def encode(pixels: np.ndarray, compression: str = "none", *,
                                         block.dtype)
                         full[:block.shape[0], :block.shape[1]] = block
                         block = full
-                    if predictor == 2:
-                        block = np.diff(block.astype(np.int64), axis=1,
-                                        prepend=0).astype(block.dtype)
-                    stored = pack(_pack(block, bits, order).tobytes())
-                    if fill_order == 2:
+                    if pack is None:
+                        stored = _jpeg_chunk(block, photo, quality,
+                                             subsampling, jpeg_tables,
+                                             restart_interval, jfif, adobe)
+                    else:
+                        if predictor == 2:
+                            block = np.diff(block.astype(np.int64), axis=1,
+                                            prepend=0).astype(block.dtype)
+                        stored = pack(_pack(block, bits, order).tobytes())
+                    if fill_order == 2 and pack is not None:
+                        # (libtiff reverses no JPEG data: TIFF_NOBITREV)
                         stored = _REVERSED[np.frombuffer(stored, np.uint8)] \
                             .tobytes()
                     offsets.append(len(out))
@@ -720,6 +948,12 @@ def encode(pixels: np.ndarray, compression: str = "none", *,
             entries.append((EXTRA_SAMPLES, 3, list(extra_samples)))
         if sample_format != 1:
             entries.append((SAMPLE_FORMAT, 3, [sample_format] * spp))
+        if pack is None and jpeg_tables:
+            entries.append((JPEG_TABLES, 7, list(jpeg.tables_only(
+                quality, 1 if planar == 2 or spp == 1 else 3))))
+        if pack is None and photo == 6 and subsampling_tag is not False:
+            entries.append((YCBCR_SUBSAMPLING, 3, list(
+                subsampling if subsampling_tag is True else subsampling_tag)))
         long_type = 16 if bigtiff else 4
         if tile is not None:
             entries += [(TILE_WIDTH, 4, [cw]), (TILE_LENGTH, 4, [ch]),

@@ -2,7 +2,8 @@
 phase 17: files written by Pillow (through libtiff for the compressed
 ones) and by the port's writer (`mapping_tpu_torch.utils.tiff.encode`:
 tiles, planar data, big-endian files, BigTIFF, predictor 2, 16-bit
-samples, palettes, fill order 2, ...), and a `manifest.json` with each
+samples, palettes, fill order 2, JPEG strips and tiles, ...), and a
+`manifest.json` with each
 file's SHA-256 and
 - for the files the port reads, the SHA-256 of the JAX package's RGB
   decode (`mapping_tpu.data.loader.load_image`, Pillow's convert("RGB"))
@@ -34,7 +35,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
 
 from mapping_tpu.data.loader import load_image  # noqa: E402
-from mapping_tpu_torch.utils import tiff  # noqa: E402
+from mapping_tpu_torch.utils import jpeg, tiff  # noqa: E402
 
 
 def _image(h, w, seed):
@@ -125,8 +126,9 @@ def _cases():
     yield "two_pages.tif", tiff.encode(_image(20, 24, 10), "deflate",
                                        pages=[_image(24, 20, 11)]), None
     yield "size_1x1.tif", tiff.encode(_image(1, 1, 12), "lzw"), None
+    yield "pil_jpeg.tif", _pil(rgb, compression="jpeg"), None
+    yield from _jpeg_cases()
     # refused kinds
-    yield "pil_jpeg.tif", _pil(rgb, compression="jpeg"), "JPEG"
     yield "pil_group4.tif", _pil(rgb, "1", compression="group4"), \
         "CCITT Group 4"
     yield "pil_group3.tif", _pil(rgb, "1", compression="group3"), \
@@ -165,6 +167,116 @@ def _cases():
         if tag in (256, 257):  # 20000 x 20000: past 2^27 pixels
             huge[at + 12 * k + 8:at + 12 * k + 12] = struct.pack("<I", 20000)
     yield "header_20000x20000.tif", bytes(huge), "implausible image size"
+
+
+def _classic(entries, blobs):
+    """A little-endian classic TIFF written by hand: `blobs` first, then
+    one IFD of `entries` (tag, type, values, or a function of the blobs'
+    offsets giving them)."""
+    out = bytearray(b"II*\x00" + bytes(4))
+    offsets = []
+    for blob in blobs:
+        offsets.append(len(out))
+        out += blob + b"\x00" * (len(blob) % 2)
+    placed = []
+    for tag, kind, values in sorted(entries, key=lambda e: e[0]):
+        values = values(offsets) if callable(values) else values
+        body = struct.pack(f"<{len(values)}{'HI'[kind == 4]}", *values)
+        if len(body) > 4:
+            where = len(out)
+            out += body + b"\x00" * (len(body) % 2)
+            body = struct.pack("<I", where)
+        placed.append(struct.pack("<HHI", tag, kind, len(values))
+                      + body.ljust(4, b"\x00"))
+    struct.pack_into("<I", out, 4, len(out))
+    out += struct.pack("<H", len(placed)) + b"".join(placed) + bytes(4)
+    return bytes(out)
+
+
+def _jpeg_strips(img, streams, rows, subsampling, compression=7, extra=()):
+    """A hand-built YCbCr JPEG TIFF of `streams`, one strip each of
+    `rows` rows (RowsPerStrip)."""
+    h, w = img.shape[:2]
+    return _classic([
+        (256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+        (259, 3, [compression]), (262, 3, [6]), (273, 4, lambda o: o),
+        (277, 3, [3]), (278, 4, [rows]),
+        (279, 4, [len(s) for s in streams]), (284, 3, [1]),
+        (530, 3, list(subsampling)), *extra], streams)
+
+
+def _jpeg_cases():
+    """JPEG-compressed TIFF (compression 7) as libtiff writes it, by the
+    port's writer: YCbCr at each sampling in strips (a short last strip)
+    and tiles (edge tiles clipped) of sizes that are not multiples of 16,
+    tables in every stream or in JPEGTables, restart markers, markers
+    that contradict the photometric, RGB, grey, MinIsWhite, Orientation;
+    then hand-built files of libtiff's rules and the refused kinds."""
+    img = _image(45, 67, 13)
+    for (h, v), name in (((2, 2), "22"), ((2, 1), "21"), ((1, 1), "11"),
+                         ((1, 2), "12")):
+        yield f"jpeg_ycc{name}_strips.tif", tiff.encode(
+            img, "jpeg", photometric=6, subsampling=(h, v),
+            rows_per_strip=16), None
+        yield f"jpeg_ycc{name}_tiles.tif", tiff.encode(
+            img, "jpeg", photometric=6, subsampling=(h, v), tile=(32, 16)), \
+            None
+    yield "jpeg_ycc22_no_tables.tif", tiff.encode(
+        img, "jpeg", photometric=6, rows_per_strip=32, jpeg_tables=False), None
+    yield "jpeg_ycc22_restart.tif", tiff.encode(
+        img, "jpeg", photometric=6, tile=(48, 32), restart_interval=2), None
+    yield "jpeg_ycc22_adobe_rgb.tif", tiff.encode(  # Adobe says RGB
+        img, "jpeg", photometric=6, rows_per_strip=16, adobe=0), None
+    yield "jpeg_ycc21_no_subsampling_tag.tif", tiff.encode(
+        img, "jpeg", photometric=6, subsampling=(2, 1),
+        subsampling_tag=False, rows_per_strip=16), None
+    yield "jpeg_ycc22_orientation6.tif", tiff.encode(
+        img, "jpeg", photometric=6, tile=(32, 32), orientation=6), None
+    yield "jpeg_rgb_strips.tif", tiff.encode(
+        img, "jpeg", photometric=2, rows_per_strip=8), None
+    yield "jpeg_rgb_jfif_adobe_ycc.tif", tiff.encode(  # markers say YCbCr
+        img, "jpeg", photometric=2, tile=(32, 32), jfif=True, adobe=1), None
+    yield "jpeg_rgb_fill2.tif", tiff.encode(
+        img, "jpeg", photometric=2, fill_order=2), None
+    yield "jpeg_grey_tiles.tif", tiff.encode(
+        img[..., 1], "jpeg", photometric=1, tile=(16, 32)), None
+    yield "jpeg_miniswhite.tif", tiff.encode(
+        img[..., 2], "jpeg", photometric=0, rows_per_strip=24,
+        orientation=3), None
+    yield "pil_jpeg_ycbcr.tif", _pil(img, "YCbCr", compression="jpeg"), None
+    # a last strip coded at the full strip height: libtiff keeps its top
+    # rows (JPEGPreDecode)
+    tall = _image(40, 48, 14)
+    padded = np.concatenate([tall, _image(8, 48, 15)])
+    yield "jpeg_last_strip_taller.tif", _jpeg_strips(tall, [
+        jpeg.encode(padded[y:y + 16], 90, "4:2:0", jfif=False)
+        for y in (0, 16, 32)], 16, (2, 2)), None
+    # refused: what libtiff refuses, or reads otherwise
+    yield "jpeg_subsampling_mismatch.tif", tiff.encode(
+        img, "jpeg", photometric=6, subsampling=(1, 1),
+        subsampling_tag=(2, 2)), "JPEG sampling factors"
+    yield "jpeg_planar_rgb.tif", tiff.encode(
+        img, "jpeg", photometric=2, planar=2, rows_per_strip=16), \
+        "planar JPEG-compressed TIFF"
+    grey = bytearray(tiff.encode(img[..., 0], "jpeg", photometric=1))
+    at = struct.unpack("<I", grey[4:8])[0] + 2
+    for k in range(struct.unpack("<H", grey[at - 2:at])[0]):
+        if struct.unpack("<H", grey[at + 12 * k:at + 12 * k + 2])[0] == 258:
+            grey[at + 12 * k + 8:at + 12 * k + 10] = struct.pack("<H", 12)
+    yield "jpeg_12bit.tif", bytes(grey), "12-bit JPEG-compressed TIFF"
+    # a strip coded shorter than its rows: libtiff leaves the rest of its
+    # buffer, the previous strip's rows, in the image
+    yield "jpeg_short_strip.tif", _jpeg_strips(tall, [
+        jpeg.encode(tall[y:y + rows], 90, "4:2:0", jfif=False)
+        for y, rows in ((0, 16), (16, 16), (32, 4))], 16, (2, 2)), \
+        "JPEG strip or tile of 4x48"
+    # old-style JPEG (compression 6): the strip and JPEGInterchangeFormat
+    # (tags 513/514) both a whole baseline JFIF stream
+    jif = jpeg.encode(tall, 90, "4:2:0")
+    yield "old_style_jpeg.tif", _jpeg_strips(
+        tall, [jif], 40, (2, 2), compression=6,
+        extra=((512, 3, [1]), (513, 4, lambda o: o),
+               (514, 4, [len(jif)]))), "old-style JPEG"
 
 
 def _digest(rgb):

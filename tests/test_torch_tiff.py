@@ -14,9 +14,11 @@ ones) and convert("RGB").
   x byte order x strips or tiles;
 - the C++ LZW and PackBits decoders against the plain Python ones on
   drawn streams, valid and corrupt; a truncated file raises;
-- `predict_on_dir` over TIFF tiles against the same pixels as PNG, and a
-  TIFF request body through the port's HTTP daemon against the JAX
-  daemon's answer."""
+- `predict_on_dir` over TIFF tiles against the same pixels as PNG, and
+  TIFF request bodies (LZW; JPEG) through the port's HTTP daemon against
+  the JAX daemon's answer.
+
+JPEG-compressed TIFF beyond the corpus: tests/test_torch_tiff_jpeg.py."""
 
 import hashlib
 import json
@@ -64,7 +66,7 @@ def _jax(tmp_path, data, name="x.tif"):
 
 def _port(data):
     try:
-        return native_decode.read_bytes(data)
+        return native_decode.decode_rgb_bytes(data)
     except ValueError:
         return None
 
@@ -91,7 +93,7 @@ def test_corpus_reads_as_the_jax_loader(tmp_path, name):
         if want is not None:
             assert _digest(want) == entry["jax_reads"]
         return
-    got = native_decode.read_image(CORPUS / name)
+    got = native_decode.decode_rgb(CORPUS / name)
     assert list(got.shape) == entry["shape"]
     assert _digest(got) == entry["decode_sha256"]
     np.testing.assert_array_equal(got, want)
@@ -99,31 +101,43 @@ def test_corpus_reads_as_the_jax_loader(tmp_path, name):
 
 def test_corpus_decodes_with_jax_and_pil_blocked():
     """The corpus through the port in a process where jax, flax and PIL
-    cannot be imported."""
+    cannot be imported: every file read to its digest (the JPEG-compressed
+    ones among them), every refused kind raising with its feature named."""
     code = (
         "import sys, json, hashlib\n"
         "for m in ('jax', 'flax', 'PIL'):\n"
         "    sys.modules[m] = None\n"
         "from pathlib import Path\n"
         "import numpy as np\n"
-        "from mapping_tpu_torch.utils import native_decode\n"
+        "from mapping_tpu_torch.utils import native_decode, tiff\n"
         f"corpus = Path({str(CORPUS)!r})\n"
         "manifest = json.loads((corpus / 'manifest.json').read_text())\n"
-        "n = 0\n"
+        "n = jpegs = refused = 0\n"
         "for name, e in manifest.items():\n"
         "    if 'refused' in e:\n"
+        "        try:\n"
+        "            native_decode.decode_rgb(corpus / name)\n"
+        "        except ValueError as err:\n"
+        "            assert e['refused'] in str(err), (name, err)\n"
+        "            refused += 1\n"
         "        continue\n"
-        "    rgb = native_decode.decode_rgb(corpus / name)\n"
+        "    item = native_decode.read_image(corpus / name)\n"
+        "    jpegs += isinstance(item, tiff.JpegTiles)\n"
+        "    rgb = native_decode.to_rgb(item)\n"
         "    assert hashlib.sha256(np.ascontiguousarray(rgb).tobytes())"
         ".hexdigest() == e['decode_sha256'], name\n"
         "    n += 1\n"
-        "print(n)\n")
+        "print(n, jpegs, refused)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) == sum("refused" not in e
-                                  for e in MANIFEST.values())
+    n, jpegs, refused = map(int, out.stdout.split())
+    assert n == sum("refused" not in e for e in MANIFEST.values())
+    assert refused == sum("refused" in e for e in MANIFEST.values())
+    assert jpegs == sum(name.startswith(("jpeg_", "pil_jpeg"))
+                        and "refused" not in e
+                        for name, e in MANIFEST.items()) > 0
 
 
 def _kinds():
@@ -373,11 +387,17 @@ def test_predict_on_dir_over_tiff_equals_over_png(tmp_path):
 
 
 def test_http_tiff_body_matches_the_jax_daemon():
-    """A TIFF request body (LZW, predictor 2) through the port's HTTP
-    daemon: its tile equals the JAX daemon's decode (Pillow), and so does
-    the answer."""
+    """TIFF request bodies (LZW with predictor 2; JPEG, YCbCr 2x2 in
+    strips) through the port's HTTP daemon: each tile equals the JAX
+    daemon's decode (Pillow), and so does each answer."""
     img = _images(1, seed=29)[0]
-    body = tiff.encode(img, "lzw", predictor=2)
+    for body in (tiff.encode(img, "lzw", predictor=2),
+                 tiff.encode(img, "jpeg", photometric=6, rows_per_strip=16,
+                             quality=95)):
+        _same_answer_as_the_jax_daemon(body)
+
+
+def _same_answer_as_the_jax_daemon(body):
     np.testing.assert_array_equal(
         decode_request_image(body, "image/tiff", HW),
         jax_daemon.decode_request_image(body, "image/tiff", HW))
