@@ -307,7 +307,21 @@ the JAX package is imported. Phases, each printing what it found:
      `jpeg_pixels` launch equal to the plain decode on the CPU, each
      tile's kernel pixels = the plain version on the card, and
      `jpeg_pixels` timed at the scene's batch (CUDA-graph replays) beside
-     its bound.
+     its bound;
+ 18. WebP, under build/chip_smoke_webp/, in at most WEBP_BUDGET_S: (a)
+     every file of tests/fixtures/webp_corpus (lossy with both loop
+     filters, 2 to 8 partitions and 1 to 4 segments, lossless with each
+     transform and palettes, alpha raw and compressed with each filter,
+     VP8X, animations, cuts) must decode through `native_decode` (its
+     bitstreams in csrc/webp_decode.cpp, built with g++ at first use) to
+     the SHA-256 of the JAX package's decode in the manifest, and the
+     refused kinds must raise naming their cause; (b) the corpus's 8 lossy
+     and 8 lossless 300^2 tiles and PNG tiles of their decoded pixels:
+     `predict_on_dir -p unet_weighted` over the 16 WebP tiles in this
+     process on the card, on phase 9 (a)'s weights, must write the same
+     prediction.json as over the 16 PNG tiles and launch the CCL
+     kernels; (c) the host decode of a 300^2 tile (lossy quality 75 and
+     95, lossless) in ms on one thread.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -496,6 +510,15 @@ PNG_GAMMA = ROOT / "tests" / "fixtures" / "png_gamma"
 TIFF_TILES = 8
 TIFF_SCENE, TIFF_SCENE_TILE = 4096, 256
 TIFF_BUDGET_S = 30.0
+WEBP_DIR = ROOT / "build" / "chip_smoke_webp"
+WEBP_CORPUS = ROOT / "tests" / "fixtures" / "webp_corpus"
+#: phase 18 (c): the 300^2 tiles timed and the decodes of each; the
+#: phase's budget
+WEBP_TIMED = {"lossy q75": "lossy_q75_300.webp",
+              "lossy q95": "lossy_q95_300.webp",
+              "lossless": "lossless_300.webp"}
+WEBP_REPS = 50
+WEBP_BUDGET_S = 20.0
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
 CLI_CHILD = ("import json, sys\n"
@@ -4270,8 +4293,8 @@ def scene_picture(rng, side):
     return img
 
 
-def tiff_predict(config, fmt):
-    """`predict_on_dir -p unet_weighted` over TIFF_DIR / fmt in this
+def tiff_predict(config, fmt, where=TIFF_DIR):
+    """`predict_on_dir -p unet_weighted` over where / fmt in this
     process: (seconds, CCL launches, jpeg_pixels launches, timings)."""
     from mapping_tpu_torch import main as cli
     from mapping_tpu_torch.kernels import ccl, jpeg as J
@@ -4281,8 +4304,8 @@ def tiff_predict(config, fmt):
     J.reset_launches()
     start = time.perf_counter()
     manager = cli.main(["--config", config, "predict_on_dir", "-p",
-                        "unet_weighted", "--dir_path", str(TIFF_DIR / fmt),
-                        "--prediction_path", str(TIFF_DIR / f"{fmt}.json")])
+                        "unet_weighted", "--dir_path", str(where / fmt),
+                        "--prediction_path", str(where / f"{fmt}.json")])
     torch.cuda.synchronize()
     return (time.perf_counter() - start, dict(ccl.LAUNCHES),
             J.LAUNCHES["jpeg_pixels"], manager.timings)
@@ -4468,6 +4491,92 @@ def tiff_phase(smi):
     return launched, err
 
 
+def webp_phase(smi):
+    """Phase 18: the WebP corpus through the port's reader, predict_on_dir
+    over lossy and lossless WebP tiles = over the same pixels as PNG, and
+    the host decode's ms a tile. Returns the main path's launches."""
+    from mapping_tpu_torch.utils import native_decode, png, webp
+
+    begin = time.perf_counter()
+    manifest = json.loads((WEBP_CORPUS / "manifest.json").read_text())
+    decoded, refused = corpus_digests(WEBP_CORPUS,
+                                      native_decode.decode_rgb_bytes,
+                                      "decode_sha256")
+    if (decoded, refused) != (
+            sum("refused" not in e for e in manifest.values()),
+            sum("refused" in e for e in manifest.values())):
+        raise AssertionError(f"the WebP corpus: {decoded} decoded, "
+                             f"{refused} refused")
+    print(f"webp: (a) {decoded} WebP corpus files decode on the host to the "
+          f"JAX package's digests, {refused} refused kinds raise naming "
+          f"their cause; (a) took {time.perf_counter() - begin:.2f} s")
+    part = time.perf_counter()
+
+    # (b) lossy and lossless WebP tiles against PNG of their decoded pixels
+    shutil.rmtree(WEBP_DIR, ignore_errors=True)
+    for fmt in ("webp", "png"):
+        (WEBP_DIR / fmt).mkdir(parents=True)
+    for path in sorted(WEBP_CORPUS.glob("tile300_*.webp")):
+        shutil.copy2(path, WEBP_DIR / "webp" / path.name)
+        (WEBP_DIR / "png" / f"{path.stem}.png").write_bytes(png.encode_png(
+            native_decode.decode_rgb_bytes(path.read_bytes())))
+    kinds = {kind: len(list((WEBP_DIR / "webp").glob(f"tile300_{kind}_*")))
+             for kind in ("lossy", "lossless")}
+    tiles = sum(kinds.values())
+    experiment = WEBP_DIR / "experiment"
+    (experiment / "transformers").mkdir(parents=True)
+    shutil.copy2(TRAIN_DIR / "full" / "transformers" / "unet.pt",
+                 experiment / "transformers" / "unet.pt")
+    config = write_config("webp", {
+        "data_dir": str(WEBP_DIR), "meta_dir": str(WEBP_DIR / "meta"),
+        "experiment_dir": str(experiment), "device": DEVICE,
+        **EVAL_PARAMS}, where=WEBP_DIR)
+    runs = {fmt: tiff_predict(config, fmt, WEBP_DIR) for fmt in ("png",
+                                                                 "webp")}
+    same = (WEBP_DIR / "webp.json").read_bytes() == \
+        (WEBP_DIR / "png.json").read_bytes()
+    prediction = check_prediction(WEBP_DIR / "webp.json", set(range(tiles)),
+                                  "WebP tiles", allow_empty=True)
+    seconds, launched, _, timings = runs["webp"]
+    if not same or kinds != {"lossy": 8, "lossless": 8} \
+            or min(launched.values(), default=0) < 1 \
+            or timings["images"] != tiles:
+        raise AssertionError(f"predict_on_dir over WebP tiles {kinds}: same "
+                             f"as PNG {same}, CCL launches {launched}, "
+                             f"{timings['images']} images")
+    print(f"webp: (b) predict_on_dir over {kinds['lossy']} lossy and "
+          f"{kinds['lossless']} lossless 300^2 WebP tiles wrote the same "
+          f"prediction.json as over PNG tiles of their decoded pixels "
+          f"({len(prediction)} instances); WebP {seconds:.2f} s, decode_s "
+          f"{timings['decode_s']:.4f}, PNG {runs['png'][0]:.2f} s, decode_s "
+          f"{runs['png'][3]['decode_s']:.4f} (host clock); CCL launches "
+          f"{launched} on {smi}")
+    print(f"webp: (b) took {time.perf_counter() - part:.2f} s")
+
+    # (c) the host decode of a 300^2 tile on one thread
+    timed = {}
+    for what, name in WEBP_TIMED.items():
+        data = (WEBP_CORPUS / name).read_bytes()
+        webp.decode(data)
+        ms = []
+        for _ in range(WEBP_REPS):
+            start = time.perf_counter()
+            webp.decode(data)
+            ms.append((time.perf_counter() - start) * 1e3)
+        timed[what] = (float(np.median(ms)), min(ms))
+    print("webp: (c) host decode of a 300^2 tile on 1 thread, median (min) "
+          "ms: " + ", ".join(f"{what} {m:.4f} ({lo:.4f})"
+                             for what, (m, lo) in timed.items())
+          + f" (host clock, {WEBP_REPS} decodes each) on {smi}")
+    seconds = time.perf_counter() - begin
+    print(f"webp: phase 18 took {seconds:.2f} s; main-path launches "
+          f"{launched}")
+    if seconds > WEBP_BUDGET_S:
+        raise AssertionError(f"phase 18 took {seconds:.2f} s, over its "
+                             f"{WEBP_BUDGET_S} s")
+    return launched
+
+
 def main():
     start = time.perf_counter()
     last = [start]
@@ -4510,6 +4619,8 @@ def main():
     tiff_launches, tiff_err = tiff_phase(smi)
     counted.append(tiff_launches)
     lap(17)
+    counted.append(webp_phase(smi))
+    lap(18)
     for counts in counted + [jpeg_launches]:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n

@@ -1,6 +1,6 @@
 """Image decoding for the loader, the daemon and the artifact: JPEG through
 the port's own decoder, PNG through libpng or the standard-library reader,
-TIFF through the port's own reader.
+TIFF and WebP through the port's own readers.
 
 Counterpart of mapping_tpu/utils/native_decode.py, which decodes both
 formats with libjpeg and libpng (cpp/decode.cpp). Here:
@@ -20,7 +20,11 @@ formats with libjpeg and libpng (cpp/decode.cpp). Here:
   none, LZW, Deflate, PackBits and JPEG; the sample layouts Pillow reads),
   as the JAX loader reads it through Pillow; a JPEG-compressed one's
   strips or tiles go through the JPEG decoder's two halves, their pixel
-  stage on the target device.
+  stage on the target device;
+- a WebP decodes through utils/webp.py on every machine (lossless VP8L,
+  lossy VP8 with libwebp's fancy upsampling, alpha, VP8X and the first
+  frame of an animation; the bitstreams in csrc/webp_decode.cpp), wholly
+  on the host, as the JAX loader reads it through Pillow.
 
 `decode_rgb` / `decode_rgb_bytes` give host arrays (a JPEG's pixel stage
 then runs on the CPU). `read_image` gives the host half of a decode (a
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from mapping_tpu_torch.kernels import jpeg as jpeg_pixels
-from mapping_tpu_torch.utils import jpeg, png, tiff
+from mapping_tpu_torch.utils import jpeg, png, tiff, webp
 from mapping_tpu_torch.utils.resize import resize_bilinear_u8
 from mapping_tpu_torch.utils.native_lib import (NativeLib,
                                                 NativeLibraryUnavailable)
@@ -95,8 +99,8 @@ def _png_native(data: bytes):
 def read_bytes(data: bytes):
     """The host half of decoding image bytes: a JPEG's
     `jpeg.Coefficients`, a JPEG-compressed TIFF's `tiff.JpegTiles`, or a
-    PNG's or other TIFF's (H, W, 3) uint8 pixels. Anything else raises
-    ValueError."""
+    PNG's, other TIFF's or WebP's (H, W, 3) uint8 pixels. Anything else
+    raises ValueError."""
     data = bytes(data)
     if jpeg.is_jpeg(data):
         return jpeg.read_coefficients(data)
@@ -105,7 +109,9 @@ def read_bytes(data: bytes):
         return out if out is not None else png.to_rgb(png.read_png(data))
     if tiff.is_tiff(data):
         return tiff.decode(data)
-    raise ValueError("not a JPEG, PNG or TIFF image")
+    if webp.is_webp(data):
+        return webp.decode(data)
+    raise ValueError("not a JPEG, PNG, TIFF or WebP image")
 
 
 def read_image(path):
@@ -127,12 +133,13 @@ def to_rgb(item) -> np.ndarray:
 
 
 def decode_rgb(path) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a JPEG, PNG or TIFF file, on the host."""
+    """(H, W, 3) uint8 RGB of a JPEG, PNG, TIFF or WebP file, on the
+    host."""
     return to_rgb(read_image(path))
 
 
 def decode_rgb_bytes(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of in-memory JPEG, PNG or TIFF bytes (a
+    """(H, W, 3) uint8 RGB of in-memory JPEG, PNG, TIFF or WebP bytes (a
     request body), on the host; anything else raises ValueError."""
     return to_rgb(read_bytes(data))
 
@@ -285,8 +292,8 @@ def releases_gil(path) -> bool:
     GIL (so decode threads scale), by its name: a JPEG's Huffman decode
     always, a TIFF's decompression always (LZW and PackBits in
     csrc/tiff_codecs.cpp, Deflate in zlib, JPEG in csrc/jpeg_entropy.cpp,
-    the samples in numpy), a PNG
-    where libpng serves; the standard-library PNG reader holds the GIL
-    between its numpy calls."""
-    return str(path).lower().endswith((".jpg", ".jpeg", ".tif", ".tiff")) \
-        or available()
+    the samples in numpy), a WebP's bitstream always
+    (csrc/webp_decode.cpp), a PNG where libpng serves; the
+    standard-library PNG reader holds the GIL between its numpy calls."""
+    return str(path).lower().endswith(
+        (".jpg", ".jpeg", ".tif", ".tiff", ".webp")) or available()

@@ -10,6 +10,7 @@ the polygon's boundary ring.
 
 import io
 import json
+import logging
 import os
 import shutil
 import struct
@@ -160,7 +161,7 @@ def test_without_native_decoder_png_decodes_and_jpeg_raises(val_split,
         np.testing.assert_array_equal(load_image(path), jax_load_image(path))
     other = tmp_path / "tile.gif"
     other.write_bytes(b"GIF89a" + bytes(64))
-    with pytest.raises(ValueError, match="not a JPEG, PNG or TIFF"):
+    with pytest.raises(ValueError, match="not a JPEG, PNG, TIFF or WebP"):
         load_image(other)
 
 
@@ -346,7 +347,11 @@ def test_ground_truth_as_predictions_scores_one(val_split, tmp_path):
     assert ap == ar == 1.0
 
 
-def test_clamped_instances_warn_like_jax(caplog):
+def test_clamped_instances_warn_like_jax(caplog, monkeypatch):
+    # the port's CLI stops its logger propagating to caplog's root handler
+    # for the rest of the process; read its warning whatever ran before
+    monkeypatch.setattr(logging.getLogger("mapping_tpu_torch"), "propagate",
+                        True)
     labels = np.zeros((2, 8, 8), np.int32)
     labels[1, :4, :4], labels[1, 5:, 5:] = 1, 2
     scores = [[], [0.5]]  # one score slot for two instances

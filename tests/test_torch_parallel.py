@@ -369,11 +369,22 @@ class _StubPipeline:
         return _StubServe(self._mesh)
 
 
+def _port_warnings_reach_caplog(monkeypatch):
+    """The port's CLI (`main._init_logger`) stops its logger propagating
+    for the rest of the process, so a test that reads the port's warnings
+    from `caplog` (which listens at the root logger) would depend on which
+    files its worker ran first: let them propagate for this test."""
+    monkeypatch.setattr(logging.getLogger("mapping_tpu_torch"), "propagate",
+                        True)
+
+
 @pytest.mark.parametrize("buckets", ["1,2,3,4,5", "3", ""])
-def test_daemon_bucket_filter_matches_jax(tmp_path, caplog, buckets):
+def test_daemon_bucket_filter_matches_jax(tmp_path, caplog, monkeypatch,
+                                          buckets):
     """On a 2-device mesh both daemons keep the buckets that divide and
     the full batch (6); the port warns about the rest (the JAX logger
     does not propagate to pytest's capture)."""
+    _port_warnings_reach_caplog(monkeypatch)
     cache = tmp_path / "unet.msgpack"
     cache.write_bytes(b"")
     overrides = {"batch_size_inference": 6, "serve_batch_buckets": buckets}
@@ -394,6 +405,25 @@ def test_daemon_bucket_filter_matches_jax(tmp_path, caplog, buckets):
     assert ("dropped" in caplog.text) == (buckets != "")
     if buckets == "1,2,3,4,5":
         assert kept[1] == [2, 4, 6]
+
+
+def test_daemon_bucket_filter_after_the_cli_logger(tmp_path, caplog,
+                                                   monkeypatch):
+    """The bucket filter's warning is read after the port's CLI has set up
+    its logger in this process, as any earlier in-process CLI test of the
+    worker leaves it."""
+    from mapping_tpu_torch import main as port_main
+    logger = logging.getLogger("mapping_tpu_torch")
+    saved = logger.handlers[:], logger.level, logger.propagate
+    try:
+        port_main._init_logger()
+        test_daemon_bucket_filter_matches_jax(tmp_path, caplog, monkeypatch,
+                                              "1,2,3,4,5")
+    finally:
+        monkeypatch.undo()
+        logger.handlers[:] = saved[0]
+        logger.setLevel(saved[1])
+        logger.propagate = saved[2]
 
 
 # -------------------------------------------------------- training ranks

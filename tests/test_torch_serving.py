@@ -252,6 +252,7 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.config',\n"
         "        'mapping_tpu_torch.train.checkpoint',\n"
         "        'mapping_tpu_torch.utils.png',\n"
+        "        'mapping_tpu_torch.utils.webp',\n"
         "        'mapping_tpu_torch.prep.targets',\n"
         "        'mapping_tpu_torch.ops.edt',\n"
         "        'mapping_tpu_torch.utils.ndpickle',\n"
