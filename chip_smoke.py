@@ -322,6 +322,23 @@ the JAX package is imported. Phases, each printing what it found:
      prediction.json as over the 16 PNG tiles and launch the CCL
      kernels; (c) the host decode of a 300^2 tile (lossy quality 75 and
      95, lossless) in ms on one thread.
+ 19. BMP and GIF, under build/chip_smoke_raster/, in at most
+     RASTER_BUDGET_S: (a) every file of tests/fixtures/bmp_corpus (every
+     info header size and depth, raw, RLE8, RLE4 and bitfields, top-down
+     rows, grey and short palettes, headerless DIB) and of
+     tests/fixtures/gif_corpus (global, local and ramp tables, offset
+     frames, transparency, interlaced rows, code sizes 0 to 12) must decode
+     through `native_decode` (RLE in csrc/bmp_decode.cpp, LZW in
+     csrc/gif_decode.cpp, built with g++ at first use) to the SHA-256 of
+     the JAX package's decode in the manifest, and the refused kinds must
+     raise naming their cause; (b) the corpora's 300^2 tiles (2 raw 24-bit
+     BMP, one more as a headerless DIB, 2 RLE8 BMP, 2 GIF, one of them
+     interlaced) and PNG tiles of their decoded pixels (a GIF's palette
+     pixels, not its source): `predict_on_dir -p unet_weighted` over the 7
+     tiles in this process on the card, on phase 9 (a)'s weights, must
+     write the same prediction.json as over the 7 PNG tiles and launch the
+     CCL kernels; (c) the host decode of a 300^2 tile (BMP raw 24-bit, BMP
+     RLE8, GIF) in ms on one thread.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -519,6 +536,16 @@ WEBP_TIMED = {"lossy q75": "lossy_q75_300.webp",
               "lossless": "lossless_300.webp"}
 WEBP_REPS = 50
 WEBP_BUDGET_S = 20.0
+RASTER_DIR = ROOT / "build" / "chip_smoke_raster"
+BMP_CORPUS = ROOT / "tests" / "fixtures" / "bmp_corpus"
+GIF_CORPUS = ROOT / "tests" / "fixtures" / "gif_corpus"
+#: phase 19 (c): the 300^2 tiles timed and the decodes of each; the
+#: phase's budget
+RASTER_TIMED = {"BMP raw 24-bit": BMP_CORPUS / "tile300_raw24_0.bmp",
+                "BMP RLE8": BMP_CORPUS / "tile300_rle8_0.bmp",
+                "GIF": GIF_CORPUS / "tile300_0.gif"}
+RASTER_REPS = 50
+RASTER_BUDGET_S = 20.0
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
 CLI_CHILD = ("import json, sys\n"
@@ -4577,6 +4604,104 @@ def webp_phase(smi):
     return launched
 
 
+def raster_phase(smi):
+    """Phase 19: the BMP and GIF corpora through the port's readers,
+    predict_on_dir over BMP, DIB and GIF tiles = over the same pixels as
+    PNG, and the host decode's ms a tile. Returns the main path's
+    launches."""
+    from mapping_tpu_torch.utils import bmp, gif, native_decode, png
+
+    begin = time.perf_counter()
+    counts = {}
+    for kind, corpus in (("BMP", BMP_CORPUS), ("GIF", GIF_CORPUS)):
+        manifest = json.loads((corpus / "manifest.json").read_text())
+        counts[kind] = corpus_digests(corpus, native_decode.decode_rgb_bytes,
+                                      "decode_sha256")
+        if counts[kind] != (
+                sum("refused" not in e for e in manifest.values()),
+                sum("refused" in e for e in manifest.values())):
+            raise AssertionError(f"the {kind} corpus: {counts[kind][0]} "
+                                 f"decoded, {counts[kind][1]} refused")
+    print("raster: (a) " + ", ".join(
+        f"{d} {kind} corpus files decode on the host to the JAX package's "
+        f"digests, {r} refused kinds raise naming their cause"
+        for kind, (d, r) in counts.items())
+        + f"; (a) took {time.perf_counter() - begin:.2f} s")
+    part = time.perf_counter()
+
+    # (b) BMP, DIB and GIF tiles against PNG of their decoded pixels
+    shutil.rmtree(RASTER_DIR, ignore_errors=True)
+    for fmt in ("raster", "png"):
+        (RASTER_DIR / fmt).mkdir(parents=True)
+    tiles = sorted(BMP_CORPUS.glob("tile300_*.bmp")) + sorted(
+        GIF_CORPUS.glob("tile300_*.gif"))
+    for path in tiles:
+        shutil.copy2(path, RASTER_DIR / "raster" / path.name)
+    dib = (BMP_CORPUS / "tile300_raw24_1.bmp").read_bytes()[14:]
+    (RASTER_DIR / "raster" / "tile300_raw24_1_headerless.dib").write_bytes(
+        dib)
+    for path in sorted((RASTER_DIR / "raster").iterdir()):
+        (RASTER_DIR / "png" / f"{path.name}.png").write_bytes(png.encode_png(
+            native_decode.decode_rgb_bytes(path.read_bytes())))
+    kinds = {ext: len(list((RASTER_DIR / "raster").glob(f"*.{ext}")))
+             for ext in ("bmp", "dib", "gif")}
+    n = sum(kinds.values())
+    experiment = RASTER_DIR / "experiment"
+    (experiment / "transformers").mkdir(parents=True)
+    shutil.copy2(TRAIN_DIR / "full" / "transformers" / "unet.pt",
+                 experiment / "transformers" / "unet.pt")
+    config = write_config("raster", {
+        "data_dir": str(RASTER_DIR), "meta_dir": str(RASTER_DIR / "meta"),
+        "experiment_dir": str(experiment), "device": DEVICE,
+        **EVAL_PARAMS}, where=RASTER_DIR)
+    runs = {fmt: tiff_predict(config, fmt, RASTER_DIR)
+            for fmt in ("png", "raster")}
+    same = (RASTER_DIR / "raster.json").read_bytes() == \
+        (RASTER_DIR / "png.json").read_bytes()
+    prediction = check_prediction(RASTER_DIR / "raster.json", set(range(n)),
+                                  "BMP, DIB and GIF tiles", allow_empty=True)
+    seconds, launched, _, timings = runs["raster"]
+    if not same or kinds != {"bmp": 4, "dib": 1, "gif": 2} \
+            or min(launched.values(), default=0) < 1 \
+            or timings["images"] != n:
+        raise AssertionError(f"predict_on_dir over BMP, DIB and GIF tiles "
+                             f"{kinds}: same as PNG {same}, CCL launches "
+                             f"{launched}, {timings['images']} images")
+    print(f"raster: (b) predict_on_dir over {kinds['bmp']} BMP (2 raw 24-bit, "
+          f"2 RLE8), {kinds['dib']} DIB and {kinds['gif']} GIF 300^2 tiles "
+          f"wrote the same prediction.json as over PNG tiles of their "
+          f"decoded pixels ({len(prediction)} instances); BMP/DIB/GIF "
+          f"{seconds:.2f} s, decode_s {timings['decode_s']:.4f}, PNG "
+          f"{runs['png'][0]:.2f} s, decode_s "
+          f"{runs['png'][3]['decode_s']:.4f} (host clock); CCL launches "
+          f"{launched} on {smi}")
+    print(f"raster: (b) took {time.perf_counter() - part:.2f} s")
+
+    # (c) the host decode of a 300^2 tile on one thread
+    timed = {}
+    for what, path in RASTER_TIMED.items():
+        data = path.read_bytes()
+        decode = gif.decode if path.suffix == ".gif" else bmp.decode
+        decode(data)
+        ms = []
+        for _ in range(RASTER_REPS):
+            start = time.perf_counter()
+            decode(data)
+            ms.append((time.perf_counter() - start) * 1e3)
+        timed[what] = (float(np.median(ms)), min(ms))
+    print("raster: (c) host decode of a 300^2 tile on 1 thread, median (min) "
+          "ms: " + ", ".join(f"{what} {m:.4f} ({lo:.4f})"
+                             for what, (m, lo) in timed.items())
+          + f" (host clock, {RASTER_REPS} decodes each) on {smi}")
+    seconds = time.perf_counter() - begin
+    print(f"raster: phase 19 took {seconds:.2f} s; main-path launches "
+          f"{launched}")
+    if seconds > RASTER_BUDGET_S:
+        raise AssertionError(f"phase 19 took {seconds:.2f} s, over its "
+                             f"{RASTER_BUDGET_S} s")
+    return launched
+
+
 def main():
     start = time.perf_counter()
     last = [start]
@@ -4621,6 +4746,8 @@ def main():
     lap(17)
     counted.append(webp_phase(smi))
     lap(18)
+    counted.append(raster_phase(smi))
+    lap(19)
     for counts in counted + [jpeg_launches]:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n

@@ -1,6 +1,6 @@
 """Image decoding for the loader, the daemon and the artifact: JPEG through
 the port's own decoder, PNG through libpng or the standard-library reader,
-TIFF and WebP through the port's own readers.
+TIFF, WebP, BMP and GIF through the port's own readers.
 
 Counterpart of mapping_tpu/utils/native_decode.py, which decodes both
 formats with libjpeg and libpng (cpp/decode.cpp). Here:
@@ -24,7 +24,12 @@ formats with libjpeg and libpng (cpp/decode.cpp). Here:
 - a WebP decodes through utils/webp.py on every machine (lossless VP8L,
   lossy VP8 with libwebp's fancy upsampling, alpha, VP8X and the first
   frame of an animation; the bitstreams in csrc/webp_decode.cpp), wholly
-  on the host, as the JAX loader reads it through Pillow.
+  on the host, as the JAX loader reads it through Pillow;
+- a BMP or a headerless DIB decodes through utils/bmp.py (every header,
+  depth, palette, RLE8 / RLE4 in csrc/bmp_decode.cpp and Pillow's
+  bitfields) and a GIF's first frame through utils/gif.py (LZW in
+  csrc/gif_decode.cpp), on the host, as the JAX loader reads them through
+  Pillow.
 
 `decode_rgb` / `decode_rgb_bytes` give host arrays (a JPEG's pixel stage
 then runs on the CPU). `read_image` gives the host half of a decode (a
@@ -43,7 +48,7 @@ import numpy as np
 import torch
 
 from mapping_tpu_torch.kernels import jpeg as jpeg_pixels
-from mapping_tpu_torch.utils import jpeg, png, tiff, webp
+from mapping_tpu_torch.utils import bmp, gif, jpeg, png, tiff, webp
 from mapping_tpu_torch.utils.resize import resize_bilinear_u8
 from mapping_tpu_torch.utils.native_lib import (NativeLib,
                                                 NativeLibraryUnavailable)
@@ -99,8 +104,8 @@ def _png_native(data: bytes):
 def read_bytes(data: bytes):
     """The host half of decoding image bytes: a JPEG's
     `jpeg.Coefficients`, a JPEG-compressed TIFF's `tiff.JpegTiles`, or a
-    PNG's, other TIFF's or WebP's (H, W, 3) uint8 pixels. Anything else
-    raises ValueError."""
+    PNG's, other TIFF's, WebP's, BMP's (or DIB's) or GIF's (H, W, 3) uint8
+    pixels. Anything else raises ValueError."""
     data = bytes(data)
     if jpeg.is_jpeg(data):
         return jpeg.read_coefficients(data)
@@ -111,7 +116,11 @@ def read_bytes(data: bytes):
         return tiff.decode(data)
     if webp.is_webp(data):
         return webp.decode(data)
-    raise ValueError("not a JPEG, PNG, TIFF or WebP image")
+    if bmp.is_bmp(data):
+        return bmp.decode(data)
+    if gif.is_gif(data):
+        return gif.decode(data)
+    raise ValueError("not a JPEG, PNG, TIFF, WebP, BMP or GIF image")
 
 
 def read_image(path):
@@ -133,14 +142,15 @@ def to_rgb(item) -> np.ndarray:
 
 
 def decode_rgb(path) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a JPEG, PNG, TIFF or WebP file, on the
-    host."""
+    """(H, W, 3) uint8 RGB of a JPEG, PNG, TIFF, WebP, BMP or GIF file, on
+    the host."""
     return to_rgb(read_image(path))
 
 
 def decode_rgb_bytes(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of in-memory JPEG, PNG, TIFF or WebP bytes (a
-    request body), on the host; anything else raises ValueError."""
+    """(H, W, 3) uint8 RGB of in-memory JPEG, PNG, TIFF, WebP, BMP or GIF
+    bytes (a request body), on the host; anything else raises
+    ValueError."""
     return to_rgb(read_bytes(data))
 
 
@@ -293,7 +303,10 @@ def releases_gil(path) -> bool:
     always, a TIFF's decompression always (LZW and PackBits in
     csrc/tiff_codecs.cpp, Deflate in zlib, JPEG in csrc/jpeg_entropy.cpp,
     the samples in numpy), a WebP's bitstream always
-    (csrc/webp_decode.cpp), a PNG where libpng serves; the
-    standard-library PNG reader holds the GIL between its numpy calls."""
+    (csrc/webp_decode.cpp), a GIF's LZW always (csrc/gif_decode.cpp), a
+    BMP's always (RLE in csrc/bmp_decode.cpp, raw rows in numpy copies), a
+    PNG where libpng serves; the standard-library PNG reader holds the GIL
+    between its numpy calls."""
     return str(path).lower().endswith(
-        (".jpg", ".jpeg", ".tif", ".tiff", ".webp")) or available()
+        (".jpg", ".jpeg", ".tif", ".tiff", ".webp", ".bmp", ".dib",
+         ".gif")) or available()

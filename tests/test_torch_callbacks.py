@@ -32,6 +32,7 @@ from mapping_tpu_torch.train.checkpoint import (load_train_state,
                                                 save_train_state)
 from tests.test_torch_evaluate import _centred_state_dict
 from tests.torch_train_workspace import config, make_experiment
+from tests.torch_guards import drop_tmp_path  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

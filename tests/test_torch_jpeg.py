@@ -20,6 +20,7 @@ its IDCT computes in 32 bits against the plain IDCT in int32 and int64.
 import hashlib
 import io
 import json
+import re
 import struct
 import subprocess
 import sys
@@ -37,6 +38,7 @@ from mapping_tpu.utils import native_decode as jax_decode
 from mapping_tpu_torch.data.loader import SegmentationLoader
 from mapping_tpu_torch.kernels import jpeg as pixels
 from mapping_tpu_torch.utils import jpeg, native_decode
+from tests.torch_guards import MISSING, jax_decode_library, libjpeg_rgb
 
 ROOT = Path(__file__).resolve().parents[1]
 CORPUS = ROOT / "tests" / "fixtures" / "jpeg_corpus"
@@ -51,16 +53,44 @@ def _port(data: bytes) -> np.ndarray:
 
 
 def _libjpeg(data: bytes, tmp_path) -> np.ndarray:
+    """The JAX package's libjpeg decode of the bytes; an AssertionError
+    naming the library where this worker has none."""
     path = tmp_path / "ref.jpg"
     path.write_bytes(data)
-    return jax_decode.decode_rgb(str(path))
+    return libjpeg_rgb(path)
 
 
 def _jax(data: bytes, tmp_path) -> np.ndarray:
-    """The JAX package's decode of a file: libjpeg, else Pillow."""
+    """The JAX package's decode of a file: libjpeg, else Pillow (as for
+    CMYK), with the library loaded in this worker first."""
+    jax_decode_library()
     path = tmp_path / "ref.jpg"
     path.write_bytes(data)
     return load_image(str(path))
+
+
+def test_a_missing_reference_fails_naming_the_library(monkeypatch,
+                                                      tmp_path):
+    """F9: where this worker has no JAX decode library (it lost the JAX
+    package's build race and builds fail), the reference raises naming
+    the library instead of returning None, which the parity tests read as
+    a pixel mismatch; `_jax` too, which would fall back to Pillow."""
+    monkeypatch.setattr(jax_decode, "_load", lambda: None)
+    monkeypatch.setattr(jax_decode, "build", lambda force=False: False)
+    data = jpeg.encode(_picture(8, 8, 0), 90, "4:2:0")
+    with pytest.raises(AssertionError, match=re.escape(MISSING)):
+        _libjpeg(data, tmp_path)
+    with pytest.raises(AssertionError, match=re.escape(MISSING)):
+        _jax(data, tmp_path)
+
+
+def test_a_reference_that_declines_fails_naming_the_library(monkeypatch,
+                                                             tmp_path):
+    """A loaded library that returns None for a file it read before is
+    loaded afresh once, then raises naming the library."""
+    monkeypatch.setattr(jax_decode, "decode_rgb", lambda path: None)
+    with pytest.raises(AssertionError, match=re.escape(MISSING)):
+        _libjpeg(jpeg.encode(_picture(8, 8, 0), 90, "4:2:0"), tmp_path)
 
 
 def _picture(h, w, seed):

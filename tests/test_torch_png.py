@@ -14,7 +14,10 @@ and Pillow does not; the port reproduces libpng's rule (utils/png.py's
 docstring). The corpus `tests/fixtures/png_gamma` and drawn chunk
 sequences (gAMA, sRGB, cHRM, iCCP, bad CRCs, chunks after PLTE) hold the
 port's reads against the JAX loader's with libpng (as here) and without
-it (as on the card's machine), RGB and mask alike."""
+it (as on the card's machine), RGB and mask alike. Each test first loads
+the JAX package's libpng in its worker (`tests.torch_guards.py`): a
+worker that lost that library's build race would otherwise compare the
+port's libpng rules with Pillow's reads."""
 
 import hashlib
 import json
@@ -28,6 +31,7 @@ import pytest
 from mapping_tpu.data.loader import load_image, load_target
 from mapping_tpu_torch.data import loader as port_loader
 from mapping_tpu_torch.utils import native_decode, png
+from tests.torch_guards import jax_decode_library
 
 #: colour type -> (samples a pixel, bit depths)
 KINDS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
@@ -36,6 +40,12 @@ CASES = [(colour, depth, interlace, trns)
          for colour, (_, depths) in KINDS.items() for depth in depths
          for interlace in (0, 1) for trns in (False, True)
          if not (trns and colour in (4, 6))]  # alpha types have no tRNS
+
+
+@pytest.fixture(autouse=True)
+def _jax_libpng():
+    """The JAX package's libpng, loaded in this worker."""
+    jax_decode_library()
 
 
 def _chunk(kind, body):

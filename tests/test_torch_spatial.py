@@ -58,6 +58,7 @@ from mapping_tpu_torch.parallel.spatial import (EXCHANGE, SpatialProgram,
                                                 band_rows)
 from mapping_tpu_torch.pipelines import PIPELINES
 from tests.test_torch_evaluate import make_workspace, write_config
+from tests.torch_guards import drop_tmp_path  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -42,6 +42,7 @@ from tests.test_torch_daemon import (CAT_IDS, CAT_LAYERS, HW,
                                      _assert_same_annotations, _batcher,
                                      _images, _jax_preprocess, _jax_serve,
                                      _post)
+from tests.torch_guards import drop_tmp_path  # noqa: F401 (autouse)
 
 CORPUS = Path(__file__).resolve().parent / "fixtures" / "tiff_corpus"
 MANIFEST = json.loads((CORPUS / "manifest.json").read_text())

@@ -33,6 +33,7 @@ from hypothesis import strategies as st
 from mapping_tpu.data.loader import load_image
 from mapping_tpu_torch.kernels import jpeg as jpeg_pixels
 from mapping_tpu_torch.utils import jpeg, native_decode, png, tiff
+from tests.torch_guards import drop_tmp_path  # noqa: F401 (autouse)
 
 
 def _picture(h, w, seed):

@@ -49,6 +49,7 @@ from mapping_tpu_torch.train.step import (make_eval_step, make_predict_step,
                                           make_train_step)
 from mapping_tpu_torch.train.trainer import UNetTrainer
 from tests.fixtures.synthetic import _make_image
+from tests.torch_guards import drop_tmp_path  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

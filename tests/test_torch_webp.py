@@ -46,6 +46,7 @@ from tests.test_torch_daemon import (CAT_IDS, CAT_LAYERS, HW,
                                      _assert_same_annotations, _batcher,
                                      _images, _jax_preprocess, _jax_serve,
                                      _post)
+from tests.torch_guards import drop_tmp_path  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CORPUS = ROOT / "tests" / "fixtures" / "webp_corpus"
@@ -286,7 +287,8 @@ def test_cut_and_flipped_streams_read_as_the_jax_loader(kind):
 
 def test_read_bytes_names_webp():
     assert native_decode.releases_gil("tile.webp")
-    with pytest.raises(ValueError, match="not a JPEG, PNG, TIFF or WebP"):
+    with pytest.raises(ValueError,
+                       match="not a JPEG, PNG, TIFF, WebP, BMP or GIF"):
         native_decode.read_bytes(b"RIFF\x10\x00\x00\x00WAVEfmt " + bytes(8))
     with pytest.raises(ValueError, match="first chunk is not VP8"):
         native_decode.read_bytes(b"RIFF\x10\x00\x00\x00WEBPALPH" + bytes(8))

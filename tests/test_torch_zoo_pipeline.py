@@ -47,6 +47,7 @@ from tests.test_torch_evaluate import (PIPELINE, assert_same_instances,
                                        served_probabilities, write_config)
 from tests.test_torch_zoo import _named_to_flax
 from tests.torch_ref_models import TorchUNet11, TorchUNetVGG16
+from tests.torch_guards import drop_tmp_path  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
