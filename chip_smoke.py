@@ -12,7 +12,8 @@ the JAX package is imported. Phases, each printing what it found:
   2. build: compiles mapping_tpu_torch/csrc/ccl.cu, conv_dw.cu and
      jpeg_pixels.cu for sm_90a into build/, one nvcc per source, started
      together (and the parent tree's sources when a copy of it lies under
-     build/old/); fails if `-Xptxas -v` reports a spill; then
+     build/old/); fails if `-Xptxas -v` reports a spill; beside them
+     csrc/jp2_decode.cpp with g++ -ffp-contract=off, then
      csrc/jpeg_entropy.cpp with g++;
   3. kernels: the CUDA CCL kernels (K1 `label_raw`, K2 `renumber` and the
      fused `label`) against their plain PyTorch versions and
@@ -339,6 +340,24 @@ the JAX package is imported. Phases, each printing what it found:
      write the same prediction.json as over the 7 PNG tiles and launch the
      CCL kernels; (c) the host decode of a 300^2 tile (BMP raw 24-bit, BMP
      RLE8, GIF) in ms on one thread.
+ 20. JPEG 2000, under build/chip_smoke_jp2/, in at most JP2_BUDGET_S: (a)
+     every file of tests/fixtures/jp2_corpus (Pillow's files of every mode,
+     progression and tiling; openjpeg's of every code-block style, SOP /
+     EPH, POC, tile-parts, ROI, subsampling and precision; JP2 containers
+     of every colour specification, palettes, PPM / PPT, cuts) must decode
+     through `native_decode` (the codestream in csrc/jp2_decode.cpp, built
+     in phase 2) to the SHA-256 of the JAX
+     package's decode in the manifest, and the refused kinds (HTJ2K, more
+     than 4 components, precision above 16 bits, ...) must raise naming
+     their cause; (b) the corpus's 9 300^2 tiles (3 reversible JP2, 3
+     irreversible JP2, 3 tiled RPCL J2K) and PNG tiles of their decoded
+     pixels: `predict_on_dir -p unet_weighted` over the 9 tiles in this
+     process on the card, on phase 9 (a)'s weights, must write the same
+     prediction.json as over the 9 PNG tiles and launch the CCL kernels;
+     (c) the host decode of a 300^2 tile (reversible JP2, irreversible
+     JP2, tiled RPCL J2K) in ms on one thread, beside the host decode of
+     the same tile as a baseline JPEG (the Huffman decode alone, and with
+     the plain pixel stage on the CPU).
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -546,6 +565,15 @@ RASTER_TIMED = {"BMP raw 24-bit": BMP_CORPUS / "tile300_raw24_0.bmp",
                 "GIF": GIF_CORPUS / "tile300_0.gif"}
 RASTER_REPS = 50
 RASTER_BUDGET_S = 20.0
+JP2_DIR = ROOT / "build" / "chip_smoke_jp2"
+JP2_CORPUS = ROOT / "tests" / "fixtures" / "jp2_corpus"
+#: phase 20 (c): the 300^2 tiles timed and the decodes of each; the
+#: phase's budget
+JP2_TIMED = {"reversible JP2": "tile300_reversible_0.jp2",
+             "irreversible JP2": "tile300_irreversible_0.jp2",
+             "tiled RPCL J2K": "tile300_rpcl_0.j2k"}
+JP2_REPS = 20
+JP2_BUDGET_S = 20.0
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
 CLI_CHILD = ("import json, sys\n"
@@ -1108,6 +1136,7 @@ def slice_phase(gen, smi):
 
 def build_phase():
     from mapping_tpu_torch.kernels import build, ccl, conv_dw, jpeg
+    from mapping_tpu_torch.utils import jp2
     from mapping_tpu_torch.utils import jpeg as jpeg_host
 
     specs = {k.LIBRARY: k.SOURCES for k in (ccl, conv_dw, jpeg)}
@@ -1116,13 +1145,23 @@ def build_phase():
         specs.update(old_ccl=[csrc / "ccl.cu"],
                      old_conv_dw=[csrc / "conv_dw.cu"],
                      old_jpeg=[csrc / "jpeg_pixels.cu"])
-    for name, built in build.build_shared_libraries(specs).items():
-        print(f"build: {built.path.name} in {built.seconds:.2f} s")
-        for line in built.log.splitlines():
-            print(f"build: {line}")
-            spill = re.search(r"(\d+) bytes spill stores", line)
-            if spill and int(spill.group(1)) and not name.startswith("old"):
-                raise AssertionError(f"{name}: ptxas reports a spill: {line}")
+    start = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        # csrc/jp2_decode.cpp, the longest g++ build, beside nvcc; raises
+        # naming it
+        host = pool.submit(jp2.load)
+        for name, built in build.build_shared_libraries(specs).items():
+            print(f"build: {built.path.name} in {built.seconds:.2f} s")
+            for line in built.log.splitlines():
+                print(f"build: {line}")
+                spill = re.search(r"(\d+) bytes spill stores", line)
+                if spill and int(spill.group(1)) and \
+                        not name.startswith("old"):
+                    raise AssertionError(f"{name}: ptxas reports a spill: "
+                                         f"{line}")
+        host.result()
+    print(f"build: csrc/jp2_decode.cpp (g++ {' '.join(jp2.FLAGS)}) loaded "
+          f"{time.perf_counter() - start:.2f} s after the builds began")
     start = time.perf_counter()
     jpeg_host.load()  # csrc/jpeg_entropy.cpp with g++; raises naming it
     print(f"build: csrc/jpeg_entropy.cpp (g++) loaded in "
@@ -4702,6 +4741,102 @@ def raster_phase(smi):
     return launched
 
 
+def jp2_phase(smi):
+    """Phase 20: the JPEG 2000 corpus through the port's reader,
+    predict_on_dir over JP2 and J2K tiles = over the same pixels as PNG,
+    and the host decode's ms a tile beside a JPEG's. Returns the main
+    path's launches."""
+    from mapping_tpu_torch.utils import jp2, jpeg, native_decode, png
+
+    begin = time.perf_counter()
+    manifest = json.loads((JP2_CORPUS / "manifest.json").read_text())
+    decoded, refused = corpus_digests(JP2_CORPUS,
+                                      native_decode.decode_rgb_bytes,
+                                      "decode_sha256")
+    if (decoded, refused) != (
+            sum("refused" not in e for e in manifest.values()),
+            sum("refused" in e for e in manifest.values())):
+        raise AssertionError(f"the JPEG 2000 corpus: {decoded} decoded, "
+                             f"{refused} refused")
+    print(f"jp2: (a) {decoded} JPEG 2000 corpus files decode on the host to "
+          f"the JAX package's digests, {refused} refused kinds raise naming "
+          f"their cause; (a) took {time.perf_counter() - begin:.2f} s")
+    part = time.perf_counter()
+
+    # (b) JP2 and J2K tiles against PNG of their decoded pixels
+    shutil.rmtree(JP2_DIR, ignore_errors=True)
+    for fmt in ("jp2", "png"):
+        (JP2_DIR / fmt).mkdir(parents=True)
+    for path in sorted(JP2_CORPUS.glob("tile300_*")):
+        shutil.copy2(path, JP2_DIR / "jp2" / path.name)
+        (JP2_DIR / "png" / f"{path.stem}.png").write_bytes(png.encode_png(
+            native_decode.decode_rgb_bytes(path.read_bytes())))
+    kinds = {kind: len(list((JP2_DIR / "jp2").glob(f"tile300_{kind}_*")))
+             for kind in ("reversible", "irreversible", "rpcl")}
+    tiles = sum(kinds.values())
+    experiment = JP2_DIR / "experiment"
+    (experiment / "transformers").mkdir(parents=True)
+    shutil.copy2(TRAIN_DIR / "full" / "transformers" / "unet.pt",
+                 experiment / "transformers" / "unet.pt")
+    config = write_config("jp2", {
+        "data_dir": str(JP2_DIR), "meta_dir": str(JP2_DIR / "meta"),
+        "experiment_dir": str(experiment), "device": DEVICE,
+        **EVAL_PARAMS}, where=JP2_DIR)
+    runs = {fmt: tiff_predict(config, fmt, JP2_DIR) for fmt in ("png",
+                                                                "jp2")}
+    same = (JP2_DIR / "jp2.json").read_bytes() == \
+        (JP2_DIR / "png.json").read_bytes()
+    prediction = check_prediction(JP2_DIR / "jp2.json", set(range(tiles)),
+                                  "JPEG 2000 tiles", allow_empty=True)
+    seconds, launched, _, timings = runs["jp2"]
+    if not same or kinds != {"reversible": 3, "irreversible": 3, "rpcl": 3} \
+            or min(launched.values(), default=0) < 1 \
+            or timings["images"] != tiles:
+        raise AssertionError(f"predict_on_dir over JPEG 2000 tiles {kinds}: "
+                             f"same as PNG {same}, CCL launches {launched}, "
+                             f"{timings['images']} images")
+    print(f"jp2: (b) predict_on_dir over {kinds['reversible']} reversible "
+          f"JP2, {kinds['irreversible']} irreversible JP2 and "
+          f"{kinds['rpcl']} tiled RPCL J2K 300^2 tiles wrote the same "
+          f"prediction.json as over PNG tiles of their decoded pixels "
+          f"({len(prediction)} instances); JPEG 2000 {seconds:.2f} s, "
+          f"decode_s {timings['decode_s']:.4f}, PNG {runs['png'][0]:.2f} s, "
+          f"decode_s {runs['png'][3]['decode_s']:.4f} (host clock); CCL "
+          f"launches {launched} on {smi}")
+    print(f"jp2: (b) took {time.perf_counter() - part:.2f} s")
+
+    # (c) the host decode of a 300^2 tile on one thread, beside a JPEG's
+    def median_ms(decode, data):
+        decode(data)
+        ms = []
+        for _ in range(JP2_REPS):
+            start = time.perf_counter()
+            decode(data)
+            ms.append((time.perf_counter() - start) * 1e3)
+        return float(np.median(ms)), min(ms)
+
+    timed = {what: median_ms(jp2.decode, (JP2_CORPUS / name).read_bytes())
+             for what, name in JP2_TIMED.items()}
+    pixels = native_decode.decode_rgb_bytes(
+        (JP2_CORPUS / JP2_TIMED["reversible JP2"]).read_bytes())
+    baseline = jpeg.encode(pixels, quality=95)
+    timed["JPEG Huffman"] = median_ms(jpeg.read_coefficients, baseline)
+    timed["JPEG Huffman + plain pixels on the CPU"] = median_ms(
+        native_decode.decode_rgb_bytes, baseline)
+    print("jp2: (c) host decode of a 300^2 tile on 1 thread, median (min) "
+          "ms: " + ", ".join(f"{what} {m:.4f} ({lo:.4f})"
+                             for what, (m, lo) in timed.items())
+          + f" (host clock, {JP2_REPS} decodes each; the JPEG at quality "
+          f"95, 4:2:0, of the reversible tile's pixels) on {smi}")
+    seconds = time.perf_counter() - begin
+    print(f"jp2: phase 20 took {seconds:.2f} s; main-path launches "
+          f"{launched}")
+    if seconds > JP2_BUDGET_S:
+        raise AssertionError(f"phase 20 took {seconds:.2f} s, over its "
+                             f"{JP2_BUDGET_S} s")
+    return launched
+
+
 def main():
     start = time.perf_counter()
     last = [start]
@@ -4748,6 +4883,8 @@ def main():
     lap(18)
     counted.append(raster_phase(smi))
     lap(19)
+    counted.append(jp2_phase(smi))
+    lap(20)
     for counts in counted + [jpeg_launches]:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n

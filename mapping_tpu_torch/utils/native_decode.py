@@ -1,6 +1,6 @@
 """Image decoding for the loader, the daemon and the artifact: JPEG through
 the port's own decoder, PNG through libpng or the standard-library reader,
-TIFF, WebP, BMP and GIF through the port's own readers.
+TIFF, WebP, BMP, GIF and JPEG 2000 through the port's own readers.
 
 Counterpart of mapping_tpu/utils/native_decode.py, which decodes both
 formats with libjpeg and libpng (cpp/decode.cpp). Here:
@@ -29,7 +29,12 @@ formats with libjpeg and libpng (cpp/decode.cpp). Here:
   depth, palette, RLE8 / RLE4 in csrc/bmp_decode.cpp and Pillow's
   bitfields) and a GIF's first frame through utils/gif.py (LZW in
   csrc/gif_decode.cpp), on the host, as the JAX loader reads them through
-  Pillow.
+  Pillow;
+- a JPEG 2000 file (JP2 or a raw J2K codestream) decodes through
+  utils/jp2.py (the codestream in csrc/jp2_decode.cpp: tier 2, tier 1,
+  the inverse wavelet and the colour transform, as openjpeg 2.5 decodes
+  them; Pillow's unpacking in numpy), on the host, as the JAX loader reads
+  it through Pillow.
 
 `decode_rgb` / `decode_rgb_bytes` give host arrays (a JPEG's pixel stage
 then runs on the CPU). `read_image` gives the host half of a decode (a
@@ -48,7 +53,7 @@ import numpy as np
 import torch
 
 from mapping_tpu_torch.kernels import jpeg as jpeg_pixels
-from mapping_tpu_torch.utils import bmp, gif, jpeg, png, tiff, webp
+from mapping_tpu_torch.utils import bmp, gif, jp2, jpeg, png, tiff, webp
 from mapping_tpu_torch.utils.resize import resize_bilinear_u8
 from mapping_tpu_torch.utils.native_lib import (NativeLib,
                                                 NativeLibraryUnavailable)
@@ -104,8 +109,8 @@ def _png_native(data: bytes):
 def read_bytes(data: bytes):
     """The host half of decoding image bytes: a JPEG's
     `jpeg.Coefficients`, a JPEG-compressed TIFF's `tiff.JpegTiles`, or a
-    PNG's, other TIFF's, WebP's, BMP's (or DIB's) or GIF's (H, W, 3) uint8
-    pixels. Anything else raises ValueError."""
+    PNG's, other TIFF's, WebP's, BMP's (or DIB's), GIF's or JPEG 2000's
+    (H, W, 3) uint8 pixels. Anything else raises ValueError."""
     data = bytes(data)
     if jpeg.is_jpeg(data):
         return jpeg.read_coefficients(data)
@@ -120,7 +125,10 @@ def read_bytes(data: bytes):
         return bmp.decode(data)
     if gif.is_gif(data):
         return gif.decode(data)
-    raise ValueError("not a JPEG, PNG, TIFF, WebP, BMP or GIF image")
+    if jp2.is_jp2(data):
+        return jp2.decode(data)
+    raise ValueError("not a JPEG, PNG, TIFF, WebP, BMP or GIF image, nor a "
+                     "JPEG 2000 file")
 
 
 def read_image(path):
@@ -142,14 +150,14 @@ def to_rgb(item) -> np.ndarray:
 
 
 def decode_rgb(path) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a JPEG, PNG, TIFF, WebP, BMP or GIF file, on
-    the host."""
+    """(H, W, 3) uint8 RGB of a JPEG, PNG, TIFF, WebP, BMP, GIF or JPEG
+    2000 file, on the host."""
     return to_rgb(read_image(path))
 
 
 def decode_rgb_bytes(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of in-memory JPEG, PNG, TIFF, WebP, BMP or GIF
-    bytes (a request body), on the host; anything else raises
+    """(H, W, 3) uint8 RGB of in-memory JPEG, PNG, TIFF, WebP, BMP, GIF or
+    JPEG 2000 bytes (a request body), on the host; anything else raises
     ValueError."""
     return to_rgb(read_bytes(data))
 
@@ -305,8 +313,9 @@ def releases_gil(path) -> bool:
     the samples in numpy), a WebP's bitstream always
     (csrc/webp_decode.cpp), a GIF's LZW always (csrc/gif_decode.cpp), a
     BMP's always (RLE in csrc/bmp_decode.cpp, raw rows in numpy copies), a
-    PNG where libpng serves; the standard-library PNG reader holds the GIL
-    between its numpy calls."""
+    JPEG 2000 codestream always (csrc/jp2_decode.cpp), a PNG where libpng
+    serves; the standard-library PNG reader holds the GIL between its
+    numpy calls."""
     return str(path).lower().endswith(
-        (".jpg", ".jpeg", ".tif", ".tiff", ".webp", ".bmp", ".dib",
-         ".gif")) or available()
+        (".jpg", ".jpeg", ".tif", ".tiff", ".webp", ".bmp", ".dib", ".gif",
+         ".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c")) or available()

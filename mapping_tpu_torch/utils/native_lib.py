@@ -33,21 +33,24 @@ class NativeLib:
     compiled and loaded on first use.
 
     register(lib) declares the argtypes and restypes once after loading;
-    `link` are the linker flags (e.g. -ljpeg)."""
+    `link` are the linker flags (e.g. -ljpeg); `flags` are compiler flags
+    this library needs beyond GXX_FLAGS (e.g. -ffp-contract=off), part of
+    its hash."""
 
     def __init__(self, src_name: str, name: str, register, link=(),
-                 src_dir: Path = CPP_DIR):
+                 src_dir: Path = CPP_DIR, flags=()):
         self.src = Path(src_dir) / src_name
         self.name = name
         self._register = register
         self._link = tuple(link)
+        self.flags = GXX_FLAGS + tuple(flags)
         self._lib = None
         self.error = None
         # the loader's decode threads may ask first, at once
         self._lock = threading.Lock()
 
     def _target(self) -> Path:
-        digest = hashlib.sha256(" ".join(GXX_FLAGS + self._link).encode())
+        digest = hashlib.sha256(" ".join(self.flags + self._link).encode())
         digest.update(self.src.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 
@@ -58,7 +61,7 @@ class NativeLib:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
-            ["g++", *GXX_FLAGS, str(self.src), "-o", str(tmp), *self._link],
+            ["g++", *self.flags, str(self.src), "-o", str(tmp), *self._link],
             capture_output=True, text=True)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)

@@ -255,6 +255,7 @@ def test_port_imports_without_jax():
         "        'mapping_tpu_torch.utils.webp',\n"
         "        'mapping_tpu_torch.utils.bmp',\n"
         "        'mapping_tpu_torch.utils.gif',\n"
+        "        'mapping_tpu_torch.utils.jp2',\n"
         "        'mapping_tpu_torch.prep.targets',\n"
         "        'mapping_tpu_torch.ops.edt',\n"
         "        'mapping_tpu_torch.utils.ndpickle',\n"
