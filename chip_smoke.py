@@ -163,13 +163,15 @@ the JAX package is imported. Phases, each printing what it found:
      (phase 9's metadata cut to its first 200 train tiles, the crowded
      and the empty one among them, and the 110 val tiles), seeded random
      weights, the JAX config's defaults (bf16, batch 20, 256^2 in, 300^2
-     out): (a) for each of VGG11, VGG16, from_scratch and UNetPlusPlus a
-     child process (ZOO_CHILD) runs `train -p unet_weighted` for 1 epoch
-     with validation mAP through the CUDA `label`, then `evaluate` of
-     that experiment: each must write a prediction.json that
+     out): (a) for each of VGG11, VGG16, from_scratch and UNetPlusPlus in
+     turn, one child process (ZOO_CHILD) runs `train -p unet_weighted` for
+     1 epoch with validation mAP through the CUDA `label`, then `evaluate`
+     of that experiment: each must write a prediction.json that
      check_prediction accepts and launch the CCL kernels in both
-     commands; prints the parameter count, ms/step, peak device memory,
-     the evaluate's images/s and stage seconds, AP/AR; in this process
+     commands; prints the parameter count, ms/step, peak device memory
+     (and the memory still allocated at the family's start, which the
+     peaks include), the evaluate's images/s and stage seconds, AP/AR;
+     in this process
      the family's served masks of 20 val tiles (and the same
      probabilities thresholded at their median) go through `label` and
      the plain CCL, which must be equal; (b) UNetMultitask with
@@ -358,6 +360,24 @@ the JAX package is imported. Phases, each printing what it found:
      JP2, tiled RPCL J2K) in ms on one thread, beside the host decode of
      the same tile as a baseline JPEG (the Huffman decode alone, and with
      the plain pixel stage on the CPU).
+ 21. lossless JPEG (SOF3), under build/chip_smoke_jpeg_lossless/, in at
+     most JPEG_LOSSLESS_BUDGET_S: (a) the lossless files of
+     tests/fixtures/jpeg_corpus (libjpeg-turbo 3.1.3's and hand-made ones:
+     predictors 1-7, point transforms, restarts, scans, subsampling,
+     CMYK, cuts and bad codes) and of tests/fixtures/tiff_corpus (strips
+     and tiles of lossless streams, one file with lossy strips beside
+     them, through `assemble` on the card) must decode through
+     `native_decode` (csrc/jpeg_entropy.cpp jpeg_decode_lossless and
+     jpeg_lossless_rgb, built in phase 2) to the SHA-256 of the JAX
+     package's decode in the manifest, and the refused kinds (YCbCr and
+     YCCK, precisions other than 8, predictor 0, ...) must raise naming
+     their cause; (b) the corpus's 9 lossless 300^2 tiles and PNG tiles of
+     their decoded pixels: `predict_on_dir -p unet_weighted` over the 9
+     tiles in this process on the card, on phase 9 (a)'s weights, must
+     write the same prediction.json as over the 9 PNG tiles, with one K1
+     and one K2 launch and no `jpeg_pixels` launch; (c) the host decode
+     of a 300^2 tile in ms on one thread, beside the JPEG Huffman decode
+     of the same pixels as a baseline JPEG.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -574,6 +594,10 @@ JP2_TIMED = {"reversible JP2": "tile300_reversible_0.jp2",
              "tiled RPCL J2K": "tile300_rpcl_0.j2k"}
 JP2_REPS = 20
 JP2_BUDGET_S = 20.0
+JPEG_LOSSLESS_DIR = ROOT / "build" / "chip_smoke_jpeg_lossless"
+#: phase 21 (c): decodes of a 300^2 tile a median; the phase's budget
+JPEG_LOSSLESS_REPS = 20
+JPEG_LOSSLESS_BUDGET_S = 20.0
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
 CLI_CHILD = ("import json, sys\n"
@@ -615,26 +639,38 @@ QUANT_CHILD = ("import json, sys\n"
                "print('quantized ' + json.dumps({'cold': cold, 'timings': "
                "manager.timings, 'int_mm': quantize.MATMULS['int_mm'], "
                "'launches': dict(ccl.LAUNCHES)}))\n")
-#: one family of phase 12 in a child process: the CLI's `train -p
-#: unet_weighted`, then its `evaluate` of that experiment; prints the CCL
-#: launch counts, the peak device memory of each command and the
-#: evaluate's stage seconds as one JSON line
-ZOO_CHILD = ("import json, sys, torch\n"
+#: phase 12's families in turn in one child process: for each config, the
+#: CLI's `train -p unet_weighted`, then its `evaluate` of that experiment;
+#: prints the device memory still allocated at the family's start (after
+#: the previous family's objects are collected), the CCL launch counts,
+#: the peak device memory of each command and the evaluate's stage
+#: seconds as one JSON line a family
+ZOO_CHILD = ("import gc, json, sys, time, torch\n"
              "from mapping_tpu_torch import main\n"
              "from mapping_tpu_torch.kernels import ccl\n"
-             "config = sys.argv[1]\n"
-             "main.main(['--config', config, 'train', '-p', "
+             "for config in sys.argv[1:]:\n"
+             "    gc.collect()\n"
+             "    torch.cuda.empty_cache()\n"
+             "    start = time.perf_counter()\n"
+             "    out = {'start_mib': "
+             "torch.cuda.memory_allocated() / 2 ** 20}\n"
+             "    ccl.reset_launches()\n"
+             "    torch.cuda.reset_peak_memory_stats()\n"
+             "    main.main(['--config', config, 'train', '-p', "
              "'unet_weighted'])\n"
-             "out = {'train_peak_mib': torch.cuda.max_memory_allocated() "
-             "/ 2 ** 20, 'train_launches': dict(ccl.LAUNCHES)}\n"
-             "torch.cuda.reset_peak_memory_stats()\n"
-             "manager = main.main(['--config', config, 'evaluate', '-p', "
-             "'unet_weighted'])\n"
-             "out['evaluate_peak_mib'] = torch.cuda.max_memory_allocated() "
+             "    out['train_peak_mib'] = torch.cuda.max_memory_allocated() "
              "/ 2 ** 20\n"
-             "out['timings'] = manager.timings\n"
-             "out['launches'] = dict(ccl.LAUNCHES)\n"
-             "print('zoo ' + json.dumps(out))\n")
+             "    out['train_launches'] = dict(ccl.LAUNCHES)\n"
+             "    torch.cuda.reset_peak_memory_stats()\n"
+             "    manager = main.main(['--config', config, 'evaluate', '-p', "
+             "'unet_weighted'])\n"
+             "    out['evaluate_peak_mib'] = "
+             "torch.cuda.max_memory_allocated() / 2 ** 20\n"
+             "    out['timings'] = manager.timings\n"
+             "    out['launches'] = dict(ccl.LAUNCHES)\n"
+             "    out['seconds'] = time.perf_counter() - start\n"
+             "    del manager\n"
+             "    print('zoo ' + json.dumps(out), flush=True)\n")
 
 
 def card():
@@ -2845,26 +2881,33 @@ def zoo_phase(smi, prepared):
             "experiment_dir": str(ZOO_DIR / name), "device": DEVICE,
             **ZOO_PARAMS, **extra}, ZOO_DIR)
 
-    # (a) each family: train 1 epoch and evaluate, in a child process
+    # (a) each family: train 1 epoch and evaluate, one after another in
+    # one child process
     paths = [r["file_path_image"] for r in val_rows[:BATCH]]
     tiles = np.stack([load_image(p) for p in paths])
     scores = {}
-    for family in ZOO_FAMILIES:
-        cfg = config(family, encoder=family)
+    configs = {family: config(family, encoder=family)
+               for family in ZOO_FAMILIES}
+    log = ZOO_DIR / "families.log"
+    rc, seconds, rss = run_child(
+        [sys.executable, "-c", ZOO_CHILD, *configs.values()], log)
+    text = log.read_text()
+    outs = [json.loads(line[len("zoo "):]) for line in text.splitlines()
+            if line.startswith("zoo {")]
+    if rc != 0 or len(outs) != len(ZOO_FAMILIES):
+        raise AssertionError(f"the zoo child exited {rc}:\n" + text[-3000:])
+    print(f"zoo: (a) the {len(ZOO_FAMILIES)} families' child: {seconds:.2f} "
+          f"s, peak RSS {rss:.0f} MiB")
+    # each family's part of the child's log: from its train to the next
+    parts = re.split(r"(?m)^zoo \{.*$", text)
+    for family, child, part in zip(ZOO_FAMILIES, outs, parts):
+        cfg = configs[family]
         experiment = ZOO_DIR / family
-        log = ZOO_DIR / f"{family}.log"
-        rc, seconds, rss = run_child(
-            [sys.executable, "-c", ZOO_CHILD, cfg], log)
-        text = log.read_text()
-        last = text.strip().splitlines()[-1] if text.strip() else ""
-        if rc != 0 or not last.startswith("zoo "):
-            raise AssertionError(f"{family}: exited {rc}:\n" + text[-3000:])
-        child = json.loads(last[len("zoo "):])
         count(child["launches"])
         took = [float(t) for t in re.findall(r"epoch \d+ took ([\d.]+)s",
-                                             text)]
+                                             part)]
         maps = re.findall(r"epoch \d+ validation mAP = ([\d.]+) in "
-                          r"([\d.]+) s", text)
+                          r"([\d.]+) s", part)
         check_prediction(experiment / "prediction.json", ids,
                          f"zoo {family}", allow_empty=True)
         ap, ar = last_scores(experiment)
@@ -2885,8 +2928,11 @@ def zoo_phase(smi, prepared):
               f"{t['decode_s']:.4f} s, device {t['device_s']:.4f} s, "
               f"annotation + RLE {t['annotation_s']:.4f} s, COCOeval "
               f"{t['cocoeval_s']:.4f} s (host clock), peak device memory "
-              f"{child['evaluate_peak_mib']:.1f} MiB; AP {ap} AR {ar}; child "
-              f"{seconds:.2f} s, peak RSS {rss:.0f} MiB; CCL launches train "
+              f"{child['evaluate_peak_mib']:.1f} MiB; AP {ap} AR {ar}; "
+              f"{child['seconds']:.2f} s in the child, which held "
+              f"{child['start_mib']:.1f} MiB of device memory at the "
+              f"family's start (earlier families' leftovers, in the peaks "
+              f"above); CCL launches train "
               f"{child['train_launches']}, train + evaluate "
               f"{child['launches']} on {smi}")
         if len(took) != 1 or len(maps) != 1 or t["images"] != PREP_VAL \
@@ -4129,7 +4175,9 @@ def jpeg_exactness(err):
                 print(f"jpeg: (a) {name} refused: {e}")
                 continue
             raise AssertionError(f"{name} decoded; it should be refused")
-        c = jpeg.read_coefficients(data)
+        if is_lossless_jpeg(name):  # decoded on the host (phase 21)
+            continue
+        c = jpeg.read(data)
         rgb = jpeg_check(torch.from_numpy(c.coef)[None],
                          torch.from_numpy(c.quant)[None], c.geometry, name,
                          err)
@@ -4291,17 +4339,17 @@ def jpeg_phase(smi, png_run):
 
     # (c) times at the daemon's batch, the serving batch and a large one
     times, bound = jpeg_times(
-        [jpeg.read_coefficients(p.read_bytes()) for p in paths], smi, err)
+        [jpeg.read(p.read_bytes()) for p in paths], smi, err)
     blobs = [p.read_bytes() for p in paths] * (
         -(-JPEG_ENTROPY_TILES // len(paths)))
     blobs = blobs[:JPEG_ENTROPY_TILES]
     start = time.perf_counter()
     for b in blobs:
-        jpeg.read_coefficients(b)
+        jpeg.read(b)
     one = (time.perf_counter() - start) / len(blobs) * 1e3
     with ThreadPoolExecutor(8) as pool:
         start = time.perf_counter()
-        list(pool.map(jpeg.read_coefficients, blobs))
+        list(pool.map(jpeg.read, blobs))
         eight = (time.perf_counter() - start) / len(blobs) * 1e3
     print(f"jpeg: (c) host Huffman decode {one:.4f} ms a tile on 1 thread, "
           f"{eight:.4f} on 8 (host clock) on {smi}")
@@ -4314,15 +4362,18 @@ def jpeg_phase(smi, png_run):
         {"jpeg_pixels": bound[BATCH]}
 
 
-def corpus_digests(corpus, read, key):
-    """Phase 17 (a): each file of `corpus` through `read` (bytes -> RGB):
-    the manifest's JAX digest under `key`, or the refusal naming its
-    feature. Returns (files decoded, refused)."""
+def corpus_digests(corpus, read, key, select=None):
+    """Phase 17 (a): each file of `corpus` (those `select(name)` takes,
+    where given) through `read` (bytes -> RGB): the manifest's JAX digest
+    under `key`, or the refusal naming its feature. Returns (files
+    decoded, refused)."""
     import hashlib
 
     manifest = json.loads((corpus / "manifest.json").read_text())
     decoded = refused = 0
     for name, entry in sorted(manifest.items()):
+        if select is not None and not select(name):
+            continue
         data = (corpus / name).read_bytes()
         if hashlib.sha256(data).hexdigest() != entry["sha256"]:
             raise AssertionError(f"{name}: not the committed file")
@@ -4458,8 +4509,9 @@ def tiff_phase(smi):
 
     def on_card(data):
         item = native_decode.read_bytes(data)
-        if isinstance(item, tiff.JpegTiles):
-            jpegs.append({p[2].geometry for p in item.parts})
+        if isinstance(item, tiff.JpegTiles):  # lossless parts: no launch
+            jpegs.append({p[2].geometry for p in item.parts
+                          if not isinstance(p[2], np.ndarray)})
         images = native_decode.assemble([item], DEVICE)
         if images.device.type != torch.device(DEVICE).type:
             raise AssertionError("a TIFF decode left the card")
@@ -4820,7 +4872,7 @@ def jp2_phase(smi):
     pixels = native_decode.decode_rgb_bytes(
         (JP2_CORPUS / JP2_TIMED["reversible JP2"]).read_bytes())
     baseline = jpeg.encode(pixels, quality=95)
-    timed["JPEG Huffman"] = median_ms(jpeg.read_coefficients, baseline)
+    timed["JPEG Huffman"] = median_ms(jpeg.read, baseline)
     timed["JPEG Huffman + plain pixels on the CPU"] = median_ms(
         native_decode.decode_rgb_bytes, baseline)
     print("jp2: (c) host decode of a 300^2 tile on 1 thread, median (min) "
@@ -4834,6 +4886,116 @@ def jp2_phase(smi):
     if seconds > JP2_BUDGET_S:
         raise AssertionError(f"phase 20 took {seconds:.2f} s, over its "
                              f"{JP2_BUDGET_S} s")
+    return launched
+
+
+def is_lossless_jpeg(name):
+    """The lossless (SOF3) files of the JPEG and TIFF corpora, by name."""
+    return name.startswith(("lossless", "tile300_lossless", "jpeg_lossless"))
+
+
+def jpeg_lossless_phase(smi):
+    """Phase 21: lossless JPEG, bare and as JPEG-compressed TIFF strips and
+    tiles, through the port's host decoder: the corpora's digests and
+    refusals (the TIFF files through `assemble` on the card),
+    predict_on_dir over 9 lossless tiles = over the same pixels as PNG,
+    and a 300^2 tile's host decode beside the JPEG Huffman decode of the
+    same pixels. Returns the main path's launches."""
+    from mapping_tpu_torch.utils import jpeg, native_decode, png
+
+    begin = time.perf_counter()
+
+    def on_card(data):
+        return native_decode.assemble([native_decode.read_bytes(data)],
+                                      DEVICE)[0].cpu().numpy()
+
+    found = {}
+    for corpus, read in ((JPEG_CORPUS, native_decode.decode_rgb_bytes),
+                         (TIFF_CORPUS, on_card)):
+        manifest = json.loads((corpus / "manifest.json").read_text())
+        picked = [e for n, e in manifest.items() if is_lossless_jpeg(n)]
+        found[corpus.name] = corpus_digests(corpus, read, "decode_sha256",
+                                            is_lossless_jpeg)
+        if found[corpus.name] != (sum("refused" not in e for e in picked),
+                                  sum("refused" in e for e in picked)):
+            raise AssertionError(f"lossless files of {corpus.name}: "
+                                 f"{found[corpus.name]} (decoded, refused)")
+    print(f"jpeg_lossless: (a) lossless JPEG files decode on the host to "
+          f"the JAX package's digests and the refused kinds raise naming "
+          f"their cause: {found['jpeg_corpus']} (decoded, refused) bare, "
+          f"{found['tiff_corpus']} as JPEG-compressed TIFF through "
+          f"`assemble` on the card; (a) took "
+          f"{time.perf_counter() - begin:.2f} s")
+    part = time.perf_counter()
+
+    # (b) lossless tiles against PNG of their decoded pixels
+    shutil.rmtree(JPEG_LOSSLESS_DIR, ignore_errors=True)
+    for fmt in ("jpeg", "png"):
+        (JPEG_LOSSLESS_DIR / fmt).mkdir(parents=True)
+    tiles = sorted(JPEG_CORPUS.glob("tile300_lossless_*.jpg"))
+    for path in tiles:
+        shutil.copy2(path, JPEG_LOSSLESS_DIR / "jpeg" / path.name)
+        pixels = native_decode.decode_rgb_bytes(path.read_bytes())
+        (JPEG_LOSSLESS_DIR / "png" / f"{path.stem}.png").write_bytes(
+            png.encode_png(pixels))
+    experiment = JPEG_LOSSLESS_DIR / "experiment"
+    (experiment / "transformers").mkdir(parents=True)
+    shutil.copy2(TRAIN_DIR / "full" / "transformers" / "unet.pt",
+                 experiment / "transformers" / "unet.pt")
+    config = write_config("jpeg_lossless", {
+        "data_dir": str(JPEG_LOSSLESS_DIR),
+        "meta_dir": str(JPEG_LOSSLESS_DIR / "meta"),
+        "experiment_dir": str(experiment), "device": DEVICE,
+        **EVAL_PARAMS}, where=JPEG_LOSSLESS_DIR)
+    runs = {fmt: tiff_predict(config, fmt, JPEG_LOSSLESS_DIR)
+            for fmt in ("png", "jpeg")}
+    same = (JPEG_LOSSLESS_DIR / "jpeg.json").read_bytes() == \
+        (JPEG_LOSSLESS_DIR / "png.json").read_bytes()
+    prediction = check_prediction(JPEG_LOSSLESS_DIR / "jpeg.json",
+                                  set(range(len(tiles))),
+                                  "lossless JPEG tiles", allow_empty=True)
+    seconds, launched, pixels_launched, timings = runs["jpeg"]
+    if not same or len(tiles) != 9 or pixels_launched \
+            or launched != {"ccl_label_raw": 1, "ccl_renumber": 1} \
+            or timings["images"] != len(tiles):
+        raise AssertionError(f"predict_on_dir over {len(tiles)} lossless "
+                             f"JPEG tiles: same as PNG {same}, CCL launches "
+                             f"{launched}, jpeg_pixels {pixels_launched}, "
+                             f"{timings['images']} images")
+    print(f"jpeg_lossless: (b) predict_on_dir over {len(tiles)} lossless "
+          f"300^2 JPEG tiles (RGB, predictor 1, Pt 0) wrote the same "
+          f"prediction.json as over PNG tiles of their decoded pixels "
+          f"({len(prediction)} instances); lossless JPEG {seconds:.2f} s, "
+          f"decode_s {timings['decode_s']:.4f}, PNG {runs['png'][0]:.2f} s, "
+          f"decode_s {runs['png'][3]['decode_s']:.4f} (host clock); CCL "
+          f"launches {launched}, jpeg_pixels {pixels_launched} on {smi}")
+    print(f"jpeg_lossless: (b) took {time.perf_counter() - part:.2f} s")
+
+    # (c) the host decode of a 300^2 tile on one thread, beside a JPEG's
+    def median_ms(decode, data):
+        decode(data)
+        ms = []
+        for _ in range(JPEG_LOSSLESS_REPS):
+            start = time.perf_counter()
+            decode(data)
+            ms.append((time.perf_counter() - start) * 1e3)
+        return float(np.median(ms)), min(ms)
+
+    data = tiles[0].read_bytes()
+    timed = {"lossless JPEG": median_ms(jpeg.read, data)}
+    baseline = jpeg.encode(jpeg.read(data), quality=95)
+    timed["JPEG Huffman"] = median_ms(jpeg.read, baseline)
+    print("jpeg_lossless: (c) host decode of a 300^2 tile on 1 thread, "
+          "median (min) ms: " + ", ".join(f"{what} {m:.4f} ({lo:.4f})"
+                                          for what, (m, lo) in timed.items())
+          + f" (host clock, {JPEG_LOSSLESS_REPS} decodes each; the JPEG at "
+          f"quality 95, 4:2:0, of the same pixels) on {smi}")
+    seconds = time.perf_counter() - begin
+    print(f"jpeg_lossless: phase 21 took {seconds:.2f} s; main-path "
+          f"launches {launched}")
+    if seconds > JPEG_LOSSLESS_BUDGET_S:
+        raise AssertionError(f"phase 21 took {seconds:.2f} s, over its "
+                             f"{JPEG_LOSSLESS_BUDGET_S} s")
     return launched
 
 
@@ -4885,6 +5047,8 @@ def main():
     lap(19)
     counted.append(jp2_phase(smi))
     lap(20)
+    counted.append(jpeg_lossless_phase(smi))
+    lap(21)
     for counts in counted + [jpeg_launches]:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n

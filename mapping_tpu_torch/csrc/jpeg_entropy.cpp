@@ -1,8 +1,11 @@
 // JPEG entropy coding on the host: the decode of one scan into int16
 // coefficient blocks (sequential Huffman, progressive Huffman, arithmetic
 // coding), libjpeg-turbo 2.1's block smoothing of a progressive image's
-// missing coefficients, and the Huffman encode of one scan for the port's
-// fixture encoder (mapping_tpu_torch/utils/jpeg.py).
+// missing coefficients, the whole decode of a lossless (SOF3) image as
+// libjpeg-turbo 3.1 does it (its scans into sample planes, then its
+// upsampling and colour: jpeg_decode_lossless, jpeg_lossless_rgb), and the
+// Huffman encode of one scan for the port's fixture encoder
+// (mapping_tpu_torch/utils/jpeg.py).
 //
 // The port decodes JPEG in two parts: this file turns the entropy-coded
 // bytes into quantised DCT coefficients on the host, and the pixel stage
@@ -37,6 +40,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 namespace {
 
@@ -49,7 +53,9 @@ const int kNatural[80] = {
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 // jdhuff.c jpeg_make_d_derived_tbl: maxcode / valoffset per code length,
-// and an 8-bit look-ahead (length << 8 | symbol, 0 for longer codes).
+// and an 8-bit look-ahead (length << 8 | symbol, 0 for longer codes). A
+// DC table's symbols must not pass `max_symbol` (15, or 16 in a lossless
+// frame); -1 checks none (an AC table).
 struct DecTable {
   int32_t maxcode[18];
   int32_t valoffset[18];
@@ -57,7 +63,7 @@ struct DecTable {
   uint16_t look[256];
 };
 
-int make_dec_table(const uint8_t* bits, const uint8_t* vals, bool is_dc,
+int make_dec_table(const uint8_t* bits, const uint8_t* vals, int max_symbol,
                    DecTable* t) {
   uint8_t size[257];
   uint32_t code[257];
@@ -100,36 +106,37 @@ int make_dec_table(const uint8_t* bits, const uint8_t* vals, bool is_dc,
         t->look[base + j] = (uint16_t)((l << 8) | vals[p]);
     }
   }
-  if (is_dc) {
+  if (max_symbol >= 0) {
     for (int i = 0; i < count; i++)
-      if (vals[i] > 15) return -1;
+      if (vals[i] > max_symbol) return -1;
   }
   return 0;
 }
 
 // jdmarker.c next_marker: skip to the next marker (the end of the data
-// counts as EOI, the source manager's fake one)
+// counts as EOI, the source manager's fake one); false where it was the
+// end of the data
 template <class Source>
-void skip_to_marker(Source& r) {
+bool skip_to_marker(Source& r) {
   for (;;) {
     uint8_t c;
     do {
       if (r.pos >= r.len) {
         r.marker = 0xD9;
-        return;
+        return false;
       }
       c = r.d[r.pos++];
     } while (c != 0xFF);
     do {
       if (r.pos >= r.len) {
         r.marker = 0xD9;
-        return;
+        return false;
       }
       c = r.d[r.pos++];
     } while (c == 0xFF);
     if (c != 0) {
       r.marker = c;
-      return;
+      return true;
     }
   }
 }
@@ -453,6 +460,341 @@ inline int smooth_pred(int64_t num, int64_t q, int al) {
   return pred;
 }
 
+// --- lossless decoding (libjpeg-turbo 3.1's jdlhuff.c, jddiffct.c, ---------
+// --- jdlossls.c) ----------------------------------------------------------
+
+// jdhuff.c's bit reader as jdlhuff.c drives it: bits right-aligned in
+// `buf`, refilled to MIN_GET_BITS (57) at a time. At a marker the bits
+// asked for past it are zeros and the out-of-data flag is set. The end of
+// the data is a marker (a fake EOI, as libtiff's source manager gives
+// it) where `fake_eoi` holds, and otherwise a suspension that never
+// resumes: Pillow's source has no more bytes to give, and Pillow fails
+// the file as truncated.
+struct LosslessReader {
+  static constexpr int kMinGetBits = 57;
+  const uint8_t* d;
+  long len;
+  long pos;
+  uint64_t buf;
+  int bits;
+  int marker;
+  bool insufficient;
+  bool suspended;
+  bool fake_eoi;
+  int warnings;
+
+  // the end of the data suspends unless it reads as an EOI
+  void next_marker() {
+    if (!skip_to_marker(*this) && !fake_eoi) suspended = true;
+  }
+
+  // jpeg_fill_bit_buffer; false on a suspension
+  bool fill(int nbits) {
+    if (marker == 0) {
+      while (bits < kMinGetBits) {
+        if (pos >= len) {
+          if (!fake_eoi) return !(suspended = true);
+          marker = 0xD9;
+          goto no_more_bytes;
+        }
+        int c = d[pos++];
+        if (c == 0xFF) {
+          do {
+            if (pos >= len) {
+              if (!fake_eoi) return !(suspended = true);
+              marker = 0xD9;
+              goto no_more_bytes;
+            }
+            c = d[pos++];
+          } while (c == 0xFF);
+          if (c != 0) {
+            marker = c;
+            goto no_more_bytes;
+          }
+          c = 0xFF;
+        }
+        buf = (buf << 8) | (uint64_t)c;
+        bits += 8;
+      }
+      return true;
+    }
+  no_more_bytes:
+    if (nbits > bits) {
+      if (!insufficient) {
+        warnings++;
+        insufficient = true;
+      }
+      buf <<= kMinGetBits - bits;
+      bits = kMinGetBits;
+    }
+    return true;
+  }
+
+  uint32_t get(int n) {  // GET_BITS, after CHECK_BIT_BUFFER
+    bits -= n;
+    return (uint32_t)(buf >> bits) & ((1u << n) - 1);
+  }
+
+  // HUFF_DECODE and jpeg_huff_decode; -1 on a suspension
+  int decode(const DecTable& t) {
+    int nb;
+    if (bits < 8) {
+      if (!fill(0)) return -1;
+      if (bits < 8) {
+        nb = 1;
+        goto slow;
+      }
+    }
+    {
+      const uint16_t e = t.look[(buf >> (bits - 8)) & 0xFF];
+      if (e) {
+        bits -= e >> 8;
+        return e & 0xFF;
+      }
+      nb = 9;
+    }
+  slow:
+    if (bits < nb && !fill(nb)) return -1;
+    int32_t code = (int32_t)get(nb);
+    int l = nb;
+    while (code > t.maxcode[l]) {
+      code <<= 1;
+      if (bits < 1 && !fill(1)) return -1;
+      code |= (int32_t)get(1);
+      l++;
+    }
+    if (l > 16) {  // JWRN_HUFF_BAD_CODE: a zero
+      warnings++;
+      return 0;
+    }
+    return t.vals[(code + t.valoffset[l]) & 0xFF];
+  }
+};
+
+// One scan component of a lossless scan.
+struct LosslessComp {
+  int h, v;         // its samples an MCU (1 x 1 in a non-interleaved scan)
+  int frame_v;      // the SOF's v factor: the sample rows of an iMCU row
+  int width;        // real samples a row (width_in_blocks)
+  int height;       // real rows (height_in_blocks)
+  long first;       // its plane's first sample in `planes`
+  int table;        // its DC table
+  int index;        // its component index in the frame
+};
+
+constexpr int kLosslessFields = 8;
+
+}  // namespace
+
+extern "C" {
+
+// Decode one lossless scan (SOF3, 8-bit samples) into the image's sample
+// planes: jdlhuff.c's difference decode (categories 0-16; 16 reads no
+// bits and means 32768), jddiffct.c's loop (an iMCU row's MCU rows, then
+// each component's rows undifferenced; a restart every
+// restart_interval / mcus_x MCU rows resets the predictors, and so does
+// every MCU row decoded after the data ran out, its differences zero) and
+// jdlossls.c's undifferencing modulo 2^16: a component's first row after
+// a reset from 2^(7 - pt) and then its left neighbour, every later row's
+// first sample from the one above, the rest by predictor `psv` (1-7);
+// then the sample << pt, kept to 8 bits. `comps` holds kLosslessFields
+// ints a scan component (LosslessComp); `bits` / `vals` the 4 DC tables
+// (17 / 256 bytes each); an interleaved scan has mcus_x MCUs of h x v
+// samples a component per MCU row, a non-interleaved one mcus_x samples.
+// `fake_eoi`: the end of the data reads as an EOI marker; else it is a
+// suspension. On return `state` holds [where the marker search resumes,
+// the marker the reader stopped at (0: none), warnings]. Returns 0, -1
+// for a bad Huffman table, -2 for bad arguments, -4 for a suspension.
+int jpeg_decode_lossless(const uint8_t* data, long len, int n_comps,
+                         const int* comps, const uint8_t* bits,
+                         const uint8_t* vals, int mcus_x, int imcu_rows,
+                         int restart_interval, int psv, int pt, int fake_eoi,
+                         uint8_t* planes, long* state) {
+  if (n_comps < 1 || n_comps > 4 || mcus_x < 1 || imcu_rows < 1 ||
+      psv < 1 || psv > 7 || pt < 0 || pt > 7)
+    return -2;
+  LosslessComp sc[4];
+  DecTable tables[4];
+  bool built[4] = {false, false, false, false};
+  const bool interleaved = n_comps > 1;
+  for (int i = 0; i < n_comps; i++) {
+    const int* c = comps + i * kLosslessFields;
+    sc[i] = {c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]};
+    if (sc[i].table < 0 || sc[i].table > 3 || sc[i].frame_v < 1 ||
+        sc[i].width < 1 || sc[i].height < 1)
+      return -2;
+    if (!built[sc[i].table]) {
+      if (make_dec_table(bits + 17 * sc[i].table, vals + 256 * sc[i].table,
+                         16, &tables[sc[i].table]) != 0)
+        return -1;
+      built[sc[i].table] = true;
+    }
+  }
+  // a component's MCU-row differences (mcus_x * h a row, v rows) and its
+  // last undifferenced row
+  std::vector<int32_t> diff[4], prev[4];
+  for (int i = 0; i < n_comps; i++) {
+    const int rows = interleaved ? sc[i].v : sc[i].frame_v;
+    diff[i].resize((size_t)mcus_x * sc[i].h * rows);
+    prev[i].resize((size_t)sc[i].width);
+  }
+  LosslessReader r = {data, len, 0, 0, 0, 0, false, false, fake_eoi != 0, 0};
+  bool first_row[4] = {true, true, true, true};
+  const int initial = 1 << (7 - pt);
+  const int per_restart = restart_interval / mcus_x;
+  int rows_to_go = per_restart, next_rst = 0;
+  int rc = 0;
+  for (int imcu = 0; imcu < imcu_rows && rc == 0; imcu++) {
+    const bool last = imcu == imcu_rows - 1;
+    // start_iMCU_row: an interleaved scan has one MCU row an iMCU row, a
+    // non-interleaved one the component's v rows (what is left, last)
+    int mcu_rows = 1;
+    if (!interleaved) {
+      const int left = sc[0].height - imcu * sc[0].frame_v;
+      mcu_rows = last ? left : sc[0].frame_v;
+    }
+    for (int y = 0; y < mcu_rows; y++) {
+      if (restart_interval && rows_to_go == 0) {  // process_restart
+        r.buf = 0;
+        r.bits = 0;
+        read_restart_marker(r, &next_rst);
+        if (r.suspended) {
+          rc = -4;
+          break;
+        }
+        if (r.marker == 0) r.insufficient = false;
+        for (bool& f : first_row) f = true;
+        rows_to_go = per_restart;
+      }
+      if (r.insufficient) {  // decode_mcus: zeros, the predictors reset
+        for (int i = 0; i < n_comps; i++) {
+          const int h = interleaved ? sc[i].h : 1;
+          const int rows = interleaved ? sc[i].v : 1;
+          const int row0 = interleaved ? 0 : y;
+          memset(diff[i].data() + (size_t)row0 * mcus_x * h, 0,
+                 sizeof(int32_t) * (size_t)mcus_x * h * rows);
+        }
+        for (bool& f : first_row) f = true;
+      } else {
+        for (int mx = 0; mx < mcus_x && rc == 0; mx++) {
+          for (int i = 0; i < n_comps && rc == 0; i++) {
+            const LosslessComp& c = sc[i];
+            const int h = interleaved ? c.h : 1, v = interleaved ? c.v : 1;
+            const int row0 = interleaved ? 0 : y;
+            for (int yy = 0; yy < v && rc == 0; yy++) {
+              int32_t* out = diff[i].data() +
+                             (size_t)(row0 + yy) * mcus_x * h +
+                             (size_t)mx * h;
+              for (int xx = 0; xx < h; xx++) {
+                int s = r.decode(tables[c.table]);
+                if (s < 0) {
+                  rc = -4;
+                  break;
+                }
+                if (s == 16) {
+                  s = 32768;
+                } else if (s) {
+                  if (r.bits < s && !r.fill(s)) {
+                    rc = -4;
+                    break;
+                  }
+                  s = extend(r.get(s), s);
+                }
+                out[xx] = s;
+              }
+            }
+          }
+        }
+      }
+      if (restart_interval) rows_to_go--;
+    }
+    if (rc) break;
+    // undifference and scale each component's rows of the iMCU row
+    for (int i = 0; i < n_comps; i++) {
+      const LosslessComp& c = sc[i];
+      const int h = interleaved ? c.h : 1;
+      const int v = c.frame_v;
+      const int rows = last ? c.height - imcu * v : v;
+      const int w = c.width;
+      for (int row = 0; row < rows; row++) {
+        const int32_t* in = diff[i].data() + (size_t)row * mcus_x * h;
+        int32_t* up = prev[i].data();
+        uint8_t* out = planes + c.first + ((size_t)imcu * v + row) * w;
+        int ra;
+        if (first_row[c.index]) {  // jpeg_undifference_first_row
+          ra = (in[0] + initial) & 0xFFFF;
+          up[0] = ra;
+          for (int x = 1; x < w; x++) up[x] = ra = (in[x] + ra) & 0xFFFF;
+          first_row[c.index] = false;
+        } else {
+          int rb = up[0], rc_ = 0;
+          ra = (in[0] + rb) & 0xFFFF;
+          up[0] = ra;
+          for (int x = 1; x < w; x++) {
+            rc_ = rb;
+            rb = up[x];
+            int64_t p;
+            switch (psv) {
+              case 1: p = ra; break;
+              case 2: p = rb; break;
+              case 3: p = rc_; break;
+              case 4: p = (int64_t)ra + rb - rc_; break;
+              case 5: p = ra + (((int64_t)rb - rc_) >> 1); break;
+              case 6: p = rb + (((int64_t)ra - rc_) >> 1); break;
+              default: p = ((int64_t)ra + rb) >> 1; break;
+            }
+            up[x] = ra = (int)((in[x] + (int)p) & 0xFFFF);
+          }
+        }
+        for (int x = 0; x < w; x++) out[x] = (uint8_t)(up[x] << pt);
+      }
+    }
+  }
+  state[0] = r.pos;
+  state[1] = r.marker;
+  state[2] = r.warnings;
+  return rc;
+}
+
+// A lossless image's sample planes to (height, width, 3) RGB as Pillow
+// reads it from libjpeg-turbo 3.1 in lossless mode, which converts no
+// colour space (YCbCr and YCCK fail there, and the caller refuses them):
+// box replication of every plane (jdsample.c takes no fancy upsampler
+// where the scaled DCT size is 1), then `color` 0 grey (replicated), 2
+// RGB (a copy) or 3 CMYK (read by Pillow as "CMYK;I" and turned to RGB by
+// Convert.c cmyk2rgb). `info` holds 4 ints a component: its plane's first
+// sample, samples a row, and the horizontal and vertical ratios.
+void jpeg_lossless_rgb(const uint8_t* planes, int n_comps, const int* info,
+                       int color, int height, int width, uint8_t* out) {
+  const int n = color == 0 ? 1 : n_comps;
+  for (int y = 0; y < height; y++) {
+    const uint8_t* row[4];
+    for (int ci = 0; ci < n; ci++) {
+      const int* c = info + 4 * ci;
+      row[ci] = planes + c[0] + (long)(y / c[3]) * c[1];
+    }
+    uint8_t* o = out + (long)y * width * 3;
+    for (int x = 0; x < width; x++, o += 3) {
+      int v[4];
+      for (int ci = 0; ci < n; ci++) v[ci] = row[ci][x / info[4 * ci + 2]];
+      if (color == 0) {
+        o[0] = o[1] = o[2] = (uint8_t)v[0];
+      } else if (color == 2) {
+        for (int i = 0; i < 3; i++) o[i] = (uint8_t)v[i];
+      } else {  // cmyk2rgb of the inverted samples: K - MULDIV255(C', K)
+        for (int i = 0; i < 3; i++) {
+          const int t = (255 - v[i]) * v[3] + 128;
+          o[i] = (uint8_t)(v[3] - (((t >> 8) + t) >> 8));
+        }
+      }
+    }
+  }
+}
+
+}  // extern "C"
+
+namespace {
+
 // Huffman encoding table: code and length per symbol (jcparam.c
 // jpeg_make_c_derived_tbl)
 struct EncTable {
@@ -557,7 +899,7 @@ int jpeg_decode_scan(const uint8_t* data, long len, int n_comps,
     int ids[2] = {sc[i].dc, 4 + sc[i].ac};
     for (int id : ids) {
       if (!built[id]) {
-        if (make_dec_table(bits + 17 * id, vals + 256 * id, id < 4,
+        if (make_dec_table(bits + 17 * id, vals + 256 * id, id < 4 ? 15 : -1,
                            &tables[id]) != 0)
           return -1;
         built[id] = true;
@@ -647,7 +989,8 @@ int jpeg_decode_progressive(const uint8_t* data, long len, int n_comps,
     const int t = ss == 0 ? sc[i].dc : sc[i].ac;
     if (t < 0 || t > 3) return -2;
     const int id = ss == 0 ? t : 4 + t;
-    if (make_dec_table(bits + 17 * id, vals + 256 * id, id < 4, &tables[id]))
+    if (make_dec_table(bits + 17 * id, vals + 256 * id, id < 4 ? 15 : -1,
+                       &tables[id]))
       return -1;
   }
   Reader r = {data, len, 0, 0, 0, 0, false, 0};

@@ -2,7 +2,7 @@
 PyTorch version.
 
 `pixels(coef, quant, geometry)` turns a batch of quantised coefficient
-blocks (`utils/jpeg.read_coefficients`, one geometry for the batch) into
+blocks (`utils/jpeg.read`, one geometry for the batch) into
 (B, H, W, 3) uint8 RGB, equal bit for bit to libjpeg-turbo's default decode:
 - the IDCT (`idct_plain`): the coefficients times the component's quant
   table, libjpeg's `jpeg_idct_islow` (jidctint.c: CONST_BITS 13,

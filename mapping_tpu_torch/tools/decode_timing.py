@@ -8,7 +8,7 @@ libjpeg.
 (the repo's own JPEG tiles), decoded from memory. Reported in ms a tile on
 the host clock, the best of `--repeats` passes over all tiles, on 1 thread
 and on 8:
-- huffman: `utils/jpeg.read_coefficients` alone (the markers and the C++
+- huffman: `utils/jpeg.read` alone (the markers and the C++
   Huffman decode), the host half of the decode on every machine;
 - port: `native_decode.decode_rgb_bytes`, the Huffman decode and the plain
   PyTorch pixel stage, the whole decode of one tile on the CPU; on 8
@@ -112,7 +112,7 @@ def main(argv=None):
     with ThreadPoolExecutor(8) as pool:
         for workers in (1, 8):
             torch.set_num_threads(1)
-            cases = {"huffman": per_tile(jpeg.read_coefficients, workers),
+            cases = {"huffman": per_tile(jpeg.read, workers),
                      "port": per_tile(native_decode.decode_rgb_bytes,
                                       workers)}
             if libjpeg is not None:

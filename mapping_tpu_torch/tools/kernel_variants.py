@@ -185,7 +185,7 @@ def jpeg_tiles(n=20, side=300, seed=8):
 
     rng = np.random.RandomState(seed)
     ramp = np.linspace(0, 180, side)[None, :, None]
-    return [jpeg.read_coefficients(jpeg.encode(
+    return [jpeg.read(jpeg.encode(
         (rng.randint(0, 70, (side, side, 3)) + ramp).astype(np.uint8), 95,
         "4:2:0")) for _ in range(n)]
 

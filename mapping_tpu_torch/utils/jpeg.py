@@ -1,16 +1,16 @@
 """JPEG on the host: the marker parser and entropy decode of the port's
 decoder, and a baseline encoder that writes test and rehearsal tiles.
 
-The port decodes a JPEG in two parts. `read_coefficients` parses the
-markers here and runs the entropy decode of each scan in C++
-(csrc/jpeg_entropy.cpp, built with g++ into build/, called through ctypes
-with the GIL released), giving int16 coefficient blocks and the quant
-tables; the pixel stage (dequantise, IDCT, upsampling, colour) is
-`kernels/jpeg.pixels`, a CUDA kernel for a CUDA target and plain PyTorch
-for a CPU one. Together they give what the JAX package's loader reads bit
-for bit: libjpeg-turbo's default decode (`cpp/decode.cpp`: `JDCT_ISLOW`,
-fancy upsampling, block smoothing), and for CMYK / YCCK files, which
-libjpeg will not turn into RGB, Pillow's reading of libjpeg's CMYK.
+The port decodes a JPEG in two parts. `read` parses the markers here and
+runs the entropy decode of each scan in C++ (csrc/jpeg_entropy.cpp, built
+with g++ into build/, called through ctypes with the GIL released),
+giving int16 coefficient blocks and the quant tables; the pixel stage
+(dequantise, IDCT, upsampling, colour) is `kernels/jpeg.pixels`, a CUDA
+kernel for a CUDA target and plain PyTorch for a CPU one. Together they
+give what the JAX package's loader reads bit for bit: libjpeg-turbo's
+default decode (`cpp/decode.cpp`: `JDCT_ISLOW`, fancy upsampling, block
+smoothing), and for CMYK / YCCK files, which libjpeg will not turn into
+RGB, Pillow's reading of libjpeg's CMYK.
 
 It takes baseline and extended sequential Huffman streams (SOF0, SOF1),
 progressive Huffman streams (SOF2, jdphuff.c: spectral selection and
@@ -27,11 +27,29 @@ early decodes with zeros for the missing data, reading what libjpeg's
 source managers give past the end (fake EOI markers); a progressive image
 whose AC coefficients are not all known gets libjpeg-turbo 2.1's block
 smoothing (jdcoefct.c). It refuses, with a ValueError naming the feature,
-lossless and hierarchical streams, samples other than 8-bit, the DNL
-marker, 2 components and more than 10 blocks an MCU. A JPEG-compressed
-TIFF's strips and tiles are abbreviated streams read as libtiff reads
-them: `read_coefficients` takes the file's JPEGTables, and the colour
-space, sampling and size the TIFF gives.
+hierarchical streams, samples other than 8-bit, the DNL marker, 2
+components and more than 10 blocks an MCU. A JPEG-compressed TIFF's
+strips and tiles are abbreviated streams read as libtiff reads them:
+`read` takes the file's JPEGTables, and the colour space, sampling and
+size the TIFF gives.
+
+Lossless streams (SOF3, 8-bit samples, Huffman-coded) decode wholly on
+the host, as the JAX loader reads them through Pillow and its
+libjpeg-turbo 3.1.3 (libjpeg-turbo 2.1 has no lossless mode): `read`
+gives their (H, W, 3) uint8 RGB. The scans' differences, restarts,
+undifferencing (predictors 1-7) and point transform are
+csrc/jpeg_entropy.cpp jpeg_decode_lossless (jdlhuff.c, jddiffct.c,
+jdlossls.c), the upsampling (box replication: libjpeg's fancy
+upsamplers need a scaled DCT size above 1) and the colour
+jpeg_lossless_rgb. Probed against Pillow: libjpeg-turbo 3.1.3 converts
+no colour space in lossless mode, so YCbCr and YCCK frames are refused
+as Pillow fails them, grey, RGB and CMYK are read; three components
+without a JFIF or Adobe marker are RGB; a restart interval must be a
+multiple of the MCUs of a row; a DC table may hold categories up to 16.
+Pillow's source suspends at the end of the data and Pillow then fails
+the file, and Pillow parses a bare file's header itself before libjpeg
+(`_pillow_header`); what follows a one-scan image is read as
+jpeg_finish_decompress reads it (`_lossless_tail`).
 
 `encode` writes a baseline JFIF file (libjpeg's colour conversion,
 downsampling, integer forward DCT and quality-scaled standard tables, the
@@ -100,11 +118,12 @@ STD_HUFFMAN = {
              _AC_CHROMA_VALS),
 }
 
-#: frame types the decoder takes: (progressive, arithmetic-coded)
-_SOF = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
-        0xC9: (False, True), 0xCA: (True, True)}
+#: frame types the decoder takes: (progressive, arithmetic-coded,
+#: lossless)
+_SOF = {0xC0: (False, False, False), 0xC1: (False, False, False),
+        0xC2: (True, False, False), 0xC3: (False, False, True),
+        0xC9: (False, True, False), 0xCA: (True, True, False)}
 _REFUSED_SOF = {
-    0xC3: "lossless JPEG (SOF3)",
     0xC5: "hierarchical JPEG (SOF5)",
     0xC6: "hierarchical progressive JPEG (SOF6)",
     0xC7: "hierarchical lossless JPEG (SOF7)",
@@ -115,6 +134,10 @@ _REFUSED_SOF = {
 }
 #: the components of a colour space a caller may give
 _COMPONENTS = {"gray": 1, "ycc": 3, "rgb": 3}
+#: the colour spaces of a lossless frame, as csrc/jpeg_entropy.cpp
+#: jpeg_lossless_rgb numbers them: libjpeg-turbo 3.1 converts none in
+#: lossless mode, so YCbCr and YCCK ones are refused
+_LOSSLESS_COLORS = {"gray": 0, "rgb": 2, "cmyk": 3}
 #: the arithmetic conditioning values a stream starts with (jdmarker.c):
 #: DC L, DC U and AC Kx of each of the 16 tables
 _ARITH_DEFAULT = (0,) * 16 + (1,) * 16 + (5,) * 16
@@ -140,6 +163,14 @@ def _register(lib):
     lib.jpeg_smooth.restype = None
     lib.jpeg_smooth.argtypes = [ptr, ptr, ctypes.c_int, ptr, ctypes.c_int,
                                 ptr, ptr, ptr, ctypes.c_long]
+    lib.jpeg_decode_lossless.restype = ctypes.c_int
+    lib.jpeg_decode_lossless.argtypes = [
+        ptr, ctypes.c_long, ctypes.c_int, ptr, ptr, ptr, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ptr, ptr]
+    lib.jpeg_lossless_rgb.restype = None
+    lib.jpeg_lossless_rgb.argtypes = [ptr, ctypes.c_int, ptr, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int, ptr]
     lib.jpeg_encode_scan.restype = ctypes.c_long
     lib.jpeg_encode_scan.argtypes = [
         ptr, ctypes.c_int, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
@@ -239,11 +270,14 @@ class _Frame(NamedTuple):
     comps: Tuple[_Component, ...]
     progressive: bool
     arithmetic: bool
+    lossless: bool = False
 
     @property
     def imcu_rows(self):
-        """libjpeg's total_iMCU_rows, from the SOF's factors."""
-        return -(-self.height // (8 * max(c.frame_v for c in self.comps)))
+        """libjpeg's total_iMCU_rows, from the SOF's factors (a lossless
+        frame's data unit is one sample, a DCT frame's an 8 x 8 block)."""
+        unit = 1 if self.lossless else 8
+        return -(-self.height // (unit * max(c.frame_v for c in self.comps)))
 
 
 class _Stream:
@@ -255,11 +289,17 @@ class _Stream:
     def __init__(self, data: bytes):
         self.data = data
         self.pos = 0
+        #: past the end, raise as a suspending source does (Pillow's,
+        #: which then fails the file as truncated) instead of fake EOIs
+        self.suspends = False
 
     def _bytes(self, n):
         data, pos = self.data, self.pos
         self.pos += n
         body = data[pos:pos + n]
+        if len(body) < n and self.suspends:
+            raise ValueError("truncated lossless JPEG (a marker segment "
+                             "runs past the end of the data)")
         if len(body) < n:
             start = max(pos, len(data)) - len(data)
             fake = b"\xff\xd9" * ((n - len(body) + start) // 2 + 1)
@@ -272,10 +312,14 @@ class _Stream:
     def u16(self):
         return (self.u8() << 8) | self.u8()
 
-    def segment(self):
-        """The body of a marker segment whose length comes next."""
+    def segment(self, skipped=False):
+        """The body of a marker segment whose length comes next; a
+        `skipped` one (APPn, COM, DNL: jdmarker.c skip_variable) of a
+        length below 2 is empty, where the others' fail."""
         n = self.u16()
         if n < 2:
+            if skipped:
+                return b""
             raise ValueError("bad JPEG marker segment length")
         return self._bytes(n - 2)
 
@@ -315,10 +359,12 @@ def _huffman_arrays(tables):
     return bits, vals
 
 
-def _colour(components, jfif, adobe):
+def _colour(components, jfif, adobe, lossless=False):
     """jdapimin.c default_decompress_parms: the colour space of 1, 3 and
     4 components. Four are CMYK, or YCCK under an Adobe marker whose
-    transform is not 0."""
+    transform is not 0. Three without a JFIF or Adobe marker are RGB
+    where their ids are 'R' 'G' 'B', and else YCbCr, but RGB in a
+    lossless frame (libjpeg-turbo 3.1, probed)."""
     if len(components) == 1:
         return "gray"
     if len(components) == 4:
@@ -327,8 +373,8 @@ def _colour(components, jfif, adobe):
         return "ycc"
     if adobe is not None:
         return "rgb" if adobe == 0 else "ycc"
-    if tuple(c.ident for c in components) == (82, 71, 66):  # 'R' 'G' 'B'
-        return "rgb"
+    if lossless or tuple(c.ident for c in components) == (82, 71, 66):
+        return "rgb"  # 'R' 'G' 'B'
     return "ycc"
 
 
@@ -336,7 +382,7 @@ def _sof(body, marker, sampling=None, size=None):
     if marker in _REFUSED_SOF:
         raise ValueError(f"{_REFUSED_SOF[marker]} is not supported by the "
                          f"port's decoder")
-    progressive, arithmetic = _SOF[marker]
+    progressive, arithmetic, lossless = _SOF[marker]
     if len(body) < 6:
         raise ValueError("JPEG SOF segment too short")
     precision, height, width, n = struct.unpack(">BHHB", body[:6])
@@ -383,7 +429,8 @@ def _sof(body, marker, sampling=None, size=None):
             factors = ", ".join(f"{d.h}x{d.v}" for d in comps)
             raise ValueError(f"JPEG sampling factors {factors} are not "
                              f"supported: fractional upsampling ratio")
-    return _Frame(height, width, tuple(comps), progressive, arithmetic)
+    return _Frame(height, width, tuple(comps), progressive, arithmetic,
+                  lossless)
 
 
 def _dqt(body, quant):
@@ -393,9 +440,9 @@ def _dqt(body, quant):
     while i < len(body):
         pq, tq = body[i] >> 4, body[i] & 15
         i += 1
-        if tq > 3 or pq > 1:
-            raise ValueError(f"bad JPEG DQT table {tq} of precision {pq}")
-        n = 64 * (pq + 1)
+        if tq > 3:
+            raise ValueError(f"bad JPEG DQT table {tq}")
+        n = 128 if pq else 64  # libjpeg: 16-bit values where pq is not 0
         if i + n > len(body):
             raise ValueError("JPEG DQT segment too short")
         raw = np.frombuffer(body[i:i + n], ">u2" if pq else np.uint8)
@@ -444,7 +491,12 @@ class _Decode:
     def __init__(self, frame, geometry):
         self.frame = frame
         self.geometry = geometry
-        self.coef = np.zeros((geometry.n_blocks, 64), np.int16)
+        if frame.lossless:  # the sample planes, one after another
+            self.coef = None
+            self.planes = np.zeros(sum(h * w for h, w in geometry.sampled),
+                                   np.uint8)
+        else:
+            self.coef = np.zeros((geometry.n_blocks, 64), np.int16)
         self.latched = {}  # component -> its quant tables, once scanned
         self.scanned = set()
         n = len(frame.comps)
@@ -475,20 +527,31 @@ def _tables(data, quant, huffman):
         elif marker == 0xC4:
             _dht(stream.segment(), huffman)
         elif 0xE0 <= marker <= 0xEF or marker in (0xFE, 0xCC, 0xDD):
-            stream.segment()
+            stream.segment(skipped=marker >= 0xE0)
         else:  # libtiff: "Bogus JPEGTables field"
             raise ValueError(f"bogus JPEGTables (marker 0xFF{marker:02X} "
                              f"in a tables-only stream)")
 
 
-def read_coefficients(data: bytes, *, tables: bytes = None,
-                      color: str = None, sampling=None,
-                      size=None) -> Coefficients:
-    """Parse a JPEG and entropy-decode its scans: the host half of the
-    port's decoder. Raises ValueError for what it refuses or cannot
-    parse; a stream that ends inside the entropy-coded data decodes as
-    libjpeg decodes it (zeros for what is missing, and libjpeg's block
-    smoothing of a progressive image's missing coefficients).
+def read(data: bytes, *, tables: bytes = None, color: str = None,
+         sampling=None, size=None, fake_eoi: bool = False):
+    """Parse a JPEG and decode what the host decodes: a DCT-based frame's
+    `Coefficients` (its pixel stage is `kernels/jpeg.pixels`), a lossless
+    (SOF3) frame's (H, W, 3) uint8 RGB, decoded wholly here. Raises
+    ValueError for what it refuses or cannot parse; a DCT stream that ends
+    inside the entropy-coded data decodes as libjpeg decodes it (zeros for
+    what is missing, and libjpeg's block smoothing of a progressive
+    image's missing coefficients).
+
+    A lossless frame is read as Pillow 12.1.0 reads it through its
+    libjpeg-turbo 3.1.3 (the JAX loader's decoder for these files; see
+    the module docstring). Pillow's source suspends at the end of the
+    data and Pillow then fails the file, so a lossless stream cut before
+    a marker, a marker segment cut short before the last row, and a file
+    of several scans without its EOI are refused ("truncated"); with
+    `fake_eoi` (libtiff's source, for a TIFF's strips) the end of the
+    data reads as EOI markers instead, as for a DCT stream, and Pillow's
+    header walk does not apply.
 
     A strip or tile of a JPEG-compressed TIFF is read as libtiff reads it:
     `tables` is the file's JPEGTables stream, read first; `color` ("gray",
@@ -517,15 +580,24 @@ def read_coefficients(data: bytes, *, tables: bytes = None,
         if marker is None or marker == 0xD9:  # end of data or EOI
             if state is None:
                 raise ValueError("JPEG has no image data (no scan)")
+            if marker is None and stream.suspends and not state.complete:
+                # jpeg_start_decompress reads a file of several scans to
+                # its EOI before the first row
+                raise ValueError("truncated lossless JPEG (no EOI after "
+                                 "its scans)")
             break
         if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
             body = stream.segment()
             if frame is not None:
                 raise ValueError("JPEG has two SOF markers")
             frame = _sof(body, marker, sampling, size)
-            if color is not None and len(frame.comps) != _COMPONENTS[color]:
-                raise ValueError(f"{len(frame.comps)}-component JPEG where "
-                                 f"the TIFF has {_COMPONENTS[color]}")
+            stream.suspends = frame.lossless and not fake_eoi
+            if stream.suspends:
+                _pillow_header(data)
+            n = len(frame.comps)
+            if color is not None and n != _COMPONENTS[color]:
+                raise ValueError(f"{n}-component JPEG where the TIFF "
+                                 f"has {_COMPONENTS[color]}")
         elif marker == 0xC4:
             _dht(stream.segment(), huffman)
         elif marker == 0xDB:
@@ -538,14 +610,15 @@ def read_coefficients(data: bytes, *, tables: bytes = None,
                 raise ValueError("bad JPEG DRI segment")
             restart = struct.unpack(">H", body)[0]
         elif marker == 0xE0:
-            body = stream.segment()
+            body = stream.segment(skipped=True)
             jfif = jfif or (len(body) >= 14 and body[:5] == b"JFIF\0")
         elif marker == 0xEE:
-            body = stream.segment()
+            body = stream.segment(skipped=True)
             if len(body) >= 12 and body[:5] == b"Adobe":
                 adobe = body[11]
         elif 0xE1 <= marker <= 0xEF or marker in (0xFE, 0xDC):
-            stream.segment()  # APPn, COM, and DNL, which libjpeg skips
+            # APPn, COM, and DNL, which libjpeg skips
+            stream.segment(skipped=True)
         elif 0xD0 <= marker <= 0xD7 or marker == 0x01:
             pass  # parameterless (RSTn, TEM)
         elif marker == 0xDA:
@@ -557,23 +630,39 @@ def read_coefficients(data: bytes, *, tables: bytes = None,
                 state = _Decode(frame, Geometry(
                     frame.height, frame.width, tuple((c.h, c.v)
                                                      for c in comps),
-                    color or _colour(comps, jfif, adobe)))
+                    color or _colour(comps, jfif, adobe, frame.lossless)))
+                if frame.lossless and state.geometry.color not in \
+                        _LOSSLESS_COLORS:  # jdcolor.c in lossless mode
+                    raise ValueError(
+                        f"lossless JPEG in {state.geometry.color.upper()} "
+                        f"(libjpeg-turbo 3.1.3 converts no colour space "
+                        f"in lossless mode: the JAX loader fails too)")
             body = stream.segment()
             if state.complete:  # jdinput.c: JERR_EOI_EXPECTED
                 raise ValueError("JPEG has a scan after its image's only "
                                  "one (EOI expected)")
-            stream.pos = _scan(load(), buf, stream.pos, body, state, quant,
-                               huffman, conditioning, restart)
+            if frame.lossless:
+                stream.pos = _lossless_scan(load(), buf, stream.pos, body,
+                                            state, huffman, restart,
+                                            fake_eoi)
+            else:
+                stream.pos = _scan(load(), buf, stream.pos, body, state,
+                                   quant, huffman, conditioning, restart)
             # a sequential image whose first scan holds every component
             # has no other scan: libjpeg reads on to EOI for markers only
             state.complete = not frame.progressive and state.scans == 1 \
                 and len(body) == 4 + 2 * len(frame.comps)
+            if state.complete and stream.suspends:
+                _lossless_tail(stream, [c.ident for c in frame.comps])
+                break
         elif marker == 0xD8:
             raise ValueError("JPEG has a second SOI marker")
         else:
             raise ValueError(f"unknown JPEG marker 0xFF{marker:02X}")
     geometry = state.geometry
     n = len(geometry.factors)
+    if frame.lossless:
+        return _lossless_rgb(state)
     q = np.stack([state.latched[i][0] if i in state.latched
                   else np.ones(64, np.int32) for i in range(n)])
     coef = state.coef
@@ -677,6 +766,298 @@ def _scan(lib, buf, start, body, state, quant, huffman, conditioning,
     if marker and end <= len(buf) and buf[end - 1] == marker:
         end -= 2  # the marker the reader stopped at is walked again
     return end
+
+
+#: Pillow 12.1.0's JpegImagePlugin.MARKER: the markers its header walk
+#: reads as a frame, skips by their length, or takes with no segment
+_PIL_SOF = {*range(0xC0, 0xD0), 0xDE} - {0xC4, 0xC8, 0xCC}
+_PIL_SKIP = {0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF}
+_PIL_BARE = {0xC8, *range(0xD0, 0xDA), *range(0xF0, 0xFE)}
+
+
+def _pillow_header(data):
+    """Pillow's own walk over a bare file's header (JpegImagePlugin._open
+    and its handlers, up to the first SOS), which runs before libjpeg sees
+    the file: where it fails, Pillow cannot identify the file and the JAX
+    loader fails, though libjpeg would read it. It needs SOI then a
+    marker, every byte it reads (a cut raises), markers Pillow knows
+    (0xFF01-0xFFBF are none), 8-bit frames of 1, 3 or 4 components,
+    whole component triples, JFIF and Adobe segments of 7 bytes at least,
+    whole DQT tables (16-bit ones where the precision nibble is not 0),
+    and an ICC profile segment of 14 bytes at least."""
+    def refuse(why):
+        raise ValueError(f"JPEG header that Pillow cannot identify ({why})")
+
+    n = len(data)
+    if bytes(data[:3]) != b"\xff\xd8\xff":
+        refuse("no marker right after SOI")
+    pos, icc = 3, []
+
+    def body():
+        nonlocal pos
+        if pos + 2 > n:
+            refuse("cut inside a marker segment")
+        size = int.from_bytes(data[pos:pos + 2], "big") - 2
+        pos += 2
+        if size <= 0:
+            return b""
+        if pos + size > n:
+            refuse("cut inside a marker segment")
+        pos += size
+        return bytes(data[pos - size:pos])
+
+    pending = 0xFF
+    while True:
+        if pending != 0xFF:  # junk between markers: one byte at a time
+            if pos >= n:
+                refuse("no scan")
+            pending, pos = data[pos], pos + 1
+            continue
+        if pos >= n:
+            refuse("no scan")
+        marker, pos = data[pos], pos + 1
+        if marker == 0xFF:
+            continue  # fill: read on from this 0xFF
+        if marker == 0x00:
+            pending = 0  # an escaped 0xFF: the next byte is read as junk
+            continue
+        if marker in _PIL_SOF:
+            s = body()
+            if len(s) < 6 or s[0] != 8 or s[5] not in (1, 3, 4):
+                refuse("its frame header")
+            if icc and (len(sorted(icc)[0]) < 14):
+                refuse("a short ICC profile segment")
+            icc = []
+            if (len(s) - 6) % 3:
+                refuse("its frame header")
+        elif marker in _PIL_SKIP:
+            body()
+            if marker == 0xDA:
+                return
+        elif marker == 0xDB:
+            s = body()
+            while s:
+                size = 65 if s[0] < 16 else 129
+                if len(s) < size:
+                    refuse("bad quantization table marker")
+                s = s[size:]
+        elif 0xE0 <= marker <= 0xEF:
+            s = body()
+            if (marker == 0xE0 and s.startswith(b"JFIF")
+                    or marker == 0xEE and s.startswith(b"Adobe")) \
+                    and len(s) < 7:
+                refuse("a short JFIF or Adobe segment")
+            if marker == 0xE2 and s.startswith(b"ICC_PROFILE\0"):
+                icc.append(s)
+            if marker == 0xED and s.startswith(b"Photoshop 3.0\0"):
+                _photoshop(s, refuse)
+        elif marker == 0xFE:
+            body()
+        elif marker not in _PIL_BARE:
+            refuse(f"no marker found: 0xFF{marker:02X}")
+        pending = data[pos] if pos < n else None
+        if pending is None:
+            refuse("no scan")
+        pos += 1
+
+
+def _photoshop(s, refuse):
+    """JpegImagePlugin.APP's walk over Photoshop resource blocks: a block
+    cut before its name length fails (IndexError there)."""
+    offset = 14
+    while s[offset:offset + 4] == b"8BIM":
+        offset += 4
+        if offset + 2 > len(s):
+            return  # struct.error: insufficient data, read no further
+        code = int.from_bytes(s[offset:offset + 2], "big")
+        offset += 2
+        if offset >= len(s):
+            refuse("a cut Photoshop resource block")
+        offset += 1 + s[offset]
+        offset += offset & 1
+        if offset + 4 > len(s):
+            return
+        size = int.from_bytes(s[offset:offset + 4], "big")
+        offset += 4
+        if code == 0x03ED and len(s[offset:offset + size]) < 14:
+            return  # ResolutionInfo cut short: struct.error
+        offset += size + ((offset + size) & 1)
+
+
+def _lossless_tail(stream, ids):
+    """What follows a one-scan lossless image, read as libjpeg-turbo's
+    read_markers reads it in jpeg_finish_decompress once Pillow has every
+    row (jdmarker.c, segment by segment as its source gives bytes): the
+    end of the data is a suspension, and Pillow keeps the image; EOI
+    ends; what libjpeg fails on raises (JERR_* in its order: a second
+    SOI or SOF, an unknown marker, a bad DHT, DQT, DRI or DAC segment, a
+    second scan)."""
+    data, n = stream.data, len(stream.data)
+
+    def take(k):
+        if stream.pos + k > n:
+            raise EOFError
+        stream.pos += k
+        return data[stream.pos - k:stream.pos]
+
+    def u16():
+        return int.from_bytes(take(2), "big")
+
+    try:
+        while True:
+            marker = stream.next_marker()
+            if marker is None or marker == 0xD9:
+                return
+            if marker in (0xC4, 0xCC, 0xDB, 0xDD, 0xDA):
+                length = u16() - 2
+            if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xCC):
+                raise ValueError("JPEG has two SOF markers")
+            if marker == 0xD8:
+                raise ValueError("JPEG has a second SOI marker")
+            if marker == 0xC4:  # get_dht
+                while length > 16:
+                    index, counts = take(1)[0], take(16)
+                    length -= 17
+                    if sum(counts) > 256 or sum(counts) > length:
+                        raise ValueError("bad JPEG DHT segment")
+                    take(sum(counts))
+                    length -= sum(counts)
+                    if (index & ~0x10) > 3:
+                        raise ValueError("bad JPEG DHT segment")
+            elif marker == 0xDB:  # get_dqt
+                while length > 0:
+                    pq, tq = divmod(take(1)[0], 16)
+                    if tq > 3:
+                        raise ValueError(f"bad JPEG DQT table {tq}")
+                    take(128 if pq else 64)
+                    length -= 129 if pq else 65
+            elif marker == 0xDD:  # get_dri
+                if length != 2:
+                    raise ValueError("bad JPEG DRI segment")
+                take(2)
+                length = 0
+            elif marker == 0xCC:  # get_dac
+                while length > 0:
+                    index, val = take(2)
+                    length -= 2
+                    if index > 31 or (index < 16 and val & 15 > val >> 4):
+                        raise ValueError(f"bad JPEG DAC value {index} "
+                                         f"{val}")
+            elif marker == 0xDA:  # get_sos, then JERR_EOI_EXPECTED
+                count, scanned = take(1)[0], [None] * 4
+                if length != 2 * count + 4 or not 1 <= count <= 4:
+                    raise ValueError("bad JPEG SOS segment")
+                for k in range(count):
+                    cc = take(2)[0]
+                    ci = next((i for i, c in enumerate(ids[:4])
+                               if c == cc and scanned[i] is None), None)
+                    if ci is None:
+                        raise ValueError(f"JPEG scan names an unknown "
+                                         f"component {cc}")
+                    scanned[k] = ci
+                take(3)
+                raise ValueError("JPEG has a scan after its image's only "
+                                 "one (EOI expected)")
+            elif 0xE0 <= marker <= 0xEF or marker in (0xFE, 0xDC):
+                stream.pos += max(u16() - 2, 0)  # skip_variable
+                length = 0
+            elif not (0xD0 <= marker <= 0xD7 or marker == 0x01):
+                raise ValueError(f"unknown JPEG marker 0xFF{marker:02X}")
+            if marker in (0xC4, 0xCC, 0xDB) and length:
+                raise ValueError("bad JPEG marker segment length")
+    except EOFError:
+        return
+
+
+def _lossless_scan(lib, buf, start, body, state, huffman, restart,
+                   fake_eoi):
+    """Decode one lossless scan (csrc/jpeg_entropy.cpp
+    jpeg_decode_lossless) whose coded data starts at byte `start` into
+    the image's sample planes; returns where the marker walk resumes.
+    The scan's parameters are checked as jdlossls.c start_pass_lossless
+    checks them (JERR_BAD_PROGRESSION there)."""
+    frame, geometry = state.frame, state.geometry
+    comps = frame.comps
+    n = body[0] if body else 0
+    if not 1 <= n <= 4 or len(body) != 4 + 2 * n:
+        raise ValueError("bad JPEG SOS segment")
+    psv, se, ah, pt = body[1 + 2 * n], body[2 + 2 * n], \
+        body[3 + 2 * n] >> 4, body[3 + 2 * n] & 15
+    if not 1 <= psv <= 7:
+        raise ValueError(f"lossless JPEG predictor {psv} is not one of "
+                         f"1-7")
+    if pt >= 8:
+        raise ValueError(f"lossless JPEG point transform {pt} is not below "
+                         f"the sample precision 8")
+    if se or ah:
+        raise ValueError(f"bad lossless JPEG scan (Ss={psv}, Se={se}, "
+                         f"Ah={ah}, Al={pt})")
+    ids = [c.ident for c in comps]
+    planes = np.cumsum([0] + [h * w for h, w in geometry.sampled])
+    desc, members = [], []
+    for k in range(n):
+        ident, table = body[1 + 2 * k], body[2 + 2 * k] >> 4
+        if ident not in ids:
+            raise ValueError(f"JPEG scan names an unknown component "
+                             f"{ident}")
+        ci = ids.index(ident)
+        if (0, table) not in huffman:
+            raise ValueError(f"JPEG Huffman table {table} is not defined")
+        c = comps[ci]
+        ch, cw = geometry.sampled[ci]
+        members.append(ci)
+        desc += [c.h, c.v, c.frame_v, cw, ch, int(planes[ci]), table, ci]
+    state.scanned.update(members)
+    state.scans += 1
+    if n == 1:  # non-interleaved: a sample an MCU over the real samples
+        mcus_x = geometry.sampled[members[0]][1]
+    else:
+        if sum(comps[ci].h * comps[ci].v for ci in members) > 10:
+            raise ValueError("JPEG sampling factors too large for an "
+                             "interleaved scan (more than 10 samples an "
+                             "MCU)")
+        mcus_x = -(-frame.width // geometry.hmax)
+    if restart % mcus_x:  # jddiffct.c start_input_pass: JERR_BAD_RESTART
+        raise ValueError(f"lossless JPEG restart interval {restart} is not "
+                         f"a multiple of the {mcus_x} MCUs of a row")
+    bits, vals = _huffman_arrays(huffman)
+    desc = np.asarray(desc, np.int32)
+    out = np.zeros(3, np.int64)
+    rc = lib.jpeg_decode_lossless(
+        buf.ctypes.data + start, max(len(buf) - start, 0), n,
+        desc.ctypes.data, bits.ctypes.data, vals.ctypes.data, mcus_x,
+        frame.imcu_rows, restart, psv, pt, int(fake_eoi),
+        state.planes.ctypes.data, out.ctypes.data)
+    if rc == -1:
+        raise ValueError("bad JPEG Huffman table")
+    if rc == -4:
+        raise ValueError("truncated lossless JPEG (its coded data runs past "
+                         "the end of the data)")
+    if rc != 0:
+        raise ValueError(f"lossless JPEG scan decode failed ({rc})")
+    end, marker = start + int(out[0]), int(out[1])
+    if marker and end <= len(buf) and buf[end - 1] == marker:
+        end -= 2  # the marker the reader stopped at is walked again
+    return end
+
+
+def _lossless_rgb(state):
+    """A lossless image's (H, W, 3) uint8 RGB from its sample planes
+    (csrc/jpeg_entropy.cpp jpeg_lossless_rgb)."""
+    g = state.geometry
+    n = len(g.factors)
+    missing = sorted(set(range(n)) - state.scanned)
+    if missing:
+        raise ValueError(f"lossless JPEG component {missing[0]} has no "
+                         f"scan")
+    first = np.cumsum([0] + [h * w for h, w in g.sampled])
+    info = np.array([[first[ci], g.sampled[ci][1], rh, rv]
+                     for ci, (rh, rv) in enumerate(g.ratios)], np.int32)
+    out = np.empty((g.height, g.width, 3), np.uint8)
+    load().jpeg_lossless_rgb(state.planes.ctypes.data, n, info.ctypes.data,
+                             _LOSSLESS_COLORS[g.color], g.height, g.width,
+                             out.ctypes.data)
+    return out
 
 
 def _progression(state, members, ss, se, ah, al):
@@ -928,7 +1309,7 @@ def _jfif(geometry: Geometry, quant, coef: np.ndarray,
           restart_interval: int, *, tables: bool = True, jfif: bool = True,
           adobe: Optional[int] = None) -> bytes:
     """A baseline JPEG of quantised coefficients ((n_blocks, 64) int16,
-    natural order, laid out as `read_coefficients` gives them): component
+    natural order, laid out as `read` gives them): component
     0 with quant table 0 (`quant`, natural order) and Huffman tables 0,
     the others with table 1, the standard Huffman tables, one interleaved
     scan; component ids R, G, B for an RGB geometry, 1, 2, 3 else. The

@@ -11,7 +11,9 @@ formats with libjpeg and libpng (cpp/decode.cpp). Here:
   kernels/jpeg.py on the target device: the CUDA kernel `jpeg_pixels` for
   a CUDA target, the plain PyTorch version for a CPU one. The result equals
   the JAX package's load_image bit for bit (libjpeg-turbo's default
-  decode; for CMYK and YCCK, Pillow's reading of it). libjpeg is not used;
+  decode; for CMYK and YCCK, Pillow's reading of it). A lossless (SOF3)
+  JPEG decodes wholly on the host (utils/jpeg.read), as Pillow's
+  libjpeg-turbo 3.1.3 reads it for the JAX loader. libjpeg is not used;
 - a PNG decodes through cpp/decode.cpp's libpng where that library builds
   (`load`, `available`) and takes the file, else through utils/png.py,
   which reads every PNG kind and applies libpng's gamma conversion where
@@ -20,7 +22,8 @@ formats with libjpeg and libpng (cpp/decode.cpp). Here:
   none, LZW, Deflate, PackBits and JPEG; the sample layouts Pillow reads),
   as the JAX loader reads it through Pillow; a JPEG-compressed one's
   strips or tiles go through the JPEG decoder's two halves, their pixel
-  stage on the target device;
+  stage on the target device (lossless strips or tiles decode on the
+  host and are pasted beside them);
 - a WebP decodes through utils/webp.py on every machine (lossless VP8L,
   lossy VP8 with libwebp's fancy upsampling, alpha, VP8X and the first
   frame of an animation; the bitstreams in csrc/webp_decode.cpp), wholly
@@ -38,11 +41,11 @@ formats with libjpeg and libpng (cpp/decode.cpp). Here:
 
 `decode_rgb` / `decode_rgb_bytes` give host arrays (a JPEG's pixel stage
 then runs on the CPU). `read_image` gives the host half of a decode (a
-JPEG's coefficients, a JPEG TIFF's `tiff.JpegTiles`, or a PNG's or other
-TIFF's pixels) and `assemble` turns a batch of them into one (B, H, W, 3)
-uint8 tensor on a device, one pixel-stage call per JPEG geometry for all
-the batch's JPEGs and JPEG-TIFF parts; `decode_rgb_batch` is the two
-together.
+JPEG's coefficients, a JPEG TIFF's `tiff.JpegTiles`, or a lossless JPEG's,
+PNG's or other TIFF's pixels) and `assemble` turns a batch of them into
+one (B, H, W, 3) uint8 tensor on a device, one pixel-stage call per JPEG
+geometry for all the batch's JPEGs and JPEG-TIFF parts;
+`decode_rgb_batch` is the two together.
 """
 
 import ctypes
@@ -109,11 +112,12 @@ def _png_native(data: bytes):
 def read_bytes(data: bytes):
     """The host half of decoding image bytes: a JPEG's
     `jpeg.Coefficients`, a JPEG-compressed TIFF's `tiff.JpegTiles`, or a
-    PNG's, other TIFF's, WebP's, BMP's (or DIB's), GIF's or JPEG 2000's
-    (H, W, 3) uint8 pixels. Anything else raises ValueError."""
+    lossless JPEG's, PNG's, other TIFF's, WebP's, BMP's (or DIB's), GIF's
+    or JPEG 2000's (H, W, 3) uint8 pixels. Anything else raises
+    ValueError."""
     data = bytes(data)
     if jpeg.is_jpeg(data):
-        return jpeg.read_coefficients(data)
+        return jpeg.read(data)
     if data.startswith(png.SIGNATURE):
         out = _png_native(data)
         return out if out is not None else png.to_rgb(png.read_png(data))
@@ -186,7 +190,8 @@ def assemble(items, device, size=None) -> torch.Tensor:
     stage of the JPEGs and of the JPEG-compressed TIFFs' strips and tiles
     runs on `device` (`jpeg_pixels` on a card), one call per geometry
     for the whole batch, the coefficients copied from pinned host memory;
-    a TIFF's parts are then pasted, clipped and oriented on `device`.
+    a TIFF's parts (lossless ones as the host decoded them) are then
+    pasted, clipped and oriented on `device`.
     Without `size` every image must have one size; with it, an image of
     another size is resized to `size` on the host (utils/resize, Pillow's
     bilinear), as the JAX loader resizes a batch of mixed sizes."""
@@ -204,6 +209,7 @@ def assemble(items, device, size=None) -> torch.Tensor:
     out = torch.empty((len(items),) + size + (3,), dtype=torch.uint8,
                       device=device)
     groups = defaultdict(list)  # geometry -> [(item, part or None)]
+    lossless = defaultdict(list)  # item -> its lossless parts
     host, host_idx = [], []
     for i, it in enumerate(items):
         if isinstance(it, np.ndarray):
@@ -211,7 +217,10 @@ def assemble(items, device, size=None) -> torch.Tensor:
             host_idx.append(i)
         elif isinstance(it, tiff.JpegTiles):
             for k, (_, _, c) in enumerate(it.parts):
-                groups[c.geometry].append((i, k))
+                if isinstance(c, np.ndarray):  # a lossless part's pixels
+                    lossless[i].append(k)
+                else:
+                    groups[c.geometry].append((i, k))
         else:
             groups[it.geometry].append((i, None))
     if host:
@@ -221,6 +230,14 @@ def assemble(items, device, size=None) -> torch.Tensor:
             device)
     pin = device.type == "cuda"
     canvases = {}
+
+    def canvas_of(i):
+        if i not in canvases:
+            it = items[i]
+            canvases[i] = torch.empty((it.height, it.width, 3),
+                                      dtype=torch.uint8, device=device)
+        return canvases[i]
+
     for geometry, members in groups.items():
         parts = [items[i] if k is None else items[i].parts[k][2]
                  for i, k in members]
@@ -244,11 +261,15 @@ def assemble(items, device, size=None) -> torch.Tensor:
                 tiled[i].append(n)
         for i, ns in tiled.items():
             it = items[i]
-            if i not in canvases:
-                canvases[i] = torch.empty((it.height, it.width, 3),
-                                          dtype=torch.uint8, device=device)
-            it.paste(canvases[i], [it.parts[members[n][1]][:2] for n in ns],
+            it.paste(canvas_of(i),
+                     [it.parts[members[n][1]][:2] for n in ns],
                      rgb[ns[0]:ns[-1] + 1])
+    for i, ks in lossless.items():
+        it = items[i]
+        for k in ks:
+            y0, x0, part = it.parts[k]
+            it.paste(canvas_of(i), [(y0, x0)],
+                     torch.from_numpy(part[None]).to(device))
     for i, canvas in canvases.items():
         _put(out, [i], items[i].finish(canvas)[None], size)
     return out
@@ -308,7 +329,8 @@ def decode_rgb_batch(paths, device, size=None) -> torch.Tensor:
 def releases_gil(path) -> bool:
     """Whether decoding this file runs in native code that releases the
     GIL (so decode threads scale), by its name: a JPEG's Huffman decode
-    always, a TIFF's decompression always (LZW and PackBits in
+    always (a lossless one's whole decode, scans and colour, in
+    csrc/jpeg_entropy.cpp), a TIFF's decompression always (LZW and PackBits in
     csrc/tiff_codecs.cpp, Deflate in zlib, JPEG in csrc/jpeg_entropy.cpp,
     the samples in numpy), a WebP's bitstream always
     (csrc/webp_decode.cpp), a GIF's LZW always (csrc/gif_decode.cpp), a

@@ -51,6 +51,10 @@ for byte, without either library:
   `decode` gives such a file's host half, `JpegTiles`: the entropy decode
   of each stream (utils/jpeg), whose pixel stage `native_decode.assemble`
   runs for a whole batch, one `jpeg_pixels` launch per geometry on a card.
+  A lossless (SOF3) strip or tile decodes wholly on the host
+  (`jpeg.read`, the end of its data a fake EOI as libtiff gives it) and is
+  pasted beside the others; with YCbCr (6) it is refused, as libjpeg
+  converts no colour in lossless mode and libtiff fails.
 
 Refused with a ValueError that names the feature: the compressions
 old-style JPEG (6), CCITT (2, 3, 4), LZMA, ZSTD, WebP and any other;
@@ -473,19 +477,28 @@ def _samples(chunk, rows, cols, row_bytes, bits, n, order):
         rows, cols, n)
 
 
+def _part_size(part):
+    """(height, width) of a `jpeg.read` result."""
+    if isinstance(part, np.ndarray):
+        return part.shape[:2]
+    return part.geometry.height, part.geometry.width
+
+
 class JpegTiles(NamedTuple):
     """The host half of a JPEG-compressed TIFF: each strip's or tile's
-    `jpeg.Coefficients` at its top-left corner (y0, x0), and what turns
-    their pixels into the JAX loader's: the stored size (before
+    `jpeg.read` result at its top-left corner (y0, x0) (a DCT stream's
+    `jpeg.Coefficients`, a lossless one's (h, w, 3) uint8 RGB), and what
+    turns their pixels into the JAX loader's: the stored size (before
     Orientation), the Orientation, and whether the grey is MinIsWhite
-    (inverted). `native_decode.assemble` runs the pixel stage of a batch's
-    parts, one call per geometry, then `paste` and `finish`."""
+    (inverted). `native_decode.assemble` runs the pixel stage of a
+    batch's DCT parts, one call per geometry, then `paste`s them and the
+    lossless parts, and `finish`es."""
 
     height: int
     width: int
     orientation: int
     invert: bool
-    parts: Tuple[Tuple[int, int, jpeg.Coefficients], ...]
+    parts: Tuple[Tuple[int, int, object], ...]
 
     @property
     def size(self):
@@ -618,13 +631,13 @@ def _read_jpeg(data, order, tags, h, w):
         # image's rows, and keeps its top rows; every other strip or tile
         # must be coded at its own size
         last = not tiled and y0 + stored == h
-        part = jpeg.read_coefficients(
+        part = jpeg.read(
             stream, tables=tables, color=colour, sampling=sampling,
-            size=None if last else (stored, cw))
-        g = part.geometry
-        if last and (g.width != cw or g.height < stored):
-            raise ValueError(f"JPEG strip or tile of {g.height}x{g.width} "
-                             f"where the TIFF's is {stored}x{cw}")
+            size=None if last else (stored, cw), fake_eoi=True)
+        ph, pw = _part_size(part)
+        if last and (pw != cw or ph < stored):
+            raise ValueError(f"JPEG strip or tile of {ph}x{pw} where the "
+                             f"TIFF's is {stored}x{cw}")
         parts.append((y0, x0, part))
     return JpegTiles(h, w, _one(tags, ORIENTATION, 1), photo == 0,
                      tuple(parts))

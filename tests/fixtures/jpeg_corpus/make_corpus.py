@@ -1,8 +1,10 @@
 """Write the JPEG corpus of the port's decoder tests and of chip_smoke.py
-phase 16: files written by Pillow, by the port's encoder and by libjpeg's
-compression API (write_jpeg.cpp: progressive scan scripts, arithmetic
-coding, sampling factors 3 and 4, CMYK and YCCK), and a `manifest.json`
-with each file's SHA-256 and
+phases 16 and 21: files written by Pillow, by the port's encoder, by
+libjpeg's compression API (write_jpeg.cpp: progressive scan scripts,
+arithmetic coding, sampling factors 3 and 4, CMYK and YCCK; lossless
+files through libjpeg-turbo 3.1.3's), and by the lossless writer of
+lossless.py (subsampled lossless files, scans, markers and the refused
+lossless kinds), and a `manifest.json` with each file's SHA-256 and
 - for the files the JAX package reads, the SHA-256 of its RGB decode
   (`mapping_tpu.data.loader.load_image`) and the library that made it
   (`oracle`: the system's libjpeg-turbo, or Pillow where libjpeg declines
@@ -12,8 +14,12 @@ with each file's SHA-256 and
   (`jax_reads`, with its decode's SHA-256: a gap of the port).
 
 Run from the root of the repository, where Pillow, the JAX package's
-native decoder (libjpeg) and the libjpeg headers are installed (g++
-builds write_jpeg.cpp with -ljpeg into a temporary directory):
+native decoder (libjpeg) and the libjpeg headers are installed. g++
+builds write_jpeg.cpp into a temporary directory twice: with -ljpeg (the
+system's libjpeg-turbo 2.1.5), and with -DWITH_LOSSLESS against the same
+headers, linked to the libjpeg-turbo 3.1.3 that Pillow bundles
+(`pillow.libs/libjpeg-*.so*`, whose `jpeg_enable_lossless` the system's
+library lacks; both keep libjpeg 6.2's ABI):
 
     python tests/fixtures/jpeg_corpus/make_corpus.py
 """
@@ -33,10 +39,13 @@ from PIL import Image
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
+sys.path.insert(0, str(HERE))
 
 from mapping_tpu.data.loader import load_image  # noqa: E402
 from mapping_tpu.utils import native_decode  # noqa: E402
 from mapping_tpu_torch.utils import jpeg  # noqa: E402
+
+import lossless  # noqa: E402  (tests/fixtures/jpeg_corpus/lossless.py)
 
 #: a scan script with successive approximation in DC and AC, luma's AC
 #: split into two bands
@@ -146,13 +155,30 @@ def _segment(marker, body):
     return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
 
-def _written(small, base, sof):
-    """The files libjpeg's compression API writes (write_jpeg.cpp), and
-    the refused kinds made by hand."""
+def pillow_libjpeg():
+    """The libjpeg-turbo 3.1.3 that Pillow bundles."""
+    import PIL
+
+    libs = Path(PIL.__file__).resolve().parent.parent / "pillow.libs"
+    found = sorted(libs.glob("libjpeg-*.so*"))
+    if not found:
+        raise RuntimeError(f"no libjpeg in {libs}")
+    return found[0]
+
+
+def writer(lossless=False):
+    """write(img, **keys) -> bytes through write_jpeg.cpp, built into a
+    temporary directory: against the system's libjpeg, or with lossless
+    against Pillow's libjpeg-turbo 3.1.3 (see the module docstring)."""
     tmp = Path(tempfile.mkdtemp())
     tool = tmp / "write_jpeg"
-    subprocess.run(["g++", "-O2", "-o", str(tool), str(HERE / "write_jpeg.cpp"),
-                    "-ljpeg"], check=True)
+    if lossless:
+        lib = pillow_libjpeg()
+        link = ["-DWITH_LOSSLESS", str(lib), f"-Wl,-rpath,{lib.parent}"]
+    else:
+        link = ["-ljpeg"]
+    subprocess.run(["g++", "-O2", "-o", str(tool),
+                    str(HERE / "write_jpeg.cpp")] + link, check=True)
 
     def write(img, **kw):
         channels = 1 if img.ndim == 2 else img.shape[2]
@@ -163,6 +189,14 @@ def _written(small, base, sof):
                         f"n={channels}"] + [f"{k}={v}" for k, v in kw.items()],
                        check=True)
         return (tmp / "out.jpg").read_bytes()
+
+    return write
+
+
+def _written(small, base, sof):
+    """The files libjpeg's compression API writes (write_jpeg.cpp), and
+    the refused kinds made by hand."""
+    write = writer()
 
     tile = _image(300, 300, 9)
     mid = _image(48, 56, 10)
@@ -192,13 +226,14 @@ def _written(small, base, sof):
     yield "cmyk_plain.jpg", write(cmyk, q=85, space="cmyk", adobe=0), None
     yield "ycck_2x2.jpg", write(cmyk, q=85, space="ycck",
                                 samp="2x2,1x1,1x1,2x2"), None
+    # one Huffman code, category 0: every sample 2^7
+    flat = (_segment(0xC3, struct.pack(">BHHB", 8, 8, 8, 1) + b"\x01\x11"
+                     b"\x00")
+            + _segment(0xC4, b"\x00\x01" + bytes(15) + b"\x00")
+            + _segment(0xDA, b"\x01\x01\x00\x01\x00\x00"))
+    yield "lossless.jpg", b"\xff\xd8" + flat + bytes(8) + b"\xff\xd9", None
+    yield from _lossless()
     # the kinds that stay refused
-    lossless = (_segment(0xC3, struct.pack(">BHHB", 8, 8, 8, 1) + b"\x01\x11"
-                         b"\x00")
-                + _segment(0xC4, b"\x00\x01" + bytes(15) + b"\x00")
-                + _segment(0xDA, b"\x01\x01\x00\x01\x00\x00"))
-    yield "lossless.jpg", b"\xff\xd8" + lossless + bytes(8) + b"\xff\xd9", \
-        "lossless"
     hier = bytearray(base)
     hier[sof + 1] = 0xC5
     yield "hierarchical.jpg", bytes(hier), "hierarchical"
@@ -211,6 +246,130 @@ def _written(small, base, sof):
     big = bytearray(base)
     big[sof + 11] = 0x44  # luma 4x4: 18 blocks an MCU
     yield "over10_blocks.jpg", bytes(big), "more than 10 blocks"
+
+
+def tile_picture(side, seed):
+    """A smooth 300^2-like RGB tile with flat blocks (roofs): little noise,
+    so that its lossless file stays small."""
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:side, 0:side]
+    img = np.stack([40 + 120 * x / side, 60 + 100 * y / side,
+                    np.full((side, side), 90.0)], -1)
+    img += rng.randint(0, 2, (side, side, 3))
+    for _ in range(4):
+        y0, x0 = rng.randint(0, side, 2)
+        img[y0:y0 + side // 5, x0:x0 + side // 4] = rng.randint(120, 255, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _planes(h, w, factors, seed):
+    """Each component's samples at its own size for `lossless.encode`."""
+    hmax = max(a for a, _ in factors)
+    vmax = max(b for _, b in factors)
+    rng = np.random.RandomState(seed)
+    base = _image(h, w, seed)[..., 0].astype(np.int64)
+    out = []
+    for k, (a, b) in enumerate(factors):
+        ph, pw = -(-h * b // vmax), -(-w * a // hmax)
+        plane = base[::vmax // b, ::hmax // a][:ph, :pw] + 40 * k
+        out.append(np.clip(plane + rng.randint(0, 6, plane.shape), 0,
+                           255).astype(np.uint8))
+    return out
+
+
+def _lossless():
+    """Lossless (SOF3) files: libjpeg-turbo 3.1.3's own (which writes only
+    1 x 1 sampling, in the input's colour space) and hand-made ones for
+    the rest; then the lossless kinds that stay refused, which the JAX
+    loader refuses too."""
+    write = writer(lossless=True)
+    grey, rgb = _image(37, 41, 30)[..., 1], _image(37, 41, 31)
+    for psv in range(1, 8):
+        yield f"lossless_gray_p{psv}.jpg", write(
+            grey, lossless=psv, pt=(psv - 1) % 3), None
+    yield "lossless_rgb_p1.jpg", write(rgb, lossless=1), None
+    yield "lossless_rgb_p7_pt2.jpg", write(rgb, lossless=7, pt=2), None
+    yield "lossless_rgb_rows2.jpg", write(rgb, lossless=4, rows=2), None
+    yield "lossless_rgb_scans.jpg", write(
+        rgb, lossless=1, script="0:1:0:0:0;1:5:0:0:1;2:7:0:0:0"), None
+    cmyk = np.concatenate([rgb, _image(37, 41, 32)[..., :1]], axis=-1)
+    yield "lossless_cmyk.jpg", write(cmyk, lossless=6), None
+    yield "lossless_1x1.jpg", write(rgb[:1, :1], lossless=3), None
+    for k in range(9):
+        yield f"tile300_lossless_{k}.jpg", write(tile_picture(300, 40 + k),
+                                                 lossless=1), None
+
+    def hand(factors, psv=1, seed=33, h=29, w=35, **kw):
+        return lossless.encode(_planes(h, w, factors, seed), factors, psv,
+                               height=h, width=w, **kw)
+
+    rgb_ids = list(b"RGB")
+    adobe = _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x00")
+    yield "lossless_s2x2.jpg", hand([(2, 2), (1, 1), (1, 1)], 5,
+                                    ids=rgb_ids), None
+    yield "lossless_h4.jpg", hand([(4, 1), (1, 1), (1, 1)], 2, ids=rgb_ids,
+                                  restart=9), None
+    yield "lossless_v4.jpg", hand([(1, 4), (1, 1), (2, 1)], 6,
+                                  markers=adobe), None
+    yield "lossless_cmyk_2x2.jpg", hand([(2, 2), (1, 1), (1, 1), (2, 2)], 7,
+                                        pt=1), None
+    yield "lossless_ids123.jpg", hand([(1, 1)] * 3, 4), None
+    yield "lossless_gray_v2_rst.jpg", hand([(2, 2)], 3, restart=35), None
+    yield "lossless_dri_between_scans.jpg", hand(
+        [(1, 1)] * 3, 1, ids=rgb_ids, scans=[[0], [1], [2]],
+        restart=[70, 0, 35]), None
+    dnl = hand([(1, 1)], 2)
+    yield "lossless_dnl.jpg", dnl[:-2] + _segment(0xDC, b"\x00\x1d") \
+        + b"\xff\xd9", None
+    # the data stops at an EOI a third of the way in: zeros and reset
+    # predictors for every MCU row after it
+    data = bytearray(hand([(1, 1)] * 3, 7, ids=rgb_ids))
+    start = data.index(b"\xff\xda") + 14
+    cut = start + (len(data) - start) // 3
+    yield "lossless_early_eoi.jpg", bytes(data[:cut]) + b"\xff\xd9", None
+    # codes longer than 16 bits (all ones) in the middle: zeros
+    data[cut:cut + 12] = b"\xff\x00" * 6
+    yield "lossless_bad_code.jpg", bytes(data), None
+    # a restart marker out of sequence: libjpeg's resync
+    data = bytearray(hand([(1, 1)], 1, restart=70))
+    rst = data.index(b"\xff\xd2")
+    data[rst + 1] = 0xD5
+    yield "lossless_rst_resync.jpg", bytes(data), None
+    # refused
+    jfif = _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    yield "lossless_ycc.jpg", hand([(2, 2), (1, 1), (1, 1)], 1,
+                                   markers=jfif), "YCC"
+    yield "lossless_ycck.jpg", hand([(1, 1)] * 4, 1, markers=_segment(
+        0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x02")), "YCCK"
+    for bits in (2, 12, 16):
+        yield f"lossless_{bits}bit.jpg", hand([(1, 1)], 1,
+                                              precision=bits), f"{bits}-bit"
+    yield "lossless_predictor0.jpg", hand([(1, 1)], 1,
+                                          scan_params=b"\x00\x00\x00"), \
+        "predictor 0"
+    yield "lossless_pt8.jpg", hand([(1, 1)], 1, scan_params=b"\x01\x00\x08"), \
+        "point transform 8"
+    yield "lossless_se1.jpg", hand([(1, 1)], 1, scan_params=b"\x01\x01\x00"), \
+        "bad lossless JPEG scan"
+    for sof, name in ((0xC7, "hierarchical lossless"),
+                      (0xCB, "arithmetic-coded lossless"),
+                      (0xCF, "arithmetic-coded hierarchical lossless")):
+        yield f"lossless_sof{sof - 0xC0}.jpg", hand([(1, 1)], 1, sof=sof), \
+            name
+    yield "lossless_dri_part_row.jpg", hand([(1, 1)], 1, restart=34), \
+        "restart interval 34"
+    whole = hand([(1, 1)] * 3, 2, ids=rgb_ids)
+    yield "lossless_truncated.jpg", whole[:len(whole) * 2 // 3], "truncated"
+    yield "lossless_scans_no_eoi.jpg", hand(
+        [(1, 1)] * 3, 2, ids=rgb_ids, scans=[[0], [1], [2]])[:-2], \
+        "truncated"
+    yield "lossless_no_scan_2.jpg", hand(
+        [(1, 1)] * 3, 2, ids=rgb_ids, scans=[[0], [1]]), "has no scan"
+    yield "lossless_symbol17.jpg", hand(
+        [(1, 1)], 1, bits=(0, 1, 5, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0),
+        values=tuple(range(18))), "bad JPEG Huffman table"
+    yield "lossless_no_marker_after_soi.jpg", b"\xff\xd8\x00" \
+        + hand([(1, 1)], 1)[2:], "Pillow cannot identify"
 
 
 def _libraries():

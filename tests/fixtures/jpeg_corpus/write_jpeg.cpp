@@ -10,8 +10,8 @@
 // IN.raw holds h * w * channels bytes of the input colour space, row-major.
 // Keys (defaults in brackets):
 //   w, h            the image size
-//   in              input colour space: gray, rgb, cmyk, or unknown (then
-//                   `n` components, written as they come)
+//   in              input colour space: gray, rgb, ycc, cmyk, ycck, or
+//                   unknown (then `n` components, written as they come)
 //   space           the file's colour space: gray, ycc, rgb, cmyk or ycck
 //                   [libjpeg's default for `in`]
 //   q               quality [90]
@@ -21,9 +21,18 @@
 //                   "c,c,...:Ss:Se:Ah:Al" (component indices)
 //   arith           1: arithmetic coding [0]
 //   dri             restart interval in MCUs [0]
+//   rows            restart interval in MCU rows [0]
 //   adobe, jfif     1 / 0: write the Adobe / JFIF marker [libjpeg's]
 //   optimize        1: optimised Huffman tables [0]
 //   dcl, dcu, ack   arithmetic conditioning of every table [0, 1, 5]
+//   lossless        a predictor 1-7: a lossless (SOF3) file [0: none]
+//   pt              the lossless point transform [0]
+//
+// Lossless files need libjpeg-turbo 3's jpeg_enable_lossless, which the
+// system's 2.1 library lacks: make_corpus.py builds a second binary of
+// this source with -DWITH_LOSSLESS against the same headers, linked to
+// the libjpeg-turbo 3.1.3 that Pillow bundles (the same ABI, libjpeg
+// 6.2's), whose decoder is the JAX loader's for those files.
 
 #include <cstdio>
 #include <cstdlib>
@@ -32,6 +41,10 @@
 #include <vector>
 
 #include <jpeglib.h>
+
+#ifdef WITH_LOSSLESS
+extern "C" void jpeg_enable_lossless(j_compress_ptr cinfo, int psv, int pt);
+#endif
 
 namespace {
 
@@ -62,10 +75,10 @@ int main(int argc, char** argv) {
   const int w = atoi(arg(argc, argv, "w", "0").c_str());
   const int h = atoi(arg(argc, argv, "h", "0").c_str());
   const std::string in = arg(argc, argv, "in", "rgb");
-  const int channels = in == "gray"      ? 1
-                       : in == "cmyk"    ? 4
+  const int channels = in == "gray"                      ? 1
+                       : in == "cmyk" || in == "ycck"    ? 4
                        : in == "unknown" ? atoi(arg(argc, argv, "n", "2").c_str())
-                                         : 3;
+                                                         : 3;
   std::vector<unsigned char> pixels((size_t)w * h * channels);
   FILE* f = fopen(argv[1], "rb");
   if (!f || fread(pixels.data(), 1, pixels.size(), f) != pixels.size()) {
@@ -84,10 +97,18 @@ int main(int argc, char** argv) {
   cinfo.image_width = w;
   cinfo.image_height = h;
   cinfo.input_components = channels;
-  cinfo.in_color_space = in == "unknown" ? JCS_UNKNOWN
-                         : space(in == "gray" ? "gray" : in == "cmyk" ? "cmyk"
-                                                                      : "rgb");
+  cinfo.in_color_space = in == "unknown" ? JCS_UNKNOWN : space(in);
   jpeg_set_defaults(&cinfo);
+  // before the colour space and sampling, which it would reset
+  const int psv = atoi(arg(argc, argv, "lossless", "0").c_str());
+  if (psv) {
+#ifdef WITH_LOSSLESS
+    jpeg_enable_lossless(&cinfo, psv, atoi(arg(argc, argv, "pt", "0").c_str()));
+#else
+    fprintf(stderr, "lossless needs a build with -DWITH_LOSSLESS\n");
+    return 2;
+#endif
+  }
   const std::string sp = arg(argc, argv, "space", "");
   if (!sp.empty()) jpeg_set_colorspace(&cinfo, space(sp));
   jpeg_set_quality(&cinfo, atoi(arg(argc, argv, "q", "90").c_str()), TRUE);
@@ -100,6 +121,7 @@ int main(int argc, char** argv) {
   cinfo.arith_code = atoi(arg(argc, argv, "arith", "0").c_str()) != 0;
   cinfo.optimize_coding = atoi(arg(argc, argv, "optimize", "0").c_str()) != 0;
   cinfo.restart_interval = atoi(arg(argc, argv, "dri", "0").c_str());
+  cinfo.restart_in_rows = atoi(arg(argc, argv, "rows", "0").c_str());
   const std::string adobe = arg(argc, argv, "adobe", "");
   if (!adobe.empty()) cinfo.write_Adobe_marker = atoi(adobe.c_str()) != 0;
   const std::string jfif = arg(argc, argv, "jfif", "");

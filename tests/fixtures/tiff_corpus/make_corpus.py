@@ -37,6 +37,9 @@ sys.path.insert(0, str(HERE.parents[2]))
 from mapping_tpu.data.loader import load_image  # noqa: E402
 from mapping_tpu_torch.utils import jpeg, tiff  # noqa: E402
 
+sys.path.insert(0, str(HERE.parent / "jpeg_corpus"))
+import lossless  # noqa: E402  (the lossless JPEG writer of the fixtures)
+
 
 def _image(h, w, seed):
     """A tile-like picture: a gradient, mild noise and a bright block."""
@@ -128,6 +131,7 @@ def _cases():
     yield "size_1x1.tif", tiff.encode(_image(1, 1, 12), "lzw"), None
     yield "pil_jpeg.tif", _pil(rgb, compression="jpeg"), None
     yield from _jpeg_cases()
+    yield from _lossless_cases()
     # refused kinds
     yield "pil_group4.tif", _pil(rgb, "1", compression="group4"), \
         "CCITT Group 4"
@@ -169,6 +173,11 @@ def _cases():
     yield "header_20000x20000.tif", bytes(huge), "implausible image size"
 
 
+#: the struct formats of the TIFF field types `_classic` writes: SHORT,
+#: LONG, UNDEFINED
+_TYPES = {3: "H", 4: "I", 7: "B"}
+
+
 def _classic(entries, blobs):
     """A little-endian classic TIFF written by hand: `blobs` first, then
     one IFD of `entries` (tag, type, values, or a function of the blobs'
@@ -181,7 +190,7 @@ def _classic(entries, blobs):
     placed = []
     for tag, kind, values in sorted(entries, key=lambda e: e[0]):
         values = values(offsets) if callable(values) else values
-        body = struct.pack(f"<{len(values)}{'HI'[kind == 4]}", *values)
+        body = struct.pack(f"<{len(values)}{_TYPES[kind]}", *values)
         if len(body) > 4:
             where = len(out)
             out += body + b"\x00" * (len(body) % 2)
@@ -193,16 +202,95 @@ def _classic(entries, blobs):
     return bytes(out)
 
 
-def _jpeg_strips(img, streams, rows, subsampling, compression=7, extra=()):
-    """A hand-built YCbCr JPEG TIFF of `streams`, one strip each of
-    `rows` rows (RowsPerStrip)."""
-    h, w = img.shape[:2]
+def jpeg_tiff(img, stream, photometric, rows=None, tile=None, bits=8,
+              tables=None, extra=(), compression=7):
+    """A JPEG-compressed (7, or old-style 6) TIFF of `img` ((H, W) or
+    (H, W, n) uint8) laid out as tiff.encode lays one out, each strip of
+    `rows` rows (all by default) or each tile (width, length), zero padded
+    to its size, coded by `stream`: a function of its (h, w, n) samples,
+    or the list of the coded streams; JPEGTables `tables` where given,
+    `extra` entries besides (an Orientation, YCbCrSubsampling)."""
+    img = img[..., None] if img.ndim == 2 else img
+    h, w, n = img.shape
+    cw, ch = tile if tile is not None else (w, rows or h)
+    if callable(stream):
+        blocks = []
+        for y0 in range(0, h, ch):
+            for x0 in range(0, w, cw):
+                block = img[y0:y0 + ch, x0:x0 + cw]
+                if tile is not None:
+                    block = np.pad(block, ((0, ch - block.shape[0]),
+                                           (0, cw - block.shape[1]), (0, 0)))
+                blocks.append(stream(block))
+        stream = blocks
+    layout = ([(322, 4, [cw]), (323, 4, [ch]), (324, 4, lambda o: o),
+               (325, 4, [len(s) for s in stream])] if tile is not None else
+              [(273, 4, lambda o: o), (278, 4, [ch]),
+               (279, 4, [len(s) for s in stream])])
     return _classic([
-        (256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
-        (259, 3, [compression]), (262, 3, [6]), (273, 4, lambda o: o),
-        (277, 3, [3]), (278, 4, [rows]),
-        (279, 4, [len(s) for s in streams]), (284, 3, [1]),
-        (530, 3, list(subsampling)), *extra], streams)
+        (256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * n),
+        (259, 3, [compression]),
+        (262, 3, [photometric]), (277, 3, [n]), (284, 3, [1]), *layout,
+        *([(347, 7, list(tables))] if tables is not None else []),
+        *extra], stream)
+
+
+def lossless_stream(psv, pt=0, restart=0, precision=8, dht=True):
+    """A `jpeg_tiff` stream: each strip or tile a lossless JPEG of its
+    samples (without its DHT segment where not `dht`: the JPEGTables'
+    then)."""
+    def stream(block):
+        data = lossless.encode(
+            [block[..., k].astype(np.int64) << (precision - 8)
+             for k in range(block.shape[2])],
+            [(1, 1)] * block.shape[2], psv, pt, restart=restart,
+            precision=precision)
+        if not dht:  # SOI, then the DHT segment lossless.encode writes
+            data = data[:2] + data[4 + int.from_bytes(data[4:6], "big"):]
+        return data
+    return stream
+
+
+def _lossless_cases():
+    """Strips and tiles of lossless JPEG (SOF3) streams in compression 7,
+    as libtiff 4.7.1 reads them with libjpeg-turbo 3.1.3 (a TIFF no
+    writer of ours makes, but Pillow reads): grey, MinIsWhite with
+    Orientation, RGB strips and tiles, Huffman tables in JPEGTables,
+    restarts, lossless strips between lossy ones, a last strip coded
+    taller; refused: YCbCr (libjpeg converts no colour in lossless mode)
+    and 16-bit samples."""
+    img = _image(45, 67, 16)
+    yield "jpeg_lossless_grey_strips.tif", jpeg_tiff(
+        img[..., 0], lossless_stream(2), 1, rows=16), None
+    yield "jpeg_lossless_miniswhite_orientation6.tif", jpeg_tiff(
+        img[..., 1], lossless_stream(5, 1), 0, tile=(32, 32),
+        extra=[(274, 3, [6])]), None
+    yield "jpeg_lossless_rgb_tiles.tif", jpeg_tiff(
+        img, lossless_stream(7, 2), 2, tile=(32, 16)), None
+    tables = lossless.encode([img[:1, :1, 0]], [(1, 1)])
+    tables = tables[:4 + int.from_bytes(tables[4:6], "big")] + b"\xff\xd9"
+    yield "jpeg_lossless_rgb_tables_restart.tif", jpeg_tiff(
+        img, lossless_stream(4, restart=67 * 2, dht=False), 2, rows=8,
+        tables=tables), None
+    strips = [jpeg.encode(img[y:y + 16], 90, "4:4:4", color="rgb",
+                          jfif=False) if y % 32 else
+              lossless_stream(6)(img[y:y + 16]) for y in (0, 16, 32)]
+    yield "jpeg_lossless_between_lossy.tif", jpeg_tiff(
+        img, strips, 2, rows=16), None
+    padded = np.concatenate([img, _image(3, 67, 17)])
+    yield "jpeg_lossless_last_strip_taller.tif", jpeg_tiff(
+        img, [lossless_stream(1)(padded[y:y + 16]) for y in (0, 16, 32)],
+        2, rows=16), None
+    # refused
+    yield "jpeg_lossless_ycc.tif", jpeg_tiff(
+        img, lossless_stream(1), 6, rows=16, extra=[(530, 3, [1, 1])]), \
+        "lossless JPEG in YCC"
+    # (12-bit strips are not here: Pillow opens them as I;16 and reads
+    # other pixels in every process, so there is no digest to keep; see
+    # tests/test_torch_jpeg_lossless.py)
+    yield "jpeg_lossless_16bit.tif", jpeg_tiff(
+        img[..., 0], lossless_stream(1, precision=16), 1, rows=16,
+        bits=16), "16-bit JPEG-compressed TIFF"
 
 
 def _jpeg_cases():
@@ -248,9 +336,9 @@ def _jpeg_cases():
     # rows (JPEGPreDecode)
     tall = _image(40, 48, 14)
     padded = np.concatenate([tall, _image(8, 48, 15)])
-    yield "jpeg_last_strip_taller.tif", _jpeg_strips(tall, [
+    yield "jpeg_last_strip_taller.tif", jpeg_tiff(tall, [
         jpeg.encode(padded[y:y + 16], 90, "4:2:0", jfif=False)
-        for y in (0, 16, 32)], 16, (2, 2)), None
+        for y in (0, 16, 32)], 6, rows=16, extra=[(530, 3, [2, 2])]), None
     # refused: what libtiff refuses, or reads otherwise
     yield "jpeg_subsampling_mismatch.tif", tiff.encode(
         img, "jpeg", photometric=6, subsampling=(1, 1),
@@ -266,17 +354,17 @@ def _jpeg_cases():
     yield "jpeg_12bit.tif", bytes(grey), "12-bit JPEG-compressed TIFF"
     # a strip coded shorter than its rows: libtiff leaves the rest of its
     # buffer, the previous strip's rows, in the image
-    yield "jpeg_short_strip.tif", _jpeg_strips(tall, [
+    yield "jpeg_short_strip.tif", jpeg_tiff(tall, [
         jpeg.encode(tall[y:y + rows], 90, "4:2:0", jfif=False)
-        for y, rows in ((0, 16), (16, 16), (32, 4))], 16, (2, 2)), \
-        "JPEG strip or tile of 4x48"
+        for y, rows in ((0, 16), (16, 16), (32, 4))], 6, rows=16,
+        extra=[(530, 3, [2, 2])]), "JPEG strip or tile of 4x48"
     # old-style JPEG (compression 6): the strip and JPEGInterchangeFormat
     # (tags 513/514) both a whole baseline JFIF stream
     jif = jpeg.encode(tall, 90, "4:2:0")
-    yield "old_style_jpeg.tif", _jpeg_strips(
-        tall, [jif], 40, (2, 2), compression=6,
-        extra=((512, 3, [1]), (513, 4, lambda o: o),
-               (514, 4, [len(jif)]))), "old-style JPEG"
+    yield "old_style_jpeg.tif", jpeg_tiff(
+        tall, [jif], 6, compression=6,
+        extra=[(530, 3, [2, 2]), (512, 3, [1]), (513, 4, lambda o: o),
+               (514, 4, [len(jif)])]), "old-style JPEG"
 
 
 def _digest(rgb):

@@ -129,7 +129,7 @@ def test_corpus_decodes_as_libjpeg(name, tmp_path):
 def test_refused_kinds_raise_naming_the_feature(name, tmp_path):
     """The kinds the port refuses raise a ValueError naming the feature;
     the JAX package refuses them too, except where the manifest says it
-    reads the file (`jax_reads`: lossless JPEG through Pillow, a gap)."""
+    reads the file (`jax_reads`, a gap)."""
     data = (CORPUS / name).read_bytes()
     entry = MANIFEST[name]
     with pytest.raises(ValueError, match=entry["refused"]):
@@ -346,7 +346,7 @@ def test_oversized_headers_are_refused_before_the_scan(monkeypatch, height,
     assert height * width > jpeg.MAX_PIXELS
     monkeypatch.setattr(jpeg, "load", no_scan)
     with pytest.raises(ValueError, match="implausible image size"):
-        jpeg.read_coefficients(body)
+        jpeg.read(body)
     with pytest.raises(RequestError, match="implausible image size"):
         decode_request_image(body, "image/jpeg", (16, 16),
                              native_decode.DeviceDecoder("cpu"))
@@ -454,7 +454,7 @@ def _three_scans(img, quality):
     sequential file of three non-interleaved scans (luma, Cb, Cr), which
     libjpeg writes from a scan script and Pillow never does."""
     single = jpeg.encode(img, quality, "4:2:0")
-    c = jpeg.read_coefficients(single)
+    c = jpeg.read(single)
     g = c.geometry
     bits, vals = jpeg._huffman_arrays({})
     coef = np.ascontiguousarray(c.coef)
@@ -516,7 +516,7 @@ def test_batch_equals_a_stack_of_single_decodes(tmp_path):
 def test_the_wrappers_take_cuda_tensors_only():
     """A CPU tensor at the kernel's wrapper raises; `pixels` takes it to
     the plain version by its device alone, launching nothing."""
-    c = jpeg.read_coefficients(jpeg.encode(_picture(16, 16, 6), 80))
+    c = jpeg.read(jpeg.encode(_picture(16, 16, 6), 80))
     coef = torch.from_numpy(c.coef)[None]
     quant = torch.from_numpy(c.quant)[None]
     with pytest.raises(ValueError, match="CUDA"):
@@ -534,7 +534,7 @@ def test_quant_tables_past_16_bits_are_refused(value):
     """`pixels` refuses a quant value that no DQT table holds (past
     +-65,535, where the kernel's 32-bit dequantise would not be exact) and
     takes the 16-bit extremes."""
-    c = jpeg.read_coefficients(jpeg.encode(_picture(16, 16, 6), 80))
+    c = jpeg.read(jpeg.encode(_picture(16, 16, 6), 80))
     coef = torch.from_numpy(c.coef)[None]
     quant = torch.from_numpy(c.quant)[None].clone()
     quant[0, -1, 0] = value
@@ -560,8 +560,7 @@ def test_geometry_record_matches_the_cuda_struct():
     assert (scalars, arrays) == (9, 8)
     assert "constexpr int kMaxComps = 4;" in src
     assert pixels.GEOM_INTS == 9 + 4 * 8
-    g = jpeg.read_coefficients(jpeg.encode(_picture(9, 30, 7), 80,
-                                           "4:2:2")).geometry
+    g = jpeg.read(jpeg.encode(_picture(9, 30, 7), 80, "4:2:2")).geometry
     rec = list(pixels.geometry_record(g))
     assert len(rec) == pixels.GEOM_INTS
     assert rec[:9] == [3, 9, 30, g.n_blocks, 1, 2, 2, 2, 1]
@@ -569,19 +568,17 @@ def test_geometry_record_matches_the_cuda_struct():
     assert arrays == [[2, 1, 1, 0], [1, 1, 1, 0], list(g.first_block) + [0],
                       [9, 9, 9, 0], [30, 15, 15, 0], [1, 2, 2, 0],
                       [1, 1, 1, 0], [0, 1, 1, 0]]
-    gray = jpeg.read_coefficients(jpeg.encode(_picture(5, 3, 7)[..., 0],
-                                              80)).geometry
+    gray = jpeg.read(jpeg.encode(_picture(5, 3, 7)[..., 0], 80)).geometry
     rec = list(pixels.geometry_record(gray))
     assert rec[:9] == [1, 5, 3, 1, 0, 1, 1, 1, 1]
     assert rec[9:13] == [1, 0, 0, 0]  # unused components are zero
-    ycck = jpeg.read_coefficients(
-        (CORPUS / "ycck_2x2.jpg").read_bytes()).geometry
+    ycck = jpeg.read((CORPUS / "ycck_2x2.jpg").read_bytes()).geometry
     rec = list(pixels.geometry_record(ycck))
     assert rec[0] == 4 and rec[4] == pixels.COLORS["ycck"] == 4
     arrays = [rec[9 + 4 * i:13 + 4 * i] for i in range(8)]
     assert arrays[0] == [2, 1, 1, 2] and arrays[5] == [1, 2, 2, 1]
     assert arrays[7] == [0, 1, 1, 0]
-    box = jpeg.read_coefficients((CORPUS / "s411.jpg").read_bytes()).geometry
+    box = jpeg.read((CORPUS / "s411.jpg").read_bytes()).geometry
     arrays = [v for v in pixels.geometry_record(box)][9:]
     assert arrays[20:24] == [1, 4, 4, 0]  # ratio_h
     assert arrays[28:32] == [0, 0, 0, 0]  # box replication, no halo

@@ -140,15 +140,15 @@ def test_abbreviated_stream_reads_with_the_tables():
     the coefficients of the same image written whole; without them it is
     refused (no quant table)."""
     img = _picture(20, 30, 2)
-    whole = jpeg.read_coefficients(jpeg.encode(img, 80, "4:2:0"))
+    whole = jpeg.read(jpeg.encode(img, 80, "4:2:0"))
     stream = jpeg.encode(img, 80, "4:2:0", tables=False, jfif=False)
     assert b"\xff\xdb" not in stream and b"\xff\xc4" not in stream
-    part = jpeg.read_coefficients(stream, tables=jpeg.tables_only(80, 3))
+    part = jpeg.read(stream, tables=jpeg.tables_only(80, 3))
     assert part.geometry == whole.geometry
     np.testing.assert_array_equal(part.coef, whole.coef)
     np.testing.assert_array_equal(part.quant, whole.quant)
     with pytest.raises(ValueError, match="quant table 0 is not defined"):
-        jpeg.read_coefficients(stream)
+        jpeg.read(stream)
 
 
 def test_tiff_settings_override_and_check_the_stream():
@@ -157,20 +157,20 @@ def test_tiff_settings_override_and_check_the_stream():
     the frame header."""
     img = _picture(16, 24, 3)
     marked = jpeg.encode(img, 80, "4:4:4", jfif=False, adobe=0)  # RGB
-    assert jpeg.read_coefficients(marked).geometry.color == "rgb"
-    assert jpeg.read_coefficients(marked, color="ycc").geometry.color == "ycc"
+    assert jpeg.read(marked).geometry.color == "rgb"
+    assert jpeg.read(marked, color="ycc").geometry.color == "ycc"
     with pytest.raises(ValueError, match="3-component JPEG where the TIFF "
                                          "has 1"):
-        jpeg.read_coefficients(marked, color="gray")
+        jpeg.read(marked, color="gray")
     sub = jpeg.encode(img, 80, "4:2:0")
-    assert jpeg.read_coefficients(sub, sampling=(2, 2)).geometry.factors \
+    assert jpeg.read(sub, sampling=(2, 2)).geometry.factors \
         == ((2, 2), (1, 1), (1, 1))
     with pytest.raises(ValueError, match="sampling factors 2x2, 1x1, 1x1 "
                                          "where the TIFF has 1x1"):
-        jpeg.read_coefficients(sub, sampling=(1, 1))
+        jpeg.read(sub, sampling=(1, 1))
     with pytest.raises(ValueError, match="strip or tile of 16x24 where the "
                                          "TIFF's is 8x24"):
-        jpeg.read_coefficients(sub, size=(8, 24))
+        jpeg.read(sub, size=(8, 24))
 
 
 @pytest.mark.parametrize("tables", [
@@ -179,7 +179,7 @@ def test_tiff_settings_override_and_check_the_stream():
 def test_bogus_jpeg_tables_are_refused(tables):
     stream = jpeg.encode(np.zeros((8, 8), np.uint8), 90, tables=False)
     with pytest.raises(ValueError, match="bogus JPEGTables"):
-        jpeg.read_coefficients(stream, tables=tables)
+        jpeg.read(stream, tables=tables)
 
 
 @pytest.mark.parametrize("factors, want", [
