@@ -378,6 +378,27 @@ the JAX package is imported. Phases, each printing what it found:
      and one K2 launch and no `jpeg_pixels` launch; (c) the host decode
      of a 300^2 tile in ms on one thread, beside the JPEG Huffman decode
      of the same pixels as a baseline JPEG.
+ 22. GeoTIFF's compressions and sample formats, under
+     build/chip_smoke_tiff_gdal/, in at most TIFF_GDAL_BUDGET_S: (a) the
+     ZSTD, LZMA and numeric files of tests/fixtures/tiff_corpus (libzstd's
+     and liblzma's strips and tiles at levels 1-22, predictors 2 and 3 in
+     both byte orders, float32, int32, int16 and 12-bit samples, edited
+     frames and streams) must decode through `native_decode` (ZSTD by
+     csrc/zstd_decode.cpp, built in phase 2, LZMA by the standard
+     library's lzma) and `assemble` on the card to the SHA-256 of the JAX
+     package's decode in the manifest, the refused kinds (windows past
+     2^27, dictionaries, legacy frames, skippable frames first, bad
+     checksums, cut data, layouts Pillow lacks) must raise naming their
+     cause, and every frame of tests/fixtures/zstd_frames must decode to
+     its content's SHA-256; (b) the corpus's six 300^2 tiles (ZSTD RGB
+     with predictor 2, LZMA RGB, float32 grey ZSTD with predictor 3) and
+     PNG tiles of their decoded pixels: `predict_on_dir -p unet_weighted`
+     over the six in this process on the card, on phase 9 (a)'s weights,
+     must write the same prediction.json as over the PNG tiles, with one
+     K1 and one K2 launch and no `jpeg_pixels` launch; (c) the host
+     decode of a 300^2 tile in ms on one thread (ZSTD, LZMA, Deflate of
+     the same pixels, float32 ZSTD with predictor 3) and the ZSTD
+     decoder's output rate.
 Kernel and cuDNN times are device times: the call is captured once in a
 CUDA graph and the graph replayed between CUDA events, so the host's launch
 overhead is not in them. Plain versions and torch.unique (which read
@@ -598,6 +619,11 @@ JPEG_LOSSLESS_DIR = ROOT / "build" / "chip_smoke_jpeg_lossless"
 #: phase 21 (c): decodes of a 300^2 tile a median; the phase's budget
 JPEG_LOSSLESS_REPS = 20
 JPEG_LOSSLESS_BUDGET_S = 20.0
+TIFF_GDAL_DIR = ROOT / "build" / "chip_smoke_tiff_gdal"
+ZSTD_FRAMES = ROOT / "tests" / "fixtures" / "zstd_frames"
+#: phase 22 (c): decodes of a 300^2 tile a median; the phase's budget
+TIFF_GDAL_REPS = 20
+TIFF_GDAL_BUDGET_S = 20.0
 #: a child process that runs the CLI's entry point on its arguments and
 #: prints the CCL launch counts of its run as its last line
 CLI_CHILD = ("import json, sys\n"
@@ -1172,7 +1198,7 @@ def slice_phase(gen, smi):
 
 def build_phase():
     from mapping_tpu_torch.kernels import build, ccl, conv_dw, jpeg
-    from mapping_tpu_torch.utils import jp2
+    from mapping_tpu_torch.utils import jp2, tiff
     from mapping_tpu_torch.utils import jpeg as jpeg_host
 
     specs = {k.LIBRARY: k.SOURCES for k in (ccl, conv_dw, jpeg)}
@@ -1182,10 +1208,11 @@ def build_phase():
                      old_conv_dw=[csrc / "conv_dw.cu"],
                      old_jpeg=[csrc / "jpeg_pixels.cu"])
     start = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        # csrc/jp2_decode.cpp, the longest g++ build, beside nvcc; raises
-        # naming it
+    with ThreadPoolExecutor(2) as pool:
+        # csrc/jp2_decode.cpp, the longest g++ build, and
+        # csrc/zstd_decode.cpp beside nvcc; each raises naming it
         host = pool.submit(jp2.load)
+        zstd = pool.submit(tiff.load_zstd)
         for name, built in build.build_shared_libraries(specs).items():
             print(f"build: {built.path.name} in {built.seconds:.2f} s")
             for line in built.log.splitlines():
@@ -1196,8 +1223,10 @@ def build_phase():
                     raise AssertionError(f"{name}: ptxas reports a spill: "
                                          f"{line}")
         host.result()
-    print(f"build: csrc/jp2_decode.cpp (g++ {' '.join(jp2.FLAGS)}) loaded "
-          f"{time.perf_counter() - start:.2f} s after the builds began")
+        zstd.result()
+    print(f"build: csrc/jp2_decode.cpp (g++ {' '.join(jp2.FLAGS)}) and "
+          f"csrc/zstd_decode.cpp loaded {time.perf_counter() - start:.2f} s "
+          f"after the builds began")
     start = time.perf_counter()
     jpeg_host.load()  # csrc/jpeg_entropy.cpp with g++; raises naming it
     print(f"build: csrc/jpeg_entropy.cpp (g++) loaded in "
@@ -4999,6 +5028,138 @@ def jpeg_lossless_phase(smi):
     return launched
 
 
+def is_gdal(name):
+    """The ZSTD, LZMA and numeric files of the TIFF corpus, by name."""
+    return name.startswith(("gdal_", "tile300_zstd", "tile300_lzma")) or \
+        name in ("pil_zstd.tif", "pil_lzma.tif", "pil_float32.tif",
+                 "pil_int32.tif")
+
+
+def tiff_gdal_phase(smi):
+    """Phase 22: ZSTD- and LZMA-compressed TIFF, predictor 3 and Pillow's
+    numeric layouts through the port's host decoders: the corpus's digests
+    and refusals (through `assemble` on the card), the ZSTD frames'
+    contents, predict_on_dir over six 300^2 tiles = over the same pixels
+    as PNG, and the host decode of a 300^2 tile. Returns the main path's
+    launches."""
+    import hashlib
+
+    from mapping_tpu_torch.utils import native_decode, png, tiff
+
+    begin = time.perf_counter()
+
+    def on_card(data):
+        return native_decode.assemble([native_decode.read_bytes(data)],
+                                      DEVICE)[0].cpu().numpy()
+
+    manifest = json.loads((TIFF_CORPUS / "manifest.json").read_text())
+    picked = [e for n, e in manifest.items() if is_gdal(n)]
+    found = corpus_digests(TIFF_CORPUS, on_card, "decode_sha256", is_gdal)
+    if found != (sum("refused" not in e for e in picked),
+                 sum("refused" in e for e in picked)):
+        raise AssertionError(f"ZSTD, LZMA and numeric TIFF files: {found} "
+                             f"(decoded, refused)")
+    frames = json.loads((ZSTD_FRAMES / "manifest.json").read_text())
+    for name, entry in sorted(frames.items()):
+        frame = (ZSTD_FRAMES / name).read_bytes()
+        content = tiff.zstd_decode(frame, entry["content_size"]).tobytes()
+        if hashlib.sha256(content).hexdigest() != entry["content_sha256"]:
+            raise AssertionError(f"{name}: not libzstd's content")
+    print(f"tiff_gdal: (a) ZSTD, LZMA and numeric TIFF files decode on the "
+          f"host to the JAX package's digests through `assemble` on the "
+          f"card, and the refused kinds raise naming their cause: {found} "
+          f"(decoded, refused); {len(frames)} ZSTD frames decode to their "
+          f"content; (a) took {time.perf_counter() - begin:.2f} s")
+    part = time.perf_counter()
+
+    # (b) the six 300^2 tiles against PNG of their decoded pixels
+    shutil.rmtree(TIFF_GDAL_DIR, ignore_errors=True)
+    for fmt in ("tif", "png"):
+        (TIFF_GDAL_DIR / fmt).mkdir(parents=True)
+    tiles = sorted(p for p in TIFF_CORPUS.glob("tile300_*.tif")
+                   if is_gdal(p.name))
+    for path in tiles:
+        shutil.copy2(path, TIFF_GDAL_DIR / "tif" / path.name)
+        pixels = native_decode.decode_rgb_bytes(path.read_bytes())
+        (TIFF_GDAL_DIR / "png" / f"{path.stem}.png").write_bytes(
+            png.encode_png(pixels))
+    experiment = TIFF_GDAL_DIR / "experiment"
+    (experiment / "transformers").mkdir(parents=True)
+    shutil.copy2(TRAIN_DIR / "full" / "transformers" / "unet.pt",
+                 experiment / "transformers" / "unet.pt")
+    config = write_config("tiff_gdal", {
+        "data_dir": str(TIFF_GDAL_DIR),
+        "meta_dir": str(TIFF_GDAL_DIR / "meta"),
+        "experiment_dir": str(experiment), "device": DEVICE,
+        **EVAL_PARAMS}, where=TIFF_GDAL_DIR)
+    runs = {fmt: tiff_predict(config, fmt, TIFF_GDAL_DIR)
+            for fmt in ("png", "tif")}
+    same = (TIFF_GDAL_DIR / "tif.json").read_bytes() == \
+        (TIFF_GDAL_DIR / "png.json").read_bytes()
+    prediction = check_prediction(TIFF_GDAL_DIR / "tif.json",
+                                  set(range(len(tiles))),
+                                  "ZSTD, LZMA and float32 tiles",
+                                  allow_empty=True)
+    seconds, launched, pixels_launched, timings = runs["tif"]
+    if not same or len(tiles) != 6 or pixels_launched \
+            or launched != {"ccl_label_raw": 1, "ccl_renumber": 1} \
+            or timings["images"] != len(tiles):
+        raise AssertionError(f"predict_on_dir over {len(tiles)} ZSTD, LZMA "
+                             f"and float32 tiles: same as PNG {same}, CCL "
+                             f"launches {launched}, jpeg_pixels "
+                             f"{pixels_launched}, {timings['images']} images")
+    print(f"tiff_gdal: (b) predict_on_dir over {len(tiles)} 300^2 tiles "
+          f"(2 ZSTD RGB predictor 2, 2 LZMA RGB, 2 float32 grey ZSTD "
+          f"predictor 3) wrote the same prediction.json as over PNG tiles "
+          f"of their decoded pixels ({len(prediction)} instances); TIFF "
+          f"{seconds:.2f} s, decode_s {timings['decode_s']:.4f}, PNG "
+          f"{runs['png'][0]:.2f} s, decode_s "
+          f"{runs['png'][3]['decode_s']:.4f} (host clock); CCL launches "
+          f"{launched}, jpeg_pixels {pixels_launched} on {smi}")
+    print(f"tiff_gdal: (b) took {time.perf_counter() - part:.2f} s")
+
+    # (c) the host decode of a 300^2 tile on one thread
+    def median_ms(decode, data):
+        decode(data)
+        ms = []
+        for _ in range(TIFF_GDAL_REPS):
+            start = time.perf_counter()
+            decode(data)
+            ms.append((time.perf_counter() - start) * 1e3)
+        return float(np.median(ms)), min(ms)
+
+    zstd_tile = (TIFF_CORPUS / "tile300_zstd_rgb_0.tif").read_bytes()
+    timed = {"ZSTD": median_ms(tiff.decode, zstd_tile),
+             "LZMA": median_ms(tiff.decode, (
+                 TIFF_CORPUS / "tile300_lzma_rgb_0.tif").read_bytes()),
+             "Deflate": median_ms(tiff.decode, tiff.encode(
+                 tiff.decode(zstd_tile), "deflate", predictor=2,
+                 rows_per_strip=8)),
+             "float32 ZSTD predictor 3": median_ms(tiff.decode, (
+                 TIFF_CORPUS / "tile300_zstd_float_0.tif").read_bytes())}
+    order, tags = tiff._ifd(zstd_tile)
+    strips = [(zstd_tile[start:start + count], stored * row_bytes)
+              for _, _, _, _, _, row_bytes, start, count, stored in
+              tiff._chunks(tags, 300, 300, 3, 8, 1)]
+    rate_ms = median_ms(lambda parts: [tiff.zstd_decode(raw, want)
+                                       for raw, want in parts], strips)[0]
+    out_mb = sum(want for _, want in strips) / 1e6
+    print("tiff_gdal: (c) host decode of a 300^2 tile on 1 thread, median "
+          "(min) ms: " + ", ".join(f"{what} {m:.4f} ({lo:.4f})"
+                                   for what, (m, lo) in timed.items())
+          + f" (host clock, {TIFF_GDAL_REPS} decodes each; Deflate with "
+          f"predictor 2 of the ZSTD tile's pixels); csrc/zstd_decode.cpp "
+          f"alone {out_mb / rate_ms * 1e3:.1f} MB/s of output over the "
+          f"tile's {len(strips)} strips on {smi}")
+    seconds = time.perf_counter() - begin
+    print(f"tiff_gdal: phase 22 took {seconds:.2f} s; main-path launches "
+          f"{launched}")
+    if seconds > TIFF_GDAL_BUDGET_S:
+        raise AssertionError(f"phase 22 took {seconds:.2f} s, over its "
+                             f"{TIFF_GDAL_BUDGET_S} s")
+    return launched
+
+
 def main():
     start = time.perf_counter()
     last = [start]
@@ -5049,6 +5210,8 @@ def main():
     lap(20)
     counted.append(jpeg_lossless_phase(smi))
     lap(21)
+    counted.append(tiff_gdal_phase(smi))
+    lap(22)
     for counts in counted + [jpeg_launches]:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n

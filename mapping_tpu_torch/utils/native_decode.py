@@ -19,7 +19,8 @@ formats with libjpeg and libpng (cpp/decode.cpp). Here:
   which reads every PNG kind and applies libpng's gamma conversion where
   libpng would: the two give the same bytes;
 - a TIFF decodes through utils/tiff.py on every machine (strips and tiles;
-  none, LZW, Deflate, PackBits and JPEG; the sample layouts Pillow reads),
+  none, LZW, Deflate, PackBits, LZMA, ZSTD and JPEG; the sample layouts
+  Pillow reads, its float and integer ones among them),
   as the JAX loader reads it through Pillow; a JPEG-compressed one's
   strips or tiles go through the JPEG decoder's two halves, their pixel
   stage on the target device (lossless strips or tiles decode on the
@@ -331,8 +332,9 @@ def releases_gil(path) -> bool:
     GIL (so decode threads scale), by its name: a JPEG's Huffman decode
     always (a lossless one's whole decode, scans and colour, in
     csrc/jpeg_entropy.cpp), a TIFF's decompression always (LZW and PackBits in
-    csrc/tiff_codecs.cpp, Deflate in zlib, JPEG in csrc/jpeg_entropy.cpp,
-    the samples in numpy), a WebP's bitstream always
+    csrc/tiff_codecs.cpp, ZSTD in csrc/zstd_decode.cpp, Deflate in zlib,
+    LZMA in liblzma, JPEG in csrc/jpeg_entropy.cpp, the samples in numpy),
+    a WebP's bitstream always
     (csrc/webp_decode.cpp), a GIF's LZW always (csrc/gif_decode.cpp), a
     BMP's always (RLE in csrc/bmp_decode.cpp, raw rows in numpy copies), a
     JPEG 2000 codestream always (csrc/jp2_decode.cpp), a PNG where libpng
